@@ -32,4 +32,9 @@ from repro_torch.core.eigenspace import (  # noqa: F401
     refinement_rounds,
 )
 from repro_torch.core.covariance import empirical_covariance  # noqa: F401
-from repro_torch.core.distributed import distributed_pca  # noqa: F401
+from repro_torch.core.distributed import (  # noqa: F401
+    distributed_pca,
+    distributed_pca_collective,
+    procrustes_average_collective,
+    sign_average_collective,
+)

@@ -11,9 +11,10 @@ by ``backend=`` ("torch" | "cuda" | "auto"), ``polar=`` ("svd" |
     Gram (with Newton-Schulz fused in under ``polar="newton-schulz"``),
     the r x r SVD in ``torch.linalg`` under ``polar="svd"``, the aligned
     average, and the orthonormalization in ``torch.linalg``.
-  * The (cuda, newton-schulz, cholesky-qr2) cell is one fused launch per
-    round in the reference (``fused_round``); it is not ported yet
-    (ROADMAP B5) and raises rather than run the per-stage kernels.
+  * The (cuda, newton-schulz, cholesky-qr2) cell runs each round as one
+    launch of the fused round kernel (``kops.fused_round``, B5): Gram,
+    polar, aligned average and both CholeskyQR passes in one kernel, with
+    no torch op between rounds.
   * ``plan=`` takes only ``None`` (the legacy defaults "torch", "svd",
     "qr"); the cost-model planner is ROADMAP A7.
 """
@@ -55,15 +56,14 @@ def _rounds_cuda(
     vs: torch.Tensor, ref: torch.Tensor, *, n_iter: int, polar: str, orth: str
 ) -> torch.Tensor:
     """Kernel-dispatched round loop (mirrors the reference's
-    ``_rounds_pallas``): Gram (+ polar) kernel, aligned-average kernel,
-    orthonormalization, ``n_iter`` times."""
+    ``_rounds_pallas``): the fused round kernel on the (newton-schulz,
+    cholesky-qr2) cell, else Gram (+ polar) kernel, aligned-average
+    kernel, orthonormalization, ``n_iter`` times."""
     from repro_torch.kernels import ops as kops
 
     if polar == "newton-schulz" and orth == "cholesky-qr2":
-        raise NotImplementedError(
-            "backend='cuda' with polar='newton-schulz', orth='cholesky-qr2' "
-            "is the one-launch fused_round in the reference; its CUDA port "
-            "is ROADMAP B5 (use orth='qr' or backend='torch')"
+        return kops.fused_round(
+            vs, ref.contiguous(), n_iter=n_iter, use_kernel=True
         )
     out = ref
     for _ in range(max(n_iter, 1)):

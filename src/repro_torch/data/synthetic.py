@@ -4,7 +4,12 @@ Gaussian part of ``repro/data/synthetic.py``).
 (M1)/(M2) spectra, Haar-rotated covariances (eq. (34)) and Gaussian
 samples.  Randomness comes from an explicit ``torch.Generator`` on the
 output's device; torch and ``jax.random`` give different numbers from one
-seed, so cross-package tests make their inputs in numpy instead.  As in
+seed, so cross-package tests make their inputs in numpy instead.
+
+Data rule of the two forms of distributed PCA (``sample_shard``): shard
+k's rows come from their own generator, seeded from (seed, k), so a
+one-process run over the stacked shards and a run with one shard per
+rank estimate from the same data.  As in
 the reference, (M2)'s first trailing eigenvalue is ``1 - delta``, so the
 eigengap is exactly ``delta``.
 """
@@ -21,6 +26,8 @@ __all__ = [
     "spectrum_m2",
     "covariance_from_spectrum",
     "sample_gaussian",
+    "sample_shard",
+    "sample_shards",
 ]
 
 # Rows drawn per matmul in ``sample_gaussian``: bounds the Gaussian
@@ -110,4 +117,29 @@ def sample_gaussian(
             device=factor.device,
         )
         torch.matmul(z, factor.T, out=out[lo:hi])
+    return out
+
+
+def _shard_seed(seed: int, shard: int) -> int:
+    return seed * 1_000_003 + shard + 1
+
+
+def sample_shard(
+    factor: torch.Tensor, n: int, *, seed: int, shard: int
+) -> torch.Tensor:
+    """Shard ``shard``'s n samples (n, d) of x = factor @ z, from the
+    generator seeded from (``seed``, ``shard``) on factor's device."""
+    gen = torch.Generator(device=factor.device).manual_seed(_shard_seed(seed, shard))
+    return sample_gaussian(factor, n, generator=gen)
+
+
+def sample_shards(
+    factor: torch.Tensor, n: int, *, seed: int, shards: int
+) -> torch.Tensor:
+    """The first ``shards`` shards of ``sample_shard`` stacked by rows:
+    (shards * n, d), shard k in rows [k n, (k + 1) n)."""
+    d = factor.shape[1]
+    out = torch.empty((shards * n, d), dtype=factor.dtype, device=factor.device)
+    for k in range(shards):
+        out[k * n:(k + 1) * n] = sample_shard(factor, n, seed=seed, shard=k)
     return out

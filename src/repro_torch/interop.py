@@ -2,8 +2,11 @@
 
 The system has no weights: what the reference hands over is arrays
 (samples, covariances, the (m, d, r) stack of local bases, a reference
-basis, a subspace-iteration start ``v0``).  They cross as numpy arrays,
-so one set of inputs made from a numpy seed feeds both packages.
+basis, a subspace-iteration start ``v0``, wire payloads in bf16 or int8
+with their f32 column scales, a ``Membership``'s mask).  They cross as
+numpy arrays, so one set of inputs made from a numpy seed feeds both
+packages; a bf16 array (numpy's ``ml_dtypes`` bfloat16) crosses bit for
+bit.
 
 Also the device rule of the port's entry points: ``resolve_device``
 places work on the card unless the caller names the CPU, and raises when
@@ -51,7 +54,11 @@ def from_reference(
     dev = resolve_device(device)
     out = {}
     for name, arr in arrays.items():
-        t = torch.from_numpy(np.array(arr, copy=True))
+        host = np.array(arr, copy=True)
+        if host.dtype.name == "bfloat16":  # no numpy dtype torch reads
+            t = torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(host)
         out[name] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
 

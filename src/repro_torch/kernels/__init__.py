@@ -5,6 +5,8 @@ versions.
   * ``procrustes_align.batched_gram``   B2, ``csrc/procrustes_align.cu``
   * ``procrustes_align.batched_gram_polar``  B3, same source
   * ``procrustes_align.align_average``  B4, same source
+  * ``procrustes_align.fused_round``    B5, ``csrc/fused_round.cu``
+  * ``procrustes_align.fused_ring_round``  B6, same source
 
 ``launch_counts`` / ``reset_launch_counts`` read and zero every wrapper's
 launch counter, so a run can show which kernels its main path launched.
@@ -23,6 +25,8 @@ WRAPPERS = {
     "batched_gram": procrustes_align.batched_gram,
     "batched_gram_polar": procrustes_align.batched_gram_polar,
     "align_average": procrustes_align.align_average,
+    "fused_round": procrustes_align.fused_round,
+    "fused_ring_round": procrustes_align.fused_ring_round,
 }
 
 

@@ -37,6 +37,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, m, d, r,
+# rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c, grid_out, stream.
+_ROUND = (_I, *(_P,) * 9, *(_I,) * 8, _F, _F, _P, _P)
 # C signature of every entry point: (argtypes), all return an int status.
 _SIGNATURES = {
     "rt_gram_f32": (_I, _P, _P, _I, _I, _I, _I, _P),
@@ -44,6 +48,9 @@ _SIGNATURES = {
     "rt_batched_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_batched_gram_polar": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_align_average": (_I, _P, _P, _P, _I, _I, _I, _P),
+    "rt_fused_round_f32": _ROUND,
+    "rt_fused_round_bf16": _ROUND,
+    "rt_fused_round_i8": _ROUND,
 }
 
 

@@ -19,6 +19,9 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(signed char v) {
+  return static_cast<float>(v);
+}
 
 // Register-blocked FP32 tile product over one BK-deep slice staged in
 // shared memory:  acc[u][v] += sum_k As[k][ty + u*TY] * Bs[k][tx + v*TX].

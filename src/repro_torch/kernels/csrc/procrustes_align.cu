@@ -35,6 +35,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "ns_polar.cuh"
 
 namespace {
 
@@ -72,118 +73,18 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   }
 }
 
-// C = op(X) * Y over rp x rp tiles in shared memory (row stride ld), one
-// 4x4 strided patch per thread per step: rows ti + u*nt, cols tj + v*nt.
-// kTransA selects C = X^T Y (reads rows of X) over C = X Y.
-template <bool kTransA>
-__device__ void small_matmul(const float* __restrict__ x,
-                             const float* __restrict__ y,
-                             float* __restrict__ c, int rp, int ld, int r,
-                             float scale, bool minus_from_3i) {
-  const int nt = rp / 4;
-  for (int t = threadIdx.x; t < nt * nt; t += blockDim.x) {
-    const int ti = t / nt;
-    const int tj = t % nt;
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int k = 0; k < rp; ++k) {
-      float a[4];
-      float b[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        a[u] = kTransA ? x[k * ld + ti + u * nt] : x[(ti + u * nt) * ld + k];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) b[v] = y[k * ld + tj + v * nt];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = ti + u * nt;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int j = tj + v * nt;
-        float val = acc[u][v];
-        if (minus_from_3i) val = ((i == j && i < r) ? 3.f : 0.f) - val;
-        c[i * ld + j] = scale * val;
-      }
-    }
-  }
-}
-
 // Pass 2 of B3: one block per machine reduces its splits into the r x r
-// Gram, Frobenius-normalises it (1e-30 floor) and runs ns_iters steps of
-// X <- 0.5 * X (3I - X^T X), all in shared memory; writes Z_i.
+// Gram and runs the Newton-Schulz steps in shared memory (ns_polar.cuh).
 __global__ void __launch_bounds__(kNsThreads)
     ns_polar_kernel(const float* __restrict__ part, float* __restrict__ out,
                     int splits, int r, int ns_iters) {
   extern __shared__ float smem[];
   __shared__ float warp_sums[kNsThreads / 32];
-  const int rp = (r + 3) & ~3;  // padded edge: rows/cols >= r stay zero
-  const int ld = rp + 1;        // odd stride: column reads hit distinct banks
-  float* x = smem;
-  float* t = x + rp * ld;
-  float* y = t + rp * ld;
   const int z = blockIdx.x;
   const size_t rr = static_cast<size_t>(r) * r;
-  const float* pz = part + static_cast<size_t>(z) * splits * rr;
-
-  float sq = 0.f;
-  for (int e = threadIdx.x; e < rp * rp; e += blockDim.x) {
-    const int i = e / rp;
-    const int j = e % rp;
-    float g = 0.f;
-    if (i < r && j < r) {
-      for (int s = 0; s < splits; ++s) g += pz[s * rr + i * r + j];
-    }
-    x[i * ld + j] = g;
-    sq = fmaf(g, g, sq);
-  }
-  // Deterministic block reduction of sum(g * g): warp tree, then warp 0
-  // adds the per-warp sums in order.
-  for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = sq;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kNsThreads / 32; ++w) total += warp_sums[w];
-    warp_sums[0] = total;
-  }
-  __syncthreads();
-  const float norm = fmaxf(sqrtf(warp_sums[0]), 1e-30f);
-  for (int e = threadIdx.x; e < rp * rp; e += blockDim.x) {
-    const int i = e / rp;
-    const int j = e % rp;
-    x[i * ld + j] = x[i * ld + j] / norm;
-  }
-  __syncthreads();
-
-  for (int it = 0; it < ns_iters; ++it) {
-    small_matmul<true>(x, x, t, rp, ld, r, 1.f, true);   // t = 3I - x^T x
-    __syncthreads();
-    small_matmul<false>(x, t, y, rp, ld, r, 0.5f, false);  // y = 0.5 x t
-    __syncthreads();
-    float* tmp = x;
-    x = y;
-    y = tmp;
-  }
-
-  float* oz = out + static_cast<size_t>(z) * rr;
-  for (int e = threadIdx.x; e < r * r; e += blockDim.x) {
-    const int i = e / r;
-    const int j = e % r;
-    oz[e] = x[i * ld + j];
-  }
-}
-
-size_t ns_smem_bytes(int r) {
-  const size_t rp = static_cast<size_t>((r + 3) & ~3);
-  return 3 * rp * (rp + 1) * sizeof(float);
+  rt::ns_polar_block(part + static_cast<size_t>(z) * splits * rr,
+                     out + static_cast<size_t>(z) * rr, splits, r, ns_iters,
+                     smem, warp_sums);
 }
 
 // B4: out (d, r) = (1/m) sum_i vs[i] (d, r) @ zs[i] (r, r).
@@ -282,7 +183,7 @@ int rt_batched_gram_polar(int device, const void* vs, const void* ref,
                             static_cast<float*>(part), m, d, r,
                             rows_per_split, splits, s);
   if (code) return code;
-  const size_t smem = ns_smem_bytes(r);
+  const size_t smem = rt::ns_smem_bytes(r);
   err = cudaFuncSetAttribute(ns_polar_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

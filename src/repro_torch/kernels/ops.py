@@ -29,6 +29,9 @@ __all__ = [
     "batched_gram_polar",
     "align_average",
     "align_one",
+    "align_for_backend",
+    "fused_round",
+    "fused_ring_round",
 ]
 
 BACKENDS = ("torch", "cuda", "auto")
@@ -108,3 +111,44 @@ def align_one(
         u, _, wt = torch.linalg.svd(g, full_matrices=False)
         z = u @ wt
     return align_average(vs, z, use_kernel=use_kernel)  # /m is /1
+
+
+def align_for_backend(
+    v: torch.Tensor, ref: torch.Tensor, *, polar: str, backend: str
+) -> torch.Tensor:
+    """Procrustes-align one basis on the resolved ``backend``: the kernel
+    stages (``align_one``) under "cuda", ``procrustes.align`` under
+    "torch".  The per-rank align of the psum and hop-ring schedules."""
+    if backend == "cuda":
+        return align_one(v.contiguous(), ref.contiguous(), polar=polar,
+                         use_kernel=True)
+    from repro_torch.core.procrustes import align
+
+    return align(v, ref, polar=polar)
+
+
+def fused_round(
+    vs: torch.Tensor, ref: torch.Tensor, *, use_kernel: bool | None = None, **kw
+) -> torch.Tensor:
+    """Whole Algorithm-1 round(s), one launch each: Gram + Newton-Schulz
+    polar + aligned average + CholeskyQR2 (the cuda backend's
+    ``polar="newton-schulz", orth="cholesky-qr2"`` cell)."""
+    return _dispatch(_pa.fused_round, _ref.fused_round, use_kernel, vs, ref, **kw)
+
+
+def fused_ring_round(
+    vs: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    scales: torch.Tensor | None = None,
+    use_kernel: bool | None = None,
+    **kw,
+) -> torch.Tensor:
+    """One whole round over a staged (m', d, r) stack of wire payloads
+    (f32 / bf16 / int8 + (m', r) scales) -> (d, r) f32, ready to be the
+    next launch's reference (``repro_torch.comm.ring.fused_ring_rounds``
+    stages the wire and loops the rounds)."""
+    return _dispatch(
+        _pa.fused_ring_round, _ref.fused_ring_round, use_kernel,
+        vs, ref, scales, **kw,
+    )

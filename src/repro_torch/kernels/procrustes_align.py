@@ -1,26 +1,34 @@
-"""Wrappers over the per-stage Procrustes-fixing CUDA kernels (B2-B4).
+"""Wrappers over the Procrustes-fixing CUDA kernels (B2-B6).
 
 Replace the Pallas TPU kernels of ``repro/kernels/procrustes_align.py``:
 
   * ``batched_gram``       G_i = V_i^T ref               (m, r, r) f32
   * ``batched_gram_polar`` Z_i = NS-polar(V_i^T ref)     (m, r, r) f32
   * ``align_average``      (1/m) sum_i V_i Z_i           (d, r) f32
+  * ``fused_round``        n_iter whole rounds, one launch each   (d, r)
+  * ``fused_ring_round``   one whole round over a wire stack      (d, r) f32
 
 The TPU kernels walk d sequentially per machine.  On the card the Gram
 stages split d across blocks instead (``_split_rows``): pass 1 writes
 partial Grams into an (m, splits, r, r) f32 scratch allocated here, pass 2
 reduces them in a fixed order (and, for the polar variant, runs the
 Newton-Schulz steps on the r x r tile in shared memory).  See
-``csrc/procrustes_align.cu`` for the design notes.
+``csrc/procrustes_align.cu`` for the design notes.  The two round kernels
+are one cooperative launch each (``csrc/fused_round.cu``): phases that
+reduce over d meet at grid-wide barriers and hand over through scratch
+this module allocates once per call, before the first launch.
 
 Each wrapper sends a CUDA tensor to its kernel (or raises) and a CPU
 tensor to the plain version in ``repro_torch.kernels.ref``; each counts
 its launches in ``<wrapper>.launches`` (one per call, whatever the number
-of passes).  The kernels take float32 stacks only.
+of passes; ``fused_round`` launches once per round).  The kernels take
+float32 stacks, except ``fused_ring_round``, whose wire stack may also be
+bfloat16 or int8 with per-column scales.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -28,7 +36,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["batched_gram", "batched_gram_polar", "align_average"]
+__all__ = [
+    "batched_gram",
+    "batched_gram_polar",
+    "align_average",
+    "fused_round",
+    "fused_ring_round",
+]
 
 DEFAULT_NS_ITERS = 24  # as repro_torch.core.procrustes.DEFAULT_NS_ITERS
 
@@ -39,6 +53,14 @@ _BLOCKS_PER_SM = 2  # pass-1 blocks aimed at per SM
 # fits the 227 KB of shared memory a block may use on Hopper.
 NS_MAX_R = 136
 _MAX_GRID_YZ = 65535
+# Most d-splits of a round's Gram phase over a wire stack: ring chunks are
+# grouped into splits of whole chunks beyond this (bounds the scratch).
+_MAX_RING_SPLITS = 64
+_WIRE_ENTRY = {
+    torch.float32: "rt_fused_round_f32",
+    torch.bfloat16: "rt_fused_round_bf16",
+    torch.int8: "rt_fused_round_i8",
+}
 
 
 def _split_rows(d: int, m: int, r: int, sms: int) -> tuple[int, int]:
@@ -138,6 +160,140 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
+    """Launch ``n_iter`` rounds of the fused round kernel on the wire stack
+    ``vs``; round k's (d, r) f32 output is round k+1's reference, with no
+    torch op between launches (scratch and both output buffers are
+    allocated first).  Counts one launch per round on ``wrapper``."""
+    from repro_torch.core.orthonorm import cholqr_guard_coeffs
+
+    m, d, r = vs.shape
+    if r > NS_MAX_R:
+        raise ValueError(
+            f"{wrapper.__name__}: r={r} exceeds the in-shared-memory "
+            f"Newton-Schulz and Cholesky limit r <= {NS_MAX_R}"
+        )
+    _build.require_sm90(vs)
+    dev = vs.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits1 = math.ceil(d / rows1)
+    rows2, splits2 = _split_rows(d, 1, r, sms)
+    pivot_c, shift_c = cholqr_guard_coeffs(d, r, torch.finfo(torch.float32).eps)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty((max(m * splits1, splits2), r, r), **f32)
+    zs = torch.empty((m, r, r), **f32)
+    vbar = torch.empty((d, r), **f32)
+    q1 = torch.empty((d, r), **f32)
+    w = torch.empty((2, r, r), **f32)
+    outs = (torch.empty((d, r), **f32), torch.empty((d, r), **f32))
+    grid = ctypes.c_int(0)
+    entry = getattr(_build.load(), _WIRE_ENTRY[vs.dtype])
+    stream = _build.stream_of(vs)
+    scales_ptr = None if scales is None else scales.data_ptr()
+    cur = ref
+    for k in range(max(n_iter, 1)):
+        out = outs[k % 2]
+        code = entry(
+            dev.index, vs.data_ptr(), scales_ptr, cur.data_ptr(),
+            out.data_ptr(), part.data_ptr(), zs.data_ptr(), vbar.data_ptr(),
+            q1.data_ptr(), w.data_ptr(), m, d, r, rows1, splits1, rows2,
+            splits2, ns_iters, pivot_c, shift_c, ctypes.addressof(grid),
+            stream,
+        )
+        _build.check(code, wrapper.__name__)
+        wrapper.launches += 1
+        cur = out
+    wrapper.grid = grid.value
+    return cur
+
+
+def fused_round(
+    vs: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    n_iter: int = 1,
+    ns_iters: int = DEFAULT_NS_ITERS,
+) -> torch.Tensor:
+    """``n_iter`` whole Algorithm-1 rounds, one launch each: Gram, NS polar,
+    aligned average and both guarded CholeskyQR passes; vs (m, d, r) f32,
+    ref (d, r) f32 -> (d, r) f32 (vs.dtype)."""
+    if vs.device.type == "cpu":
+        return _ref.fused_round(vs, ref, n_iter=n_iter, ns_iters=ns_iters)
+    m, d, r = _check_stack("fused_round", vs, ref, lambda m, d, r: (d, r))
+    rows1, _ = _split_rows(d, m, r, torch.cuda.get_device_properties(
+        vs.device).multi_processor_count)
+    return _round_launches(
+        fused_round, vs, ref, None, n_iter=n_iter, rows1=rows1,
+        ns_iters=ns_iters,
+    )
+
+
+def fused_ring_round(
+    vs: torch.Tensor,
+    ref: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    *,
+    ring_chunk: int | None = None,
+    ns_iters: int = DEFAULT_NS_ITERS,
+) -> torch.Tensor:
+    """One whole round over a staged (m', d, r) wire stack: f32, bf16, or
+    int8 with (m', r) f32 per-column ``scales`` (required exactly for
+    int8), decoded as the kernel loads it.  ``ring_chunk`` rows (any
+    value; need not divide d) are the granularity of the Gram phase's
+    d-splits and do not change the result.  ref (d, r) f32 -> (d, r) f32."""
+    if vs.dtype not in _WIRE_ENTRY:
+        raise ValueError(
+            f"fused_ring_round expects a wire-dtype stack (f32/bf16/int8), "
+            f"got {vs.dtype}"
+        )
+    if (scales is not None) != (vs.dtype == torch.int8):
+        raise ValueError(
+            "scales must be passed iff the stack is int8 "
+            f"(dtype={vs.dtype}, scales={'set' if scales is not None else None})"
+        )
+    if vs.device.type == "cpu":
+        return _ref.fused_ring_round(
+            vs, ref, scales, ring_chunk=ring_chunk, ns_iters=ns_iters
+        )
+    if vs.device.type != "cuda":
+        raise ValueError(f"fused_ring_round: unsupported device {vs.device}")
+    if vs.dim() != 3 or min(vs.shape) < 1 or not vs.is_contiguous():
+        raise ValueError(
+            f"fused_ring_round: vs must be a contiguous non-empty (m, d, r) "
+            f"stack, got {tuple(vs.shape)}"
+        )
+    m, d, r = vs.shape
+    for name, t, shape in (("ref", ref, (d, r)), ("scales", scales, (m, r))):
+        if t is None:
+            continue
+        if t.device != vs.device or t.dtype != torch.float32:
+            raise TypeError(f"fused_ring_round: {name} must be float32 on {vs.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"fused_ring_round: {name} must be contiguous {shape}, "
+                f"got {tuple(t.shape)}"
+            )
+    return _round_launches(
+        fused_ring_round, vs, ref, scales, n_iter=1,
+        rows1=ring_split_rows(d, ring_chunk), ns_iters=ns_iters,
+    )
+
+
+def ring_split_rows(d: int, ring_chunk: int | None) -> int:
+    """Rows per d-split of the ring round's Gram phase: whole ring chunks
+    (``comm.ring.chunk_spans``), grouped so that there are at most
+    ``_MAX_RING_SPLITS`` splits."""
+    from repro_torch.comm.ring import DEFAULT_RING_CHUNK, chunk_spans
+
+    chunk = DEFAULT_RING_CHUNK if ring_chunk is None else int(ring_chunk)
+    chunk = max(1, min(chunk, d))
+    return chunk * math.ceil(len(chunk_spans(d, chunk)) / _MAX_RING_SPLITS)
+
+
 batched_gram.launches = 0
 batched_gram_polar.launches = 0
 align_average.launches = 0
+fused_round.launches = 0
+fused_ring_round.launches = 0
+fused_round.grid = 0
+fused_ring_round.grid = 0

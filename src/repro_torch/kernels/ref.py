@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Port of ``repro/kernels/ref.py`` (``gram`` :23, ``batched_gram`` :29,
-``batched_gram_polar`` :36, ``align_average`` :95).  Each function is the
+``batched_gram_polar`` :36, ``fused_round`` :49, ``fused_ring_round``
+:69, ``align_average`` :95).  Each function is the
 semantic ground truth of its kernel: the wrappers run it for tensors on
 the CPU, the CPU tests hold it against the reference's Pallas kernels,
 and ``chip_smoke.py`` holds each kernel against it on the card.  Nothing
@@ -12,7 +13,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gram", "batched_gram", "batched_gram_polar", "align_average"]
+__all__ = [
+    "gram",
+    "batched_gram",
+    "batched_gram_polar",
+    "fused_round",
+    "fused_ring_round",
+    "align_average",
+]
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +54,47 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
         torch.einsum("mdr,mrs->ds", vs.to(torch.float32), zs.to(torch.float32))
         / m
     )
+
+
+def fused_round(
+    vs: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    n_iter: int = 1,
+    ns_iters: int | None = None,
+) -> torch.Tensor:
+    """``n_iter`` rounds of
+    ``cholesky_qr2(align_average(vs, batched_gram_polar(vs, ref)))``.
+    vs: (m, d, r), ref: (d, r) -> (d, r) in vs.dtype."""
+    from repro_torch.core.orthonorm import cholesky_qr2
+
+    out = ref
+    for _ in range(max(n_iter, 1)):
+        zs = batched_gram_polar(vs, out, ns_iters=ns_iters)
+        out = cholesky_qr2(align_average(vs, zs)).to(vs.dtype)
+    return out
+
+
+def fused_ring_round(
+    vs: torch.Tensor,
+    ref: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    *,
+    ring_chunk: int | None = None,
+    ns_iters: int | None = None,
+) -> torch.Tensor:
+    """Decode the (m', d, r) wire stack (f32 as is, bf16 upcast, int8 times
+    its (m', r) per-column ``scales``), then one round of
+    ``cholesky_qr2(align_average(vs, batched_gram_polar(vs, ref)))``.
+    ``ring_chunk`` is the kernel's d-tile granularity and does not change
+    the result.  Returns (d, r) f32."""
+    from repro_torch.core.orthonorm import cholesky_qr2
+
+    del ring_chunk
+    vsf = vs.to(torch.float32)
+    if vs.dtype == torch.int8:
+        if scales is None:
+            raise ValueError("int8 wire stack needs its (m, r) scales")
+        vsf = vsf * scales.to(torch.float32)[:, None, :]
+    zs = batched_gram_polar(vsf, ref.to(torch.float32), ns_iters=ns_iters)
+    return cholesky_qr2(align_average(vsf, zs)).to(torch.float32)

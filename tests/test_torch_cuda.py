@@ -8,13 +8,23 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors at ragged shapes, the wrappers' refusals are checked, and every
 launch is seen on its counter.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
-Newton-Schulz steps.
+Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
+also held at 1e-5 f64 subspace distance.  The cross-rank lanes run the
+collective on the card: two ranks sharing one card over gloo, and two
+ranks with a card each over NCCL (skipped below two cards; not yet run
+on such a machine).
 """
 
+import json
 import math
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
+
+from repro_torch.core.metrics import subspace_dist64
 
 from repro_torch import kernels
 from repro_torch.kernels import covariance as tcov
@@ -78,6 +88,7 @@ def test_procrustes_kernels(dev, m, d, r):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "gram": 0, "batched_gram": 1, "batched_gram_polar": 1, "align_average": 1,
+        "fused_round": 0, "fused_ring_round": 0,
     }
 
 
@@ -106,3 +117,150 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     big = torch.zeros(1, 16, 140, device=dev)
     with pytest.raises(ValueError):
         tpa.batched_gram_polar(big, big[0])  # r above the shared-memory limit
+
+
+def _hold_round(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4
+    assert subspace_dist64(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("m,d,r", [(3, 205, 5), (1, 130, 3), (4, 300, 136), (2, 96, 1)])
+@pytest.mark.parametrize("n_iter", [1, 2])
+def test_fused_round_kernel(dev, m, d, r, n_iter):
+    vs = _stack(dev, m, d, r)
+    ref = vs[0].contiguous()
+    kernels.reset_launch_counts()
+    _hold_round(tpa.fused_round(vs, ref, n_iter=n_iter),
+                tref.fused_round(vs, ref, n_iter=n_iter))
+    assert kernels.launch_counts()["fused_round"] == n_iter
+
+
+def test_fused_round_kernel_takes_the_shift(dev):
+    """A zero last column in every basis: a zero pivot, the shifted retry
+    in both CholeskyQR passes."""
+    vs = _stack(dev, 3, 205, 5)
+    vs[:, :, -1] = 0
+    got = tpa.fused_round(vs, vs[0].contiguous())
+    want = tref.fused_round(vs, vs[0].contiguous())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert got[:, -1].abs().max().item() == 0.0
+
+
+def _int8_wire(vs, seed=0):
+    g = torch.Generator(device=vs.device).manual_seed(seed)
+    scales = (vs.abs().amax(dim=1) / 127.0).contiguous()
+    u = torch.rand(vs.shape, generator=g, device=vs.device)
+    q = torch.clamp(torch.floor(vs / scales[:, None, :] + u), -127, 127)
+    return q.to(torch.int8).contiguous(), scales
+
+
+@pytest.mark.parametrize("m,d,r", [(3, 205, 5), (4, 96, 8), (1, 7, 3)])
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("chunk", [None, 33, 1])
+def test_fused_ring_round_kernel(dev, m, d, r, wire, chunk):
+    vs = _stack(dev, m, d, r)
+    ref = vs[0].contiguous()
+    scales = None
+    if wire == "bf16":
+        vs = vs.to(torch.bfloat16)
+    elif wire == "int8":
+        vs, scales = _int8_wire(vs)
+    before = tpa.fused_ring_round.launches
+    got = tpa.fused_ring_round(vs, ref, scales, ring_chunk=chunk)
+    assert tpa.fused_ring_round.launches == before + 1
+    _hold_round(got, tref.fused_ring_round(vs, ref, scales))
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    vs = _stack(dev, 2, 64, 4)
+    ref = vs[0].contiguous()
+    with pytest.raises(TypeError):
+        tpa.fused_round(vs.double(), ref.double())
+    with pytest.raises(TypeError):
+        tpa.fused_round(vs.to(torch.bfloat16), ref)
+    with pytest.raises(ValueError):
+        tpa.fused_round(vs, ref.T.contiguous())
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round(vs.half(), ref)  # not a wire dtype
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round(vs, ref, torch.ones(2, 4, device=dev))
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round(vs.to(torch.int8), ref)
+    with pytest.raises(TypeError):
+        tpa.fused_ring_round(vs, ref.double())
+    big = torch.zeros(1, 16, 140, device=dev)
+    with pytest.raises(ValueError, match="136"):
+        tpa.fused_round(big, big[0])
+    with pytest.raises(ValueError, match="136"):
+        tpa.fused_ring_round(big, big[0])
+
+
+_WORKER = r"""
+import json, sys
+import torch
+from repro_torch.core.distributed import procrustes_average_collective
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch.mesh import make_aggregation_mesh
+
+rank, world, init, out_path, stack_path = sys.argv[1:6]
+rank, world = int(rank), int(world)
+agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=world,
+                            local_rank=rank, local_world=world, init_method=init)
+vs = torch.load(stack_path).to(agg.device)
+res = {"backend": agg.backend}
+for topo, bits in (("ring", 32), ("ring", 8), ("psum", 32)):
+    reset_launch_counts()
+    polar, orth = (("newton-schulz", "cholesky-qr2") if topo == "ring"
+                   else ("svd", "qr"))
+    out = procrustes_average_collective(
+        vs[rank].contiguous(), group=agg.group, n_iter=2, backend="cuda",
+        polar=polar, orth=orth, topology=topo, comm_bits=bits, ring_chunk=33)
+    torch.cuda.synchronize()
+    res[f"{topo}{bits}"] = {"out": out.cpu().tolist(), "launches": launch_counts()}
+torch.distributed.destroy_process_group()
+json.dump(res, open(out_path, "w"))
+"""
+
+
+def _cross_rank_lane(tmp_path, world, cards_needed):
+    if torch.cuda.device_count() < cards_needed:
+        pytest.skip(f"needs {cards_needed} CUDA cards")
+    script = tmp_path / "worker.py"
+    script.write_text(_WORKER)
+    vs = _stack(torch.device("cuda", 0), world, 205, 5).cpu()
+    torch.save(vs, tmp_path / "vs.pt")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    if cards_needed == 1:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(k), str(world), f"file://{tmp_path / 'rdv'}",
+         str(tmp_path / f"r{k}.json"), str(tmp_path / "vs.pt")],
+        env=env, stderr=subprocess.PIPE, text=True) for k in range(world)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    res = [json.loads((tmp_path / f"r{k}.json").read_text()) for k in range(world)]
+    want = tref.fused_round(vs, vs[0].contiguous(), n_iter=2)
+    for r in res:
+        assert r["ring32"]["launches"]["fused_ring_round"] == 2
+        assert r["psum32"]["launches"]["batched_gram"] == 2
+        assert r["psum32"]["launches"]["align_average"] == 2
+        assert subspace_dist64(torch.tensor(r["ring32"]["out"]), want) <= 1e-5
+        assert subspace_dist64(torch.tensor(r["ring8"]["out"]), want) <= 0.25
+        assert subspace_dist64(torch.tensor(r["psum32"]["out"]), want) <= 1e-5
+    return res
+
+
+def test_cross_rank_lane_two_ranks_one_card_gloo(dev, tmp_path):
+    res = _cross_rank_lane(tmp_path, 2, 1)
+    assert all(r["backend"] == "gloo" for r in res)
+
+
+def test_cross_rank_lane_nccl_one_card_each(dev, tmp_path):
+    """The NCCL lane: one rank per card.  Skips on a one-card machine."""
+    res = _cross_rank_lane(tmp_path, 2, 2)
+    assert all(r["backend"] == "nccl" for r in res)

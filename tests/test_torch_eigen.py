@@ -9,9 +9,11 @@
   serial composition ``local_bases(vmap(empirical_covariance)(xs)) ->
   iterative_refinement``: <= 1e-4, since f32 covariance summation order
   passes through an eigensolve, amplified by 1/gap (gap 0.2).
-* The refusals of this slice: the fused (cuda, newton-schulz,
-  cholesky-qr2) cell (ROADMAP B5), ``plan="auto"`` (A7), the cross-rank
-  topologies (A5), ``device="cuda"`` with no card, and the launcher's
+* The fused (cuda, newton-schulz, cholesky-qr2) cell routes to the fused
+  round (B5), not to the per-stage kernels.
+* The refusals: ``plan="auto"`` (A7), psum and ring in the stacked
+  one-process form (they run across ranks), ``topology="hier"``
+  (A5-hier), ``device="cuda"`` with no card, and the launcher's
   later-slice flags.
 """
 
@@ -37,10 +39,9 @@ CELLS = [
     for backend in ("torch", "cuda")
     for polar in ("svd", "newton-schulz")
     for orth in ("qr", "cholesky-qr2")
-    if (backend, polar, orth) != ("cuda", "newton-schulz", "cholesky-qr2")
 ]
 CLI_KEYS = [
-    "m", "n", "d", "r", "backend", "polar", "orth", "topology",
+    "m", "n", "d", "r", "backend", "polar", "orth", "topology", "comm_bits",
     "dist_aligned", "dist_central", "dist_naive", "dist_local0", "wall_s",
 ]
 
@@ -155,14 +156,26 @@ def test_distributed_pca_subspace_solver_tracks_eigh():
 
 
 # ------------------------------------------------------------ refusals ----
-def test_fused_cell_is_refused_not_rerouted():
+def test_fused_cell_is_refused_not_rerouted(monkeypatch):
+    """The (cuda, newton-schulz, cholesky-qr2) cell goes to the fused
+    round (one call for all rounds) and never to the per-stage kernels.
+    (Named when the port refused this cell; it now checks the routing.)"""
+    from repro_torch.kernels import ops as tops
+
     vs = _tvs(_orthonormal_stack(0, 2, 16, 2))
-    with pytest.raises(NotImplementedError, match="B5"):
-        teig.refinement_rounds(vs, backend="cuda", polar="newton-schulz",
-                               orth="cholesky-qr2")
+    calls = []
+    fused = tops.fused_round
+    monkeypatch.setattr(tops, "fused_round",
+                        lambda *a, **k: calls.append(k) or fused(*a, **k))
+    for stage in ("batched_gram", "batched_gram_polar", "align_average"):
+        monkeypatch.setattr(tops, stage, lambda *a, **k: pytest.fail("per-stage"))
+    got = teig.refinement_rounds(vs, backend="cuda", polar="newton-schulz",
+                                 orth="cholesky-qr2", n_iter=2)
+    assert calls == [{"n_iter": 2, "use_kernel": True}]
     # The same cell on the plain backend is an ordinary cube cell.
-    teig.refinement_rounds(vs, backend="torch", polar="newton-schulz",
-                           orth="cholesky-qr2")
+    want = teig.refinement_rounds(vs, backend="torch", polar="newton-schulz",
+                                  orth="cholesky-qr2", n_iter=2)
+    assert subspace_dist64(got, want) <= CUBE_TOL
 
 
 def test_plan_auto_is_refused():
@@ -175,8 +188,12 @@ def test_plan_auto_is_refused():
 
 @pytest.mark.parametrize("topology", ["psum", "ring", "hier"])
 def test_cross_rank_topologies_are_refused(topology):
+    """The stacked one-process form has only the gather schedule: psum and
+    ring name the collective form; hier is the next slice."""
     x = torch.from_numpy(_normal(1, 64, 8))
-    with pytest.raises(NotImplementedError, match="A5"):
+    exc, match = ((NotImplementedError, "A5-hier") if topology == "hier"
+                  else (ValueError, "distributed_pca_collective"))
+    with pytest.raises(exc, match=match):
         tdist.distributed_pca(x, 2, shards=2, device="cpu", topology=topology)
 
 
@@ -215,14 +232,53 @@ def test_launcher_main_prints_keys(capsys):
     (["--plan", "auto"], "A7"),
     (["--explain"], "A7"),
     (["--calibrate", "BENCH_aggregate.json"], "A7"),
-    (["--comm-bits", "8"], "A5"),
+    (["--topology", "hier"], "A5"),
     (["--pods", "2"], "A5"),
     (["--fail-at", "2:1"], "A8"),
     (["--stream", "4"], "A9"),
-    (["--topology", "ring"], "A5"),
+    (["--topology", "hier", "--pods", "2"], "A5"),
 ])
 def test_launcher_refuses_later_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_launcher_width_flags_pass_through_torchrun():
+    """torchrun's parser abbreviates its own options ("--d" and "--r" are
+    prefixes of some), so every launcher flag but those two must be a
+    prefix of none of them, and ``--dim``/``--subspace-rank`` reach the
+    launcher as d and r."""
+    from torch.distributed.run import get_args_parser
+
+    outer = get_args_parser()
+    theirs = [o for a in outer._actions for o in a.option_strings if o.startswith("--")]
+    ours = [o for a in tlaunch.build_parser()._actions for o in a.option_strings
+            if o.startswith("--") and o not in ("--d", "--r", "--help")]
+    assert any(o.startswith("--d") for o in theirs)
+    assert any(o.startswith("--r") for o in theirs)
+    assert [o for o in ours if any(t.startswith(o) for t in theirs)] == []
+    tail = ["--device", "cpu", "--topology", "ring", "--dim", "512",
+            "--subspace-rank", "16", "--n-per-shard", "64"]
+    got = outer.parse_args(["--standalone", "--nproc-per-node", "2", "-m",
+                            "repro_torch.launch.eigen", *tail])
+    assert got.training_script_args == tail
+    args = tlaunch.build_parser().parse_args(got.training_script_args)
+    assert (args.d, args.r, args.n_per_shard) == (512, 16, 64)
+    assert tlaunch.build_parser().parse_args(["--d", "512", "--r", "16"]).r == 16
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["--comm-bits", "auto"], "ROADMAP A7"),
+    (["--topology", "ring"], "torchrun"),
+    (["--topology", "psum"], "torchrun"),
+    (["--comm-bits", "8"], "torchrun"),
+])
+def test_launcher_refuses_what_one_process_cannot_run(argv, says, capsys):
+    """Outside torchrun the launcher stacks the shards in one process:
+    the cross-rank schedules and lossy wires need ranks."""
+    with pytest.raises(SystemExit) as exc:
+        tlaunch.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert says in capsys.readouterr().err

@@ -63,7 +63,8 @@ def test_port_imports_with_jax_and_reference_poisoned():
         sys.modules["repro"] = None
         import repro_torch, repro_torch.core, repro_torch.kernels.ops
         import repro_torch.data.synthetic, repro_torch.interop
-        import repro_torch.launch.eigen
+        import repro_torch.launch.eigen, repro_torch.launch.mesh
+        import repro_torch.comm, repro_torch.comm.transport
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr

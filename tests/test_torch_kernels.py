@@ -143,8 +143,11 @@ def test_cpu_wrappers_launch_nothing():
     tops.batched_gram(vs, vs[0], use_kernel=True)
     z = tops.batched_gram_polar(vs, vs[0], use_kernel=True)
     tops.align_average(vs, z, use_kernel=True)
+    tops.fused_round(vs, vs[0], n_iter=2, use_kernel=True)
+    tops.fused_ring_round(vs.to(torch.bfloat16), vs[0], use_kernel=True)
     assert tkernels.launch_counts() == {
         "gram": 0, "batched_gram": 0, "batched_gram_polar": 0, "align_average": 0,
+        "fused_round": 0, "fused_ring_round": 0,
     }
 
 
