@@ -34,17 +34,34 @@ of JAX or of the reference package.  Phases, each ending in
    plain backend, and the launcher runs on the card, once in one process
    and once under ``torchrun`` with 8 ranks on the ring at d = 8192,
    r = 128 and 16384 samples per shard.
+   Then the serving lane, with the PCA data freed first: B8
+   (``flash_attention``) against its plain version at the serving shape
+   (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
+   ones (GQA s 96 / t 160 in bf16 and f32, s > t with its zero rows,
+   windows 16 and 1024, MQA; bf16 also per query row, see
+   ``FLASH_ROW_REL``); then the serve lane (``repro_torch.launch.serve``'s
+   ``load`` and ``generate``, which ``serve`` is made of) at the full
+   ``llama3.2-3b`` config (28 layers, d_model 3072), 4 prompts of 4096
+   tokens and 32 greedy tokens each, weights from a seeded generator on
+   the card: exactly 28 flash launches in the prefill and none in
+   decode; the served model and prompts prefilled again through the
+   kernel and through plain attention must give
+   last-position logits within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``; and
+   the serve launcher once in its own process at the full config with a
+   short prompt.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
-   function (none for B3, B5, B6).
+   function (none for B3, B5, B6; SDPA for B8).
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
-   cross-rank lanes summed over ranks), then, last, ``{"ok": true,
-   "device": ...}``.
+   cross-rank lanes summed over ranks, B8's the serve call), then, last,
+   ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
-warm-up lane: it prints the lane's wall time, the device's busy share
-and the kernels that took the most device time.  ``--rank K`` is the
+warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
+decode steps) after a warm-up prefill: it prints each run's wall time,
+the device's busy share and the kernels that took the most device
+time.  ``--rank K`` is the
 cross-rank lanes' worker, started by phase 3.
 
 TF32 is off throughout: the reference computes in float32.
@@ -84,12 +101,47 @@ EPS32 = 2.0 ** -23
 WORLD, N_PSUM = 8, 16384
 RING_CHUNK_MAIN, RING_CHUNK_RAGGED = 1000, 33
 
-# FP32 CUDA-core peak and memory rate (NVIDIA data sheets), by card name.
+# FP32 CUDA-core peak, memory rate and dense bf16 tensor-core peak (NVIDIA
+# data sheets), by card name.
 PEAKS = (
-    ("PCIe", "H100 PCIe", 51.2e12, 2.0e12),
-    ("NVL", "H100 NVL", 60.0e12, 3.9e12),
-    ("", "H100 SXM", 67.0e12, 3.35e12),
+    ("PCIe", "H100 PCIe", 51.2e12, 2.0e12, 756e12),
+    ("NVL", "H100 NVL", 60.0e12, 3.9e12, 835e12),
+    ("", "H100 SXM", 67.0e12, 3.35e12, 989e12),
 )
+
+# The serving lane: llama3.2-3b at its full config, 4 requests of 4096
+# prompt tokens, 32 greedy tokens each.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 4096, 32
+# B8 checks: (label, (b, hq, hkv, s, t, hd), dtype, window).  Causal all.
+FLASH_CHECKS = (
+    ("main (4, 24/8, 4096x4096, 128) bf16", (4, 24, 8, 4096, 4096, 128), "bfloat16", None),
+    ("ragged (1, 4/2, 96x160, 64) bf16", (1, 4, 2, 96, 160, 64), "bfloat16", None),
+    ("ragged (1, 4/2, 96x160, 64) f32", (1, 4, 2, 96, 160, 64), "float32", None),
+    ("ragged s>t (1, 2/1, 160x96, 32) f32", (1, 2, 1, 160, 96, 32), "float32", None),
+    ("ragged s>t (1, 2/1, 160x96, 32) bf16", (1, 2, 1, 160, 96, 32), "bfloat16", None),
+    ("ragged window 16 (2, 8/2, 300x300, 128) bf16", (2, 8, 2, 300, 300, 128), "bfloat16", 16),
+    ("ragged window 16 (1, 4/2, 200x200, 64) f32", (1, 4, 2, 200, 200, 64), "float32", 16),
+    ("ragged window 1024 (1, 8/2, 2500x2500, 128) bf16", (1, 8, 2, 2500, 2500, 128), "bfloat16", 1024),
+    ("ragged MQA (2, 8/1, 200x200, 64) bf16", (2, 8, 1, 200, 200, 64), "bfloat16", None),
+)
+# The reference's own kernel-test bars (tests/test_kernels.py:122, :146).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 outputs are also held per query row to a bar scaled to that row:
+# max|got - want| <= 2^-7 max|want_row| + 1e-4.  Both sides round the same
+# f32 row to bf16 once, which moves an element by at most one step,
+# 2^-7 of its magnitude.  At the serving shape a causal row i averages
+# ~i keys, so |out| falls as ~1/sqrt(i) and 3e-2 is as large as a typical
+# long-row value; a key tile dropped or stale on the long rows (error
+# ~8/i) stays under 3e-2 but fails the row bar.
+FLASH_ROW_REL, FLASH_ROW_ABS = 2.0**-7, 1e-4
+# Kernel prefill vs plain-attention prefill, last-position logits, bf16 at
+# 28 layers.  The paths differ in the probabilities (the kernel keeps ~16
+# bits, the plain path rounds them to bf16, attn_probs_bf16) and hence in
+# the bf16 rounding of every layer's output.  At 28 layers on the CPU
+# (tests/test_torch_lm.py::test_full_depth_flash_path_within_serving_bars,
+# d_model 256, 256 tokens) the gap is ~1.4 % relative L2 and ~1.5 % of
+# the largest logit; the bars leave 3-5x for the full width.
+SERVE_REL_L2, SERVE_MAX_ABS = 0.05, 0.08
 
 KERNELS = {
     "gram": ("src/repro_torch/kernels/csrc/covariance.cu",
@@ -104,6 +156,8 @@ KERNELS = {
                     "src/repro/kernels/procrustes_align.py:425"),
     "fused_ring_round": ("src/repro_torch/kernels/csrc/fused_round.cu",
                          "src/repro/kernels/procrustes_align.py:593"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:122"),
 }
 STACKED_LANES = (("svd", "qr"), ("newton-schulz", "qr"),
                  ("newton-schulz", "cholesky-qr2"))
@@ -220,33 +274,70 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def profile_lanes(torch, distributed_pca, samples, dev) -> None:
-    """Each main-path lane under torch.profiler: wall, device busy share
-    (kernel time over wall) and the top kernels by device time."""
+def print_profile(label, prof, wall_us, top=12) -> None:
+    """Wall, device busy share (kernel time over wall) and the kernels
+    that took the most device time, from one profiled window."""
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms under the profiler, "
+          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %), "
+          f"{len(kernels)} kernel names")
+    if not kernels:
+        print("[profile] the profiler saw no device time: not measured")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms "
+              f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f} % "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def profiled(torch, fn):
+    """Run ``fn`` under torch.profiler; returns (profile, wall in us)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return prof, wall_us
+
+
+def profile_lanes(torch, distributed_pca, samples, dev) -> None:
+    """Each stacked main-path lane under torch.profiler, after a warm-up."""
     kw = dict(shards=SHARDS, device=dev, n_iter=N_ITER, solver="subspace",
               iters=ITERS, backend="cuda", topology="gather")
     distributed_pca(samples, R, polar="svd", orth="qr", **kw)  # warm-up lane
     torch.cuda.synchronize()
     for polar, orth in STACKED_LANES:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            distributed_pca(samples, R, polar=polar, orth=orth, **kw)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        print(f"[profile] polar={polar} orth={orth}: wall {wall_us / 1e3:.1f} ms under the "
-              f"profiler, device busy {busy_us / 1e3:.1f} ms "
-              f"({100 * busy_us / wall_us:.1f} %), {len(kernels)} kernel names")
-        if not kernels:
-            print("[profile] the profiler saw no device time: not measured")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms "
-                  f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f} % "
-                  f"x{e.count:<5d} {e.key[:90]}")
+        prof, wall_us = profiled(
+            torch, lambda: distributed_pca(samples, R, polar=polar, orth=orth, **kw))
+        print_profile(f"polar={polar} orth={orth}", prof, wall_us)
+
+
+def profile_serving(torch, dev) -> None:
+    """The serving lane's device time: one full-width prefill and 8 decode
+    steps of SERVE_ARCH under torch.profiler, after a warm-up prefill."""
+    from repro_torch.launch.serve import load
+
+    model, prompts = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                          reduced=False, device=dev, seed=SEED)
+    cache_len = SERVE_PROMPT + 8
+    model.prefill(prompts, cache_len=cache_len)  # warm-up
+    torch.cuda.synchronize()
+    out = []
+    prof, wall_us = profiled(
+        torch, lambda: out.append(model.prefill(prompts, cache_len=cache_len)))
+    print_profile(f"{SERVE_ARCH} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=16)
+    logits, cache = out[0]
+
+    def decode():
+        tok = logits.argmax(-1)[:, None]
+        for i in range(8):
+            step, _ = model.decode_step(tok, cache, SERVE_PROMPT + i)
+            tok = step.argmax(-1)[:, None]
+
+    prof, wall_us = profiled(torch, decode)
+    print_profile(f"{SERVE_ARCH} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us)
 
 
 def main(argv=None) -> int:
@@ -288,6 +379,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.procrustes_align import DEFAULT_NS_ITERS
     from repro_torch.kernels.covariance import gram
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, load
     from repro_torch.kernels.procrustes_align import (
         align_average,
         batched_gram,
@@ -310,12 +403,13 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw, peak_row = next(
-        (f, b, row) for key, row, f, b in PEAKS if key in name
+    peak_flops, peak_bw, peak_bf16, peak_row = next(
+        (f, b, t, row) for key, row, f, b, t in PEAKS if key in name
     )
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| bounds from the {peak_row} data sheet: "
-          f"{peak_flops / 1e12:.1f} TFLOP/s FP32, {peak_bw / 1e12:.2f} TB/s")
+          f"{peak_flops / 1e12:.1f} TFLOP/s FP32, {peak_bf16 / 1e12:.0f} TFLOP/s "
+          f"bf16 dense, {peak_bw / 1e12:.2f} TB/s")
 
     # -- set-up: the main path's data, drawn on the card -------------------
     t0 = time.perf_counter()
@@ -327,6 +421,9 @@ def main(argv=None) -> int:
           f"({samples.numel() * 4 / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_lanes(torch, distributed_pca, samples, dev)
+        del samples, xs
+        torch.cuda.empty_cache()
+        profile_serving(torch, dev)
         return 0
 
     def noisy_stack(m, d, r):
@@ -588,6 +685,124 @@ def main(argv=None) -> int:
             "torchrun launcher: estimate not within the bar or no better than naive")
     torch.cuda.synchronize()
 
+    # -- the serving lane (B8): the PCA data is gone, free its cache --------
+    torch.cuda.empty_cache()
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def qkv(shape, dtype):
+        b, hq, hkv, s_, t_, hd = shape
+        return tuple(torch.randn(*sh, generator=gen, device=dev).to(dtypes[dtype])
+                     for sh in ((b, hq, s_, hd), (b, hkv, t_, hd), (b, hkv, t_, hd)))
+
+    row_ratio = {}
+    for label, shape, dtype, window in FLASH_CHECKS:
+        q, k, v = qkv(shape, dtype)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        got, want = got.float(), want.float()
+        hold("flash_attention", label, got, want, FLASH_TOL[dtype])
+        if dtype == "bfloat16":
+            row_bar = FLASH_ROW_REL * want.abs().amax(-1) + FLASH_ROW_ABS
+            ratio = ((got - want).abs().amax(-1) / row_bar).max().item()
+            print(f"[check] {'flash_attention':<18} {label:<34} worst row: error "
+                  f"{ratio:.3f} of its bar 2^-7 max|want_row| + 1e-4 "
+                  f"{'ok' if ratio <= 1 else 'FAIL'}")
+            row_ratio[label] = ratio
+            require(ratio <= 1, f"flash_attention disagrees with its plain "
+                                f"version on some query row at {label}")
+        s_, t_ = shape[3], shape[4]
+        if s_ > t_:
+            require(bool((got[:, :, : s_ - t_] == 0).all()),
+                    f"flash_attention {label}: rows without keys are not zero")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, prompts = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                          reduced=False, device="cuda", seed=SEED)
+    toks, st = generate(model, prompts, gen=SERVE_GEN)
+    serve_cfg = model.cfg
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["flash_attention"] += counts["flash_attention"]
+    layers = serve_cfg.num_layers
+    print(f"[serve] {SERVE_ARCH} full config (layers {layers}, d_model "
+          f"{serve_cfg.d_model}, heads {serve_cfg.num_heads}/{serve_cfg.num_kv_heads}, "
+          f"vocab {serve_cfg.vocab_size}), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"gen {SERVE_GEN}: prefill_s {st['prefill_s']:.4f}, decode_s {st['decode_s']:.4f} "
+          f"({st['decode_s'] / SERVE_GEN * 1e3:.2f} ms/step), prefill "
+          f"{SERVE_BATCH * SERVE_PROMPT / st['prefill_s']:.0f} tok/s, decode "
+          f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory "
+          f"{peak_gb:.2f} GB, wall with weight init {serve_wall:.2f} s, "
+          f"flash launches {st['flash_launches']}")
+    require(st["flash_launches"] == {"prefill": layers, "decode": 0},
+            f"serve: flash launches {st['flash_launches']}, expected "
+            f"{layers} in the prefill and none in decode")
+    require(counts == expected_counts({"flash_attention": layers}),
+            f"serve: launches {counts}")
+    require(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+            and 0 <= int(toks.min()) and int(toks.max()) < serve_cfg.vocab_size,
+            f"serve: token matrix {tuple(toks.shape)} out of range")
+
+    # The served model and prompts, prefilled again through the kernel
+    # and through plain attention.
+    def timed_prefill(use_kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(prompts, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    lk, t_kernel = timed_prefill(None)
+    lp, t_plain = timed_prefill(False)
+    vocab = serve_cfg.vocab_size
+    lk, lp = lk[:, :vocab], lp[:, :vocab]
+    rel_l2 = ((lk - lp).norm() / lp.norm()).item()
+    max_abs = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    print(f"[serve] kernel vs plain prefill, last-position logits: rel L2 {rel_l2:.3e} "
+          f"(bar {SERVE_REL_L2}), max abs {max_abs:.3e} = {max_abs / scale:.3e} of the "
+          f"largest logit {scale:.3f} (bar {SERVE_MAX_ABS}), argmax agree "
+          f"{(lk.argmax(-1) == lp.argmax(-1)).sum().item()}/{SERVE_BATCH}, "
+          f"first served token from the kernel prefill "
+          f"{bool((lk.argmax(-1).cpu() == toks[:, 0]).all())}; warm prefill "
+          f"through the kernel {t_kernel:.4f} s, through plain attention {t_plain:.4f} s")
+    require(bool(torch.isfinite(lk).all()) and rel_l2 <= SERVE_REL_L2
+            and max_abs <= SERVE_MAX_ABS * scale,
+            "serve: kernel and plain prefill disagree")
+    require(bool((lk.argmax(-1).cpu() == toks[:, 0]).all()),
+            "serve: the served first tokens are not the kernel prefill's argmax")
+    del model, lk, lp, prompts
+    torch.cuda.empty_cache()
+
+    # The serve launcher, once in its own process, at the full config.
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", SERVE_ARCH,
+         "--full-config", "--batch", "2", "--prompt-len", "256", "--gen", "8",
+         "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": SRC},
+    )
+    require(cli.returncode == 0, f"serve launcher failed:\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.strip().splitlines()
+    stats = dict(line.split(": ", 1) for line in lines[2:])
+    print(f"[cli] repro_torch.launch.serve --arch {SERVE_ARCH} --full-config --batch 2 "
+          f"--prompt-len 256 --gen 8 ({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
+                       "flash_launches_prefill", "flash_launches_decode")))
+    require(lines[0] == "generated token matrix: (2, 8)"
+            and stats["flash_launches_prefill"] == str(layers)
+            and stats["flash_launches_decode"] == "0",
+            "serve launcher: wrong token matrix or flash launches")
+    torch.cuda.synchronize()
+
     # -- phase 4: times at the main path's shapes ---------------------------
     def time_ms(fn, reps):
         fn()
@@ -649,6 +864,19 @@ def main(argv=None) -> int:
     timing["fused_ring_round"] = (
         lambda: fused_ring_round(w32, rf), lambda: ref.fused_ring_round(w32, rf),
         None, 20, ring_ms["f32"][2])
+    # B8 at the serving shape: bf16 tensor-core peak; operations counted
+    # over the visible keys (the kernel skips the rest).
+    _, (b, hq, hkv, s_, t_, hd), _, _ = FLASH_CHECKS[0]
+    q, k_, v_ = qkv(FLASH_CHECKS[0][1], "bfloat16")
+    visible = sum(min(t_, t_ - s_ + i + 1) for i in range(s_))
+    fa_flops = 4.0 * b * hq * hd * visible
+    fa_bytes = 2 * (2 * b * hq * s_ * hd + 2 * b * hkv * t_ * hd)
+    fa_bound = (1e3 * max(fa_flops / peak_bf16, fa_bytes / peak_bw),
+                "operations" if fa_flops / peak_bf16 >= fa_bytes / peak_bw else "bytes")
+    timing["flash_attention"] = (
+        lambda: flash_attention(q, k_, v_), lambda: ref.flash_attention(q, k_, v_),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_, v_, is_causal=True, enable_gqa=True), 10, fa_bound)
     rows = []
     for k, (kern, plain, lib, reps, (bound_ms, bound_by)) in timing.items():
         k_ms = time_ms(kern, reps)
@@ -669,6 +897,9 @@ def main(argv=None) -> int:
             "library_ms": l_ms, "tol": tol, "ragged_max_abs_err": rag_err,
             "verdict": "pass",
         })
+        if k == "flash_attention":
+            rows[-1]["row_err_over_bar"] = max(
+                r for lbl, r in row_ratio.items() if lbl.startswith("main"))
         if k == "fused_ring_round":
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],

@@ -7,6 +7,7 @@ versions.
   * ``procrustes_align.align_average``  B4, same source
   * ``procrustes_align.fused_round``    B5, ``csrc/fused_round.cu``
   * ``procrustes_align.fused_ring_round``  B6, same source
+  * ``flash_attention.flash_attention``  B8, ``csrc/flash_attention.cu``
 
 ``launch_counts`` / ``reset_launch_counts`` read and zero every wrapper's
 launch counter, so a run can show which kernels its main path launched.
@@ -16,7 +17,7 @@ Nothing is built or loaded at import: the first launch builds
 
 from __future__ import annotations
 
-from repro_torch.kernels import covariance, procrustes_align
+from repro_torch.kernels import covariance, flash_attention, procrustes_align
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -27,6 +28,7 @@ WRAPPERS = {
     "align_average": procrustes_align.align_average,
     "fused_round": procrustes_align.fused_round,
     "fused_ring_round": procrustes_align.fused_ring_round,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "rt_fused_round_f32": _ROUND,
     "rt_fused_round_bf16": _ROUND,
     "rt_fused_round_i8": _ROUND,
+    # device, bf16_in, q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
+    # scale, stream.
+    "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _P),
 }
 
 

@@ -1,11 +1,13 @@
 """Public kernel entry points with backend dispatch.
 
 Port of ``repro/kernels/ops.py``.  The shared rule (``_dispatch``):
-``use_kernel=None`` resolves to "kernel on a Hopper card, plain version
-elsewhere", ``True`` forces the kernel wrapper and ``False`` the plain
-version.  A kernel wrapper given CPU tensors runs the plain version, the
-counterpart of the reference running Pallas in interpret mode off-TPU; on
-CUDA tensors it launches the hand-written kernel or raises.
+``use_kernel=None`` resolves on the tensors, not on the host: the kernel
+wrapper for CUDA tensors, the plain version for CPU tensors.  ``True``
+forces the kernel wrapper and ``False`` the plain version.  A kernel
+wrapper given CPU tensors runs the plain version, the counterpart of the
+reference running Pallas in interpret mode off-TPU; on CUDA tensors it
+launches the hand-written kernel or raises (a card other than Hopper
+included), so CUDA work never falls back to the plain version quietly.
 
 ``backend=`` vocabulary: ``BACKENDS = ("torch", "cuda", "auto")``.
 "torch" is plain PyTorch, "cuda" the hand-written kernels, and "auto"
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import covariance as _cov
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import procrustes_align as _pa
 from repro_torch.kernels import ref as _ref
 
@@ -32,6 +35,7 @@ __all__ = [
     "align_for_backend",
     "fused_round",
     "fused_ring_round",
+    "attention",
 ]
 
 BACKENDS = ("torch", "cuda", "auto")
@@ -53,9 +57,10 @@ def resolve_backend(backend: str, device: torch.device | str) -> str:
 
 
 def _dispatch(kernel_fn, plain_fn, use_kernel: bool | None, *args, **kw):
-    """Shared kernel/plain dispatch: ``None`` -> kernel iff on sm_90."""
+    """Shared kernel/plain dispatch: ``None`` -> kernel iff the first
+    tensor is on a CUDA device."""
     if use_kernel is None:
-        use_kernel = on_sm90()
+        use_kernel = args[0].is_cuda
     if use_kernel:
         return kernel_fn(*args, **kw)
     return plain_fn(*args, **kw)
@@ -151,4 +156,30 @@ def fused_ring_round(
     return _dispatch(
         _pa.fused_ring_round, _ref.fused_ring_round, use_kernel,
         vs, ref, scales, **kw,
+    )
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    use_kernel: bool | None = None,
+    probs_bf16: bool = False,
+) -> torch.Tensor:
+    """GQA attention, q (b, hq, s, d), k, v (b, hkv, t, d): the flash
+    kernel (B8) for CUDA tensors with more than one query, the plain
+    ``ref.attention`` for CPU tensors; decode (s = 1) stays on the plain
+    path, as the reference keeps it in XLA.  ``use_kernel=True`` forces
+    the wrapper (its plain version on CPU tensors), ``False`` the plain
+    path.  ``probs_bf16`` applies to the plain path only: the kernel keeps
+    the probabilities in f32, as the reference's kernel does."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda and q.shape[2] > 1
+    if use_kernel:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.attention(
+        q, k, v, causal=causal, window=window, probs_bf16=probs_bf16
     )

@@ -9,7 +9,10 @@ tensors at ragged shapes, the wrappers' refusals are checked, and every
 launch is seen on its counter.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
 Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
-also held at 1e-5 f64 subspace distance.  The cross-rank lanes run the
+also held at 1e-5 f64 subspace distance.  B8 (flash attention): 2e-5 in
+f32 and 3e-2 in bf16, the reference's own kernel-test bars; a reduced
+config served through B8 and through plain attention gives the same
+greedy tokens in f32.  The cross-rank lanes run the
 collective on the card: two ranks sharing one card over gloo, and two
 ranks with a card each over NCCL (skipped below two cards; not yet run
 on such a machine).
@@ -28,6 +31,8 @@ from repro_torch.core.metrics import subspace_dist64
 
 from repro_torch import kernels
 from repro_torch.kernels import covariance as tcov
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import procrustes_align as tpa
 from repro_torch.kernels import ref as tref
 
@@ -88,7 +93,7 @@ def test_procrustes_kernels(dev, m, d, r):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "gram": 0, "batched_gram": 1, "batched_gram_polar": 1, "align_average": 1,
-        "fused_round": 0, "fused_ring_round": 0,
+        "fused_round": 0, "fused_ring_round": 0, "flash_attention": 0,
     }
 
 
@@ -196,6 +201,119 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tpa.fused_round(big, big[0])
     with pytest.raises(ValueError, match="136"):
         tpa.fused_ring_round(big, big[0])
+
+
+# ------------------------------------------------------------- B8 flash ----
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd,window", [
+    (1, 4, 2, 96, 160, 64, None),     # ragged GQA, suffix queries
+    (1, 2, 1, 160, 96, 32, None),     # s > t: rows without keys
+    (2, 8, 1, 200, 200, 128, None),   # MQA
+    (1, 2, 2, 300, 300, 128, 16),     # window
+    (1, 4, 2, 130, 130, 16, 1024),    # reduced head_dim, window above s
+    (1, 3, 3, 65, 65, 24, None),      # head_dim padded inside the kernel
+    (1, 6, 2, 1, 70, 40, None),       # one query
+])
+def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(s * t + hd)
+    q, k, v = (torch.randn(*sh, generator=g, device=dev).to(dtype)
+               for sh in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tref.flash_attention(q, k, v, causal=True, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype]
+    if s > t:
+        assert bool((got[:, :, : s - t] == 0).all())
+
+
+def test_flash_attention_refusals(dev):
+    q = torch.zeros(1, 4, 8, 64, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(1, 2, 8, 256, device=dev, dtype=torch.bfloat16)
+        tfa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="head_dim"):
+        odd = torch.zeros(1, 2, 8, 20, device=dev, dtype=torch.bfloat16)
+        tfa.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(torch.zeros(1, 3, 8, 64, device=dev, dtype=torch.bfloat16), kv, kv)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, kv.float(), kv)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), kv, kv)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tfa.flash_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention(q, kv, kv, window=0)
+
+
+def test_attention_dispatch_on_the_card(dev):
+    """CUDA tensors: None launches B8 for s > 1 and keeps decode (s = 1)
+    on the plain path; the kernel refuses inputs that need a gradient
+    (it has no backward) rather than return an output without one."""
+    q = torch.randn(1, 4, 32, 64, device=dev, dtype=torch.bfloat16)
+    kv = torch.randn(1, 2, 32, 64, device=dev, dtype=torch.bfloat16)
+    before = tfa.flash_attention.launches
+    tops.attention(q, kv, kv)
+    assert tfa.flash_attention.launches == before + 1
+    tops.attention(q[:, :, -1:].contiguous(), kv, kv)
+    assert tfa.flash_attention.launches == before + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_attention(q.requires_grad_(), kv, kv)
+    with torch.no_grad():
+        tfa.flash_attention(q, kv, kv)
+    assert tfa.flash_attention.launches == before + 2
+
+
+def _greedy(model, prompts, gen, use_kernel):
+    logits, cache = model.prefill(prompts, cache_len=prompts.shape[1] + gen,
+                                  use_kernel=use_kernel)
+    first = logits
+    tok, out = logits.argmax(-1)[:, None], []
+    for i in range(gen):
+        out.append(tok[:, 0])
+        logits, cache = model.decode_step(tok, cache, prompts.shape[1] + i)
+        tok = logits.argmax(-1)[:, None]
+    return first, torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-3-2b", "chatglm3-6b"])
+def test_reduced_serve_kernel_matches_plain(dev, arch):
+    """A reduced config served on the card: the prefill through B8 and
+    through plain attention.  In f32 (f32 probabilities, the f32 kernel)
+    the greedy tokens are equal; in bf16 the last-position logits agree
+    within chip_smoke.py's serving bars (the kernel keeps ~16-bit
+    probabilities, the plain path rounds them to bf16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+
+    base = get_reduced_config(arch)
+    prompts = torch.randint(0, base.vocab_size, (3, 50), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    cfg = dataclasses.replace(base, dtype="float32", attn_probs_bf16=False)
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    kernels.reset_launch_counts()
+    _, toks_k = _greedy(model, prompts, 8, None)
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    _, toks_p = _greedy(model, prompts, 8, False)
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    assert torch.equal(toks_k, toks_p)
+    model = build(base, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    lk, _ = _greedy(model, prompts, 2, None)
+    lp, _ = _greedy(model, prompts, 2, False)
+    lk, lp = lk[:, : base.vocab_size], lp[:, : base.vocab_size]
+    assert ((lk - lp).norm() / lp.norm()).item() <= 0.05
+    assert (lk - lp).abs().max().item() <= 0.08 * lp.abs().max().item()
 
 
 _WORKER = r"""

@@ -65,6 +65,8 @@ def test_port_imports_with_jax_and_reference_poisoned():
         import repro_torch.data.synthetic, repro_torch.interop
         import repro_torch.launch.eigen, repro_torch.launch.mesh
         import repro_torch.comm, repro_torch.comm.transport
+        import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+        import repro_torch.kernels.flash_attention
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr

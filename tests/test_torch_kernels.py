@@ -145,9 +145,11 @@ def test_cpu_wrappers_launch_nothing():
     tops.align_average(vs, z, use_kernel=True)
     tops.fused_round(vs, vs[0], n_iter=2, use_kernel=True)
     tops.fused_ring_round(vs.to(torch.bfloat16), vs[0], use_kernel=True)
+    qkv = torch.from_numpy(_normal(3, 1, 2, 8, 16))
+    tops.attention(qkv, qkv, qkv, use_kernel=True)
     assert tkernels.launch_counts() == {
         "gram": 0, "batched_gram": 0, "batched_gram_polar": 0, "align_average": 0,
-        "fused_round": 0, "fused_ring_round": 0,
+        "fused_round": 0, "fused_ring_round": 0, "flash_attention": 0,
     }
 
 
