@@ -14,7 +14,10 @@ of JAX or of the reference package.  Phases, each ending in
    and int8 wire stacks) against its plain PyTorch version on the card, at
    the main path's shapes and at a ragged shape, max error beside
    tolerance (B5/B6 also the f64 subspace distance; B5 on a rank-deficient
-   stack that forces the shifted Cholesky).
+   stack that forces the shifted Cholesky).  B7 fused_ring_round_remote
+   needs a world of ranks: the rank processes of phase 3 hold it against
+   its plain version first, at 8 ranks x (8192, 128) and on a subgroup
+   of 3 ranks at (1000, 7), and the ranks' outputs must agree.
 3. Drive the main path at the production width of
    ``repro/configs/paper_pca.py`` (d = 8192, r = 128, 65536 samples per
    shard, 2 rounds, 30 subspace-iteration steps), m = 8 shards, shard k
@@ -22,18 +25,27 @@ of JAX or of the reference package.  Phases, each ending in
    * three stacked lanes (``distributed_pca``, one process, topology
      gather, backend cuda): polar svd / newton-schulz with orth qr, and
      newton-schulz with cholesky-qr2, whose rounds are B5 launches;
-   * three cross-rank lanes (``distributed_pca_collective``), 8 ranks on
-     the one card over gloo, each on its own shard: the fused ring at 32
-     and at 8 wire bits (B6 launches), and psum (svd, qr) at 16384
-     samples per shard (B2 and B4 per round);
+   * a fourth stacked lane (newton-schulz, qr) on the psum lanes' data,
+     16384 samples per shard, which the hier lanes are held to;
+   * six cross-rank lanes, 8 ranks on the one card over gloo, each on its
+     own shard: the fused ring at 32 and at 8 wire bits (B6 launches);
+     remote-32, the local basis and the 32-bit reference into 2 rounds of
+     B7 (``comm.ring.remote_ring_rounds``; hops by CUDA IPC peer writes),
+     run again with rank 3's first launch delayed 2 s by a host sleep; and
+     at 16384 samples per shard psum (svd, qr; B2 and B4 per round) and
+     hier-32 / hier-8 over 2 pods x 4 ranks (newton-schulz, qr; B3 and B4
+     per round), whose bytes handed to ``torch.distributed`` per level
+     must equal ``comm_cost(...).levels``;
    each lane zeroes the launch counters first and reads them after (the
    counts must be exact), its estimate must be finite, orthonormal and
    within dist_2 < 0.15 of the centralized estimate, the 32-bit ring must
-   agree with the B5 lane to 1e-4 f64 subspace distance and the 8-bit ring
-   with the 32-bit one to PARITY_TOL[8].  A small run must agree with the
-   plain backend, and the launcher runs on the card, once in one process
-   and once under ``torchrun`` with 8 ranks on the ring at d = 8192,
-   r = 128 and 16384 samples per shard.
+   agree with the B5 lane to 1e-4 f64 subspace distance, the 8-bit ring
+   with the 32-bit one to PARITY_TOL[8], remote-32 (skewed or not) with
+   the 32-bit ring to 1e-4, and hier-32 / hier-8 with their stacked lane
+   to 1e-4 / PARITY_TOL[8].  A small run must agree with the plain
+   backend, and the launcher runs on the card, once in one process and
+   twice under ``torchrun`` with 8 ranks at d = 8192, r = 128 and 16384
+   samples per shard: on the ring, and on hier with 2 pods.
    Then the serving lane, with the PCA data freed first: B8
    (``flash_attention``) against its plain version at the serving shape
    (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
@@ -51,7 +63,9 @@ of JAX or of the reference package.  Phases, each ending in
    short prompt.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
-   function (none for B3, B5, B6; SDPA for B8).
+   function (none for B3, B5, B6, B7; SDPA for B8).  B7 is timed in the
+   rank world, per round on every rank, against the bound of the 8
+   ranks' work on the one card.
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve call), then, last,
    ``{"ok": true, "device": ...}``.
@@ -100,6 +114,13 @@ EPS32 = 2.0 ** -23
 # ring chunks that do not divide d.
 WORLD, N_PSUM = 8, 16384
 RING_CHUNK_MAIN, RING_CHUNK_RAGGED = 1000, 33
+# The hier lanes' pods (2 pods x 4 local ranks); B7's ragged check (odd m on
+# a subgroup of ranks, d and r off every tile); the remote lane's delayed
+# rank and its host sleep before its first launch; B7's timed rounds.
+PODS = 2
+B7_RAGGED = (3, 1000, 7)
+SKEW_RANK, SKEW_S = 3, 2.0
+B7_REPS, B7_PLAIN_REPS = 10, 3
 
 # FP32 CUDA-core peak, memory rate and dense bf16 tensor-core peak (NVIDIA
 # data sheets), by card name.
@@ -156,12 +177,15 @@ KERNELS = {
                     "src/repro/kernels/procrustes_align.py:425"),
     "fused_ring_round": ("src/repro_torch/kernels/csrc/fused_round.cu",
                          "src/repro/kernels/procrustes_align.py:593"),
+    "fused_ring_round_remote": ("src/repro_torch/kernels/csrc/fused_ring_remote.cu",
+                                "src/repro/kernels/procrustes_align.py:744"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:122"),
 }
 STACKED_LANES = (("svd", "qr"), ("newton-schulz", "qr"),
                  ("newton-schulz", "cholesky-qr2"))
-# (name, knobs, samples per shard, launches per rank).
+# (name, knobs, samples per shard, launches per rank); remote-32 has no
+# knobs: its rounds are B7 launches (``comm.ring.remote_ring_rounds``).
 CROSS_LANES = (
     ("ring-32", dict(topology="ring", comm_bits=32, polar="newton-schulz",
                      orth="cholesky-qr2"), N_PER_SHARD,
@@ -169,8 +193,13 @@ CROSS_LANES = (
     ("ring-8", dict(topology="ring", comm_bits=8, polar="newton-schulz",
                     orth="cholesky-qr2"), N_PER_SHARD,
      {"gram": 1, "fused_ring_round": N_ITER}),
+    ("remote-32", None, N_PER_SHARD, {"gram": 1, "fused_ring_round_remote": N_ITER}),
     ("psum-32", dict(topology="psum", comm_bits=32, polar="svd", orth="qr"),
      N_PSUM, {"gram": 1, "batched_gram": N_ITER, "align_average": N_ITER}),
+    ("hier-32", dict(topology="hier", comm_bits=32, polar="newton-schulz", orth="qr"),
+     N_PSUM, {"gram": 1, "batched_gram_polar": N_ITER, "align_average": N_ITER}),
+    ("hier-8", dict(topology="hier", comm_bits=8, polar="newton-schulz", orth="qr"),
+     N_PSUM, {"gram": 1, "batched_gram_polar": N_ITER, "align_average": N_ITER}),
 )
 
 
@@ -187,25 +216,103 @@ def lane_factor(torch, syn, dev):
     return gen, u[:, :R].contiguous(), factor
 
 
+def noisy_stack(torch, gen, m, d, r, dev):
+    """Noisy copies of one subspace (the paper's setting): an (m, d, r)
+    stack of orthonormal bases, contiguous."""
+    base = torch.linalg.qr(torch.randn(d, r, generator=gen, device=dev))[0]
+    noise = torch.randn(m, d, r, generator=gen, device=dev) * (0.1 / math.sqrt(d))
+    return torch.linalg.qr(base[None] + noise)[0].contiguous()
+
+
+def count_handed(dist) -> dict:
+    """Wrap the collectives of ``torch.distributed`` to count the payload
+    bytes this process hands them, by group id; returns the live dict."""
+    handed = {}
+
+    def add(group, t):
+        handed[id(group)] = handed.get(id(group), 0) + t.numel() * t.element_size()
+
+    def counting(fn, pos):
+        def call(*args, **kw):
+            add(kw.get("group"), args[pos])
+            return fn(*args, **kw)
+        return call
+
+    gather = "all_gather_single" if hasattr(dist, "all_gather_single") else "all_gather_into_tensor"
+    for name, pos in (("all_reduce", 0), ("broadcast", 0), (gather, 1)):
+        setattr(dist, name, counting(getattr(dist, name), pos))
+    p2p = dist.batch_isend_irecv
+
+    def batch(ops):
+        for op in ops:
+            if getattr(op.op, "__name__", "") == "isend":
+                add(op.group, op.tensor)
+        return p2p(ops)
+
+    dist.batch_isend_irecv = batch
+    return handed
+
+
 def rank_worker(rank: int, init: str, out: str) -> int:
-    """One rank of the cross-rank lanes: its own shard of the data rule,
-    ``distributed_pca_collective`` per lane, counters zeroed before each
-    lane; writes its launch counts, walls, staged bytes and estimates."""
+    """One rank of the cross-rank lanes.  Phase 2: B7 against its plain
+    version (main and ragged shapes).  Phase 3: each lane of CROSS_LANES on
+    this rank's shard of the data rule, counters zeroed before each lane,
+    plus the remote lane again with rank SKEW_RANK's launch delayed.
+    Phase 4: B7's time per round.  Writes its report and estimates."""
     sys.path.insert(0, SRC)
     import torch
     import torch.distributed as dist
 
     from repro_torch import kernels
     from repro_torch.comm import transport
-    from repro_torch.core import distributed_pca_collective
+    from repro_torch.comm.ring import remote_ring_rounds
+    from repro_torch.comm.topology import broadcast_from
+    from repro_torch.core import (
+        distributed_pca_collective,
+        empirical_covariance,
+        local_eigenbasis,
+        subspace_dist64,
+    )
     from repro_torch.data import synthetic as syn
+    from repro_torch.interop import strict_fp32
+    from repro_torch.kernels import procrustes_align as pa
     from repro_torch.launch.mesh import make_aggregation_mesh
 
+    strict_fp32()
     agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=WORLD,
                                 local_rank=rank, local_world=WORLD,
-                                init_method=init)
-    _, _, factor = lane_factor(torch, syn, agg.device)
-    report = {"rule": agg.rule, "backend": agg.backend, "lanes": {}}
+                                init_method=init, pods=PODS)
+    dev, world = agg.device, agg.group
+    handed = count_handed(dist)
+    levels = {"intra": id(agg.local_group), "inter": id(agg.pod_group)}
+    report = {"rule": agg.rule, "backend": agg.backend, "lanes": {}, "b7": {}}
+
+    # Phase 2: B7 against its plain version (comparison launches).
+    def hold_b7(label, v, ref, group):
+        got = pa.fused_ring_round_remote(v, ref, group=group)
+        want = pa.plain_remote(v, ref, group=group)
+        torch.cuda.synchronize()
+        report["b7"][label] = {
+            "err": (got - want).abs().max().item(), "sd": subspace_dist64(got, want),
+            "finite": bool(torch.isfinite(got).all()),
+            "grid": pa.fused_ring_round_remote.grid}
+        return got
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    vs = noisy_stack(torch, gen, WORLD, D, R, dev)
+    v_b7, ref_b7 = vs[rank].contiguous(), vs[0].contiguous()
+    got = hold_b7(f"main ({WORLD} ranks, {D}, {R})", v_b7, ref_b7, world)
+    torch.save(got.cpu(), os.path.join(out, f"b7-main-{rank}.pt"))
+    m_rag, d_rag, r_rag = B7_RAGGED
+    sub = dist.new_group(list(range(m_rag)))
+    rag = noisy_stack(torch, gen, m_rag, d_rag, r_rag, dev)
+    if rank < m_rag:
+        hold_b7(f"ragged ({m_rag} ranks, {d_rag}, {r_rag})", rag[rank].contiguous(),
+                rag[0].contiguous(), sub)
+    dist.barrier()
+
+    # Phase 3: the lanes.
+    _, _, factor = lane_factor(torch, syn, dev)
     shards = {}
     for name, knobs, n, _ in CROSS_LANES:
         if n not in shards:
@@ -214,18 +321,69 @@ def rank_worker(rank: int, init: str, out: str) -> int:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         transport.reset_staged_bytes()
+        handed.clear()
         t0 = time.perf_counter()
-        v = distributed_pca_collective(
-            shards[n], R, group=agg.group, device=agg.device, n_iter=N_ITER,
-            solver="subspace", iters=ITERS, backend="cuda",
-            ring_chunk=RING_CHUNK_MAIN, **knobs)
+        if knobs is None:
+            v = local_eigenbasis(empirical_covariance(shards[n], backend="cuda"), R,
+                                 method="subspace", iters=ITERS)[0]
+            est = remote_ring_rounds(v, group=world, n_iter=N_ITER)
+        else:
+            hier = knobs["topology"] == "hier"
+            est = distributed_pca_collective(
+                shards[n], R, group=agg.local_group if hier else world,
+                pod_group=agg.pod_group if hier else None, device=dev,
+                n_iter=N_ITER, solver="subspace", iters=ITERS, backend="cuda",
+                ring_chunk=RING_CHUNK_MAIN, **knobs)
         torch.cuda.synchronize()
         report["lanes"][name] = {
             "wall": time.perf_counter() - t0,
             "launches": kernels.launch_counts(),
             "staged_bytes": transport.staged_bytes(),
+            "handed": {lv: handed.get(g, 0) for lv, g in levels.items()},
         }
-        torch.save(v.cpu(), os.path.join(out, f"{name}-{rank}.pt"))
+        torch.save(est.cpu(), os.path.join(out, f"{name}-{rank}.pt"))
+        if knobs is None:
+            # The same rounds on the same basis, rank SKEW_RANK's first
+            # launch delayed by a host sleep: its neighbours' kernels wait.
+            ref = broadcast_from(v, src=0, group=world)
+            dist.barrier()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if rank == SKEW_RANK:
+                time.sleep(SKEW_S)
+            est = remote_ring_rounds(v, ref, group=world, n_iter=N_ITER)
+            torch.cuda.synchronize()
+            report["lanes"]["remote-32 skewed"] = {
+                "wall": time.perf_counter() - t0, "launches": kernels.launch_counts()}
+            torch.save(est.cpu(), os.path.join(out, f"remote-32 skewed-{rank}.pt"))
+    del shards
+
+    # Phase 4: B7 per round at the main shape, CUDA events around B7_REPS
+    # rounds on every rank (each round waits for its status word), and the
+    # host clock from a common barrier.
+    def per_round(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+    report["b7_time"] = {
+        "kernel": per_round(lambda: pa.fused_ring_round_remote(v_b7, ref_b7, group=world),
+                            B7_REPS),
+        "plain": per_round(lambda: pa.plain_remote(v_b7, ref_b7, group=world),
+                           B7_PLAIN_REPS),
+    }
+    pa.close_remote(world)
+    pa.close_remote(sub)
     dist.destroy_process_group()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -366,7 +524,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
 
     from repro_torch import kernels
-    from repro_torch.comm import PARITY_TOL, get_codec, shard_generator
+    from repro_torch.comm import PARITY_TOL, comm_cost, get_codec, shard_generator
     from repro_torch.core import (
         central_estimate,
         dist_2,
@@ -426,13 +584,6 @@ def main(argv=None) -> int:
         profile_serving(torch, dev)
         return 0
 
-    def noisy_stack(m, d, r):
-        """Noisy copies of one subspace (the paper's setting): an (m, d, r)
-        stack of orthonormal bases, contiguous."""
-        base = torch.linalg.qr(torch.randn(d, r, generator=gen, device=dev))[0]
-        noise = torch.randn(m, d, r, generator=gen, device=dev) * (0.1 / math.sqrt(d))
-        return torch.linalg.qr(base[None] + noise)[0].contiguous()
-
     # -- phase 2: each kernel against its plain version --------------------
     results = {k: {"errs": {}} for k in KERNELS}
 
@@ -461,8 +612,8 @@ def main(argv=None) -> int:
          sum_tol(RAGGED_N, want.abs().max().item()))
 
     stacks = {
-        "main (8, 8192, 128)": noisy_stack(SHARDS, D, R),
-        "ragged (3, 205, 5)": noisy_stack(RAGGED_M, RAGGED_D, RAGGED_R),
+        "main (8, 8192, 128)": noisy_stack(torch, gen, SHARDS, D, R, dev),
+        "ragged (3, 205, 5)": noisy_stack(torch, gen, RAGGED_M, RAGGED_D, RAGGED_R, dev),
     }
     for label, vs in stacks.items():
         m, d, r = vs.shape
@@ -566,15 +717,38 @@ def main(argv=None) -> int:
     v_b5 = estimates[("newton-schulz", "cholesky-qr2")]
     del samples, xs, x0
 
-    # The cross-rank lanes: WORLD ranks on this card over gloo, each on its
-    # own shard; the psum lane's centralized estimate from its own data.
-    covs = torch.stack([
-        empirical_covariance(syn.sample_shard(factor, N_PSUM, seed=SEED, shard=k),
-                             backend="torch")
-        for k in range(WORLD)])
+    # The psum and hier lanes' data (N_PSUM samples per shard): its
+    # centralized estimate, and the stacked lane the hier lanes are held to.
+    samples = torch.cat([syn.sample_shard(factor, N_PSUM, seed=SEED, shard=k)
+                         for k in range(WORLD)])
+    covs = torch.stack([empirical_covariance(x, backend="torch")
+                        for x in samples.reshape(WORLD, N_PSUM, D)])
     v_cent_psum, _ = central_estimate(covs, R)
     del covs
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    v_stack_psum = distributed_pca(
+        samples, R, shards=WORLD, device=dev, n_iter=N_ITER, solver="subspace",
+        iters=ITERS, backend="cuda", polar="newton-schulz", orth="qr",
+        topology="gather")
     torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    expected = expected_counts({"gram": WORLD, "batched_gram_polar": N_ITER,
+                                "align_average": N_ITER})
+    for k in KERNELS:
+        launches[k] += counts[k]
+    d_cent = dist_2(v_stack_psum, v_cent_psum).item()
+    print(f"[main] polar=newton-schulz orth=qr backend=cuda topology=gather "
+          f"m={WORLD} n={N_PSUM} d={D} r={R} (the hier lanes' stacked lane): wall "
+          f"{time.perf_counter() - t0:.2f} s, launches { {k: c for k, c in counts.items() if c} }, "
+          f"dist_2(v, central) {d_cent:.4e}")
+    require(counts == expected, f"stacked N_PSUM lane: launches {counts}, expected {expected}")
+    require(d_cent < DIST_BAR, f"stacked N_PSUM lane: dist_2(v, central) {d_cent}")
+    del samples
+    torch.cuda.empty_cache()
+
+    # The cross-rank lanes: WORLD ranks on this card over gloo, each on its
+    # own shard (B7's kernels map each other's buffers by CUDA IPC).
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         run_ranks(out)
@@ -584,9 +758,31 @@ def main(argv=None) -> int:
         for k in range(WORLD):
             with open(os.path.join(out, f"rank{k}.json")) as f:
                 reports.append(json.load(f))
+        lanes = [lane for lane, *_ in CROSS_LANES] + ["remote-32 skewed"]
         ests = {lane: [torch.load(os.path.join(out, f"{lane}-{k}.pt")).to(dev)
-                       for k in range(WORLD)] for lane, *_ in CROSS_LANES}
+                       for k in range(WORLD)] for lane in lanes}
+        b7_main = [torch.load(os.path.join(out, f"b7-main-{k}.pt")) for k in range(WORLD)]
     print(f"[ranks] transport: {reports[0]['backend']} ({reports[0]['rule']})")
+
+    # Phase 2's B7 checks, made in the rank world.
+    for label in reports[0]["b7"]:
+        cells = [rep["b7"][label] for rep in reports if label in rep["b7"]]
+        err = max(c["err"] for c in cells)
+        sd = max(c["sd"] for c in cells)
+        ok = (all(c["finite"] for c in cells) and err <= ROUND_TOL and sd <= ROUND_SD_TOL)
+        extra = ""
+        if label.startswith("main"):
+            spread = max(subspace_dist64(b, b7_main[0]) for b in b7_main[1:])
+            ok = ok and spread <= ROUND_SD_TOL
+            extra = f" rank spread {spread:.1e}"
+        print(f"[check] {'fused_ring_round_remote':<18} {label:<34} max_abs_err {err:.3e} "
+              f"tol {ROUND_TOL:.0e} subspace_dist64 {sd:.3e} tol {ROUND_SD_TOL:.0e}"
+              f"{extra} over {len(cells)} ranks, grid {cells[0]['grid']} blocks "
+              f"{'ok' if ok else 'FAIL'}")
+        results["fused_ring_round_remote"]["errs"][label] = (err, ROUND_TOL)
+        require(ok, f"fused_ring_round_remote disagrees with its plain version at {label}")
+    del b7_main
+
     for lane, knobs, n, nonzero in CROSS_LANES:
         expected = expected_counts(nonzero)
         lane_reps = [rep["lanes"][lane] for rep in reports]
@@ -597,9 +793,11 @@ def main(argv=None) -> int:
                 launches[kern] += c
         v = ests[lane][0]
         spread = max(subspace_dist64(e, v) for e in ests[lane][1:])
-        cent = v_cent_psum if lane.startswith("psum") else v_cent
+        cent = v_cent if n == N_PER_SHARD else v_cent_psum
         d_cent = dist_2(v, cent).item()
         ortho = (v.mT @ v - torch.eye(R, device=dev)).abs().max().item()
+        polar, orth = (knobs["polar"], knobs["orth"]) if knobs else ("newton-schulz",
+                                                                     "cholesky-qr2")
         extra = ""
         if lane == "ring-32":
             sd = subspace_dist64(v, v_b5)
@@ -610,7 +808,39 @@ def main(argv=None) -> int:
             extra = (f", subspace_dist64(v, ring-32) {sd:.3e} "
                      f"(tol PARITY_TOL[8] = {PARITY_TOL[8]})")
             require(sd <= PARITY_TOL[8], f"{lane}: {sd} from the 32-bit ring")
-        print(f"[ranks] {lane} {knobs['polar']}/{knobs['orth']} backend=cuda "
+        elif lane == "remote-32":
+            sd = subspace_dist64(v, ests["ring-32"][0])
+            skew = reports[SKEW_RANK]["lanes"]["remote-32 skewed"]
+            skew_counts = [rep["lanes"]["remote-32 skewed"]["launches"] for rep in reports]
+            sd_skew = max(subspace_dist64(e, ests["ring-32"][0])
+                          for e in ests["remote-32 skewed"])
+            same = all(torch.equal(a, b) for a, b in
+                       zip(ests["remote-32 skewed"], ests["remote-32"]))
+            extra = (f", subspace_dist64(v, ring-32) {sd:.3e} (tol {STACK_TOL:.0e}); "
+                     f"rank {SKEW_RANK} started {SKEW_S} s late: slowest rank "
+                     f"{max(rep['lanes']['remote-32 skewed']['wall'] for rep in reports):.2f} s "
+                     f"(delayed rank {skew['wall']:.2f} s), worst rank's "
+                     f"subspace_dist64(v, ring-32) {sd_skew:.3e}, bitwise equal to the "
+                     f"unskewed run {same}")
+            require(sd <= STACK_TOL, f"{lane}: {sd} from the staged ring-32 lane")
+            require(sd_skew <= STACK_TOL, f"{lane} skewed: {sd_skew} from ring-32")
+            require(all(c == expected_counts({"fused_ring_round_remote": N_ITER})
+                        for c in skew_counts), f"{lane} skewed: launches {skew_counts}")
+        elif lane.startswith("hier"):
+            bits = knobs["comm_bits"]
+            tol = STACK_TOL if bits == 32 else PARITY_TOL[8]
+            sd = subspace_dist64(v, v_stack_psum)
+            cost = comm_cost("hier", m=WORLD, d=D, r=R, n_iter=N_ITER,
+                             comm_bits=bits, pods=PODS)
+            want = {lv: sum(kinds.values()) for lv, kinds in cost.levels.items()}
+            got = [{lv: 8 * b for lv, b in rep["handed"].items()} for rep in lane_reps]
+            extra = (f", subspace_dist64(v, stacked lane) {sd:.3e} (tol {tol:.0e}); "
+                     f"handed bits per rank intra {got[0]['intra']} inter {got[0]['inter']} "
+                     f"vs comm_cost levels intra {want['intra']} inter {want['inter']} "
+                     f"({cost.levels})")
+            require(sd <= tol, f"{lane}: {sd} from the stacked lane")
+            require(all(g == want for g in got), f"{lane}: handed {got}, levels {want}")
+        print(f"[ranks] {lane} {polar}/{orth} backend=cuda "
               f"m={WORLD} n={n} d={D} r={R}: wall {max(r['wall'] for r in lane_reps):.2f} s "
               f"(slowest rank), launches/rank { {k: c for k, c in expected.items() if c} }, "
               f"staged {lane_reps[0]['staged_bytes'] / 1e6:.1f} MB/rank, "
@@ -620,6 +850,7 @@ def main(argv=None) -> int:
                 f"{lane}: non-finite or non-orthonormal estimate")
         require(spread <= ROUND_SD_TOL, f"{lane}: ranks disagree by {spread}")
         require(d_cent < DIST_BAR, f"{lane}: dist_2(v, central) {d_cent} >= {DIST_BAR}")
+    b7_time = [rep["b7_time"] for rep in reports]
     del ests, factor
 
     # A small input through both backends: the kernels' path must give the
@@ -683,6 +914,32 @@ def main(argv=None) -> int:
             "torchrun launcher: wrong lane or width")
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun launcher: estimate not within the bar or no better than naive")
+
+    # Once more under torchrun: the hier topology, PODS pods.
+    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
+               "--device", "cuda", "--topology", "hier", "--pods", str(PODS),
+               "--polar", "newton-schulz", "--dim", str(D), "--subspace-rank",
+               str(R), "--n-per-shard", str(N_PSUM)]
+    t0 = time.monotonic()
+    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    require(cli.returncode == 0, f"torchrun hier launcher failed:\n{cli.stderr[-4000:]}")
+    stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
+                 if ": " in line)
+    print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen "
+          f"--topology hier --pods {PODS} --polar newton-schulz --dim {D} "
+          f"--subspace-rank {R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("ranks", "pods", "d", "r", "backend", "topology", "transport",
+                       "staged_bytes", "dist_aligned", "dist_central",
+                       "dist_naive", "wall_s")))
+    require(stats["backend"] == "cuda" and stats["topology"] == "hier"
+            and stats["pods"] == str(PODS) and stats["ranks"] == str(WORLD)
+            and (stats["d"], stats["r"]) == (str(D), str(R)),
+            "torchrun hier launcher: wrong lane or width")
+    require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
+            "torchrun hier launcher: estimate not within the bar or no better than naive")
     torch.cuda.synchronize()
 
     # -- the serving lane (B8): the PCA data is gone, free its cache --------
@@ -904,6 +1161,34 @@ def main(argv=None) -> int:
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                         "bound_by": t[2][1]} for wname, t in ring_ms.items()}
+    # B7, timed in the rank world (phase 3's processes): WORLD ranks share
+    # the card, so the world's bound is WORLD ranks' work; each rank does
+    # B6's operations and writes WORLD - 1 hops of d r f32 to its neighbour.
+    rank_bound, _ = bound(round_flops, 4 * (3 + WORLD - 1) * d * r)
+    world_bound, b7_by = bound(WORLD * round_flops, WORLD * 4 * (3 + WORLD - 1) * d * r)
+    b7_ms = max(t["kernel"][0] for t in b7_time)
+    b7_wall = max(t["kernel"][1] for t in b7_time)
+    b7_plain = max(t["plain"][0] for t in b7_time)
+    errs = results["fused_ring_round_remote"]["errs"]
+    print(f"[time] fused_ring_round_remote kernel_ms {b7_ms:.4f} (slowest of {WORLD} ranks "
+          f"sharing the card, CUDA events, {B7_REPS} rounds; the world's host wall "
+          f"{b7_wall:.4f} ms a round) launches/run {launches['fused_ring_round_remote']} "
+          f"bound_ms {world_bound:.4f} ({b7_by}; the world: {WORLD} x {rank_bound:.4f} "
+          f"per rank) plain_ms {b7_plain:.4f} library_ms none (no one PyTorch call "
+          f"computes a ring round)")
+    src, replaces = KERNELS["fused_ring_round_remote"]
+    rows.append({
+        "name": "fused_ring_round_remote", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": launches["fused_ring_round_remote"],
+        "max_abs_err": max(e for lbl, (e, _) in errs.items() if lbl.startswith("main")),
+        "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": world_bound, "bound_by": b7_by,
+        "library_ms": None, "tol": ROUND_TOL,
+        "ragged_max_abs_err": max(e for lbl, (e, _) in errs.items()
+                                  if lbl.startswith("ragged")),
+        "verdict": "pass", "ranks_sharing_card": WORLD, "rank_bound_ms": rank_bound,
+        "world_wall_ms": b7_wall,
+        "per_rank": [{"ms": t["kernel"][0], "plain_ms": t["plain"][0]} for t in b7_time],
+    })
     torch.cuda.synchronize()
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 

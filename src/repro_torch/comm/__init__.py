@@ -2,12 +2,12 @@
 refinement rounds talk across ranks of a ``torch.distributed`` process
 group.
 
-``topology=`` ("psum" | "gather" | "ring" | "auto") picks the schedule,
-independent of ``backend=`` (the compute path); ``comm_bits=`` (32 | 16 |
-8) the wire precision; ``membership=`` masks dead ranks out.  The
-registry and the cost model live in ``topology``, the codecs in
-``quantize``, the ring in ``ring``, and every call into
-``torch.distributed`` in ``transport``.  Each function takes its
+``topology=`` ("psum" | "gather" | "ring" | "hier" | "auto") picks the
+schedule, independent of ``backend=`` (the compute path); ``comm_bits=``
+(32 | 16 | 8) the wire precision; ``membership=`` masks dead ranks out.
+The registry and the cost model live in ``topology``, the codecs in
+``quantize``, the ring in ``ring``, the two-level schedule in ``hier``,
+and every call into ``torch.distributed`` in ``transport``.  Each function takes its
 ``ProcessGroup`` explicitly; nothing here holds mesh state.  This package
 sits below ``repro_torch.core`` (core imports are function-level).
 """
@@ -44,5 +44,6 @@ from repro_torch.comm.ring import (  # noqa: F401
     DEFAULT_RING_CHUNK,
     chunk_spans,
     fused_ring_rounds,
+    remote_ring_rounds,
     ring_rounds,
 )

@@ -17,6 +17,11 @@ stack, with nothing between launches.  The error-feedback recurrence
 reads only the local basis and the previous residual, never a round's
 output, which is what lets the staging come first.
 
+``remote_ring_rounds``: the same cell with nothing staged: each round is
+one launch of the remote-hop ring round (B7), in which every rank keeps
+only its own basis and the hops are the kernel's writes into the right
+neighbour's buffer.  32-bit wire only.
+
 Wire precision (``comm_bits``): a lossy round quantizes once and the
 payload circulates verbatim (receivers decode for compute and forward
 the original), with the encoding residual carried into the next round's
@@ -40,6 +45,7 @@ __all__ = [
     "chunk_spans",
     "ring_rounds",
     "fused_ring_rounds",
+    "remote_ring_rounds",
 ]
 
 # Salt of the ring's per-rank stochastic-rounding streams ("RING").
@@ -181,4 +187,27 @@ def fused_ring_rounds(
     for g, gs in payloads:
         out = kops.fused_ring_round(g, out, scales=gs, ring_chunk=chunk,
                                     use_kernel=True)
+    return out.to(v_local.dtype)
+
+
+def remote_ring_rounds(
+    v_local: torch.Tensor,
+    ref: torch.Tensor | None = None,
+    *,
+    group,
+    n_iter: int = 1,
+) -> torch.Tensor:
+    """``n_iter`` rounds of the fused ring cell at 32 bits, one remote-hop
+    launch (B7) each, round k's (d, r) f32 output round k+1's reference.
+    ``ref`` defaults to the first rank's basis (one broadcast).  Returns
+    the (d, r) output in ``v_local.dtype`` on every rank."""
+    from repro_torch.kernels import ops as kops
+
+    if ref is None:
+        ref = _reference(v_local, get_codec(32), resolve_membership(
+            None, dist.get_world_size(group)), group, dist.get_rank(group))
+    v = v_local.to(torch.float32).contiguous()
+    out = ref.to(torch.float32).contiguous()
+    for _ in range(max(n_iter, 1)):
+        out = kops.fused_ring_round_remote(v, out, group=group)
     return out.to(v_local.dtype)

@@ -1,7 +1,7 @@
 """The port's only calls into ``torch.distributed``.
 
-Every collective of the comm layer goes through the four functions here,
-each on an explicit ``ProcessGroup`` (ranks are group ranks):
+Every collective of the comm layer goes through the functions here, each
+on an explicit ``ProcessGroup`` (ranks are group ranks):
 
   * ``all_reduce``  (sum or max, in place)
   * ``broadcast``   (in place, from a group rank)
@@ -9,6 +9,7 @@ each on an explicit ``ProcessGroup`` (ranks are group ranks):
   * ``ring_shift``  (send to the right neighbour and receive from the left
                      one over an ordered list of ranks, by
                      ``batch_isend_irecv``)
+  * ``barrier``
 
 Staging: gloo's support for CUDA tensors is uneven (no all-gather or
 send/recv), and it is the only backend when several ranks share one card
@@ -28,6 +29,7 @@ __all__ = [
     "broadcast",
     "all_gather",
     "ring_shift",
+    "barrier",
     "staged_bytes",
     "reset_staged_bytes",
 ]
@@ -130,3 +132,8 @@ def ring_shift(
     if not staged:
         return recvs
     return [_back(torch.empty_like(c), r) for c, r in zip(chunks, recvs)]
+
+
+def barrier(*, group) -> None:
+    """Return once every rank of the group has called it."""
+    dist.barrier(group=group)

@@ -35,6 +35,7 @@ from repro_torch.core.covariance import empirical_covariance  # noqa: F401
 from repro_torch.core.distributed import (  # noqa: F401
     distributed_pca,
     distributed_pca_collective,
+    distributed_pca_from_covs,
     procrustes_average_collective,
     sign_average_collective,
 )

@@ -20,11 +20,20 @@ Two forms of the same estimator:
   * gather -> all-gather at wire precision, then the stacked
     ``refinement_rounds`` (where B5 serves its cell);
   * psum -> ``kops.align_one`` on the local basis and a wire-precision
-    all-reduce per round.
+    all-reduce per round;
+  * hier -> ``comm.hier.hier_rounds`` over the (pod, local) groups: the
+    psum body, an exact all-reduce over the pod's local group and a ring
+    of the pod sums over the pod group.
 
 ``topology="auto"`` pairs with the backend as in the reference: "gather"
 under "cuda" (the reference's "pallas"), "psum" otherwise.  Every function
-takes its ``ProcessGroup`` explicitly.
+takes its ``ProcessGroup`` explicitly; the hier topology takes two, the
+local group as ``group`` and the pod group as ``pod_group``
+(``launch.mesh.make_aggregation_mesh(pods=)`` builds both).
+
+``distributed_pca_from_covs`` starts from each rank's pre-formed local
+matrix instead of its samples (the paper's abstract setting), with an
+optional ``ref``.
 """
 
 from __future__ import annotations
@@ -41,9 +50,9 @@ from repro_torch.comm.quantize import (
     wire_broadcast,
     wire_psum_mean,
 )
+from repro_torch.comm.hier import hier_rounds
 from repro_torch.comm.ring import DEFAULT_RING_CHUNK, fused_ring_rounds, ring_rounds
 from repro_torch.comm.topology import (
-    HIER_LATER,
     TOPOLOGY_CHOICES,
     broadcast_from,
     resolve_topology,
@@ -62,6 +71,7 @@ __all__ = [
     "sign_average_collective",
     "distributed_pca",
     "distributed_pca_collective",
+    "distributed_pca_from_covs",
 ]
 
 # Stochastic-rounding stream salts of the psum and gather sites.
@@ -71,13 +81,11 @@ _GATHER_SALT = 0x47415452
 
 def resolve_stacked_topology(topology: str | None) -> str:
     """The one-process form's schedule: "gather" for None/"auto"/"gather";
-    psum and ring run across ranks (``distributed_pca_collective``)."""
+    psum, ring and hier run across ranks (``distributed_pca_collective``)."""
     topology = topology or "auto"
     if topology in ("auto", "gather"):
         return "gather"
-    if topology == "hier":
-        raise NotImplementedError(HIER_LATER)
-    if topology in ("psum", "ring"):
+    if topology in ("psum", "ring", "hier"):
         raise ValueError(
             f"topology={topology!r} runs across the ranks of a process group: "
             "use distributed_pca_collective (e.g. under torchrun); the "
@@ -100,17 +108,22 @@ def procrustes_average_collective(
     comm_bits=None,
     plan=None,
     membership: Membership | None = None,
+    pod_group=None,
 ) -> torch.Tensor:
     """Algorithm 1 (``n_iter=1``) / Algorithm 2 over the ranks of ``group``.
 
     ``v_local``: this rank's (d, r) local basis.  ``ref`` defaults to the
     first surviving rank's basis.  ``backend`` "torch" | "cuda" | "auto"
     (default "torch"), ``polar`` (default "svd"), ``orth`` (default
-    "qr"), ``topology`` "psum" | "gather" | "ring" | "auto", ``ring_chunk``
-    rows per ring message (default ``DEFAULT_RING_CHUNK``), ``comm_bits``
-    32 | 16 | 8 (default 32), ``membership`` the active-rank mask
-    (``None``: all alive).  ``plan`` takes only ``None``: the planner is
-    ROADMAP A7.  Returns the (d, r) estimate, the same on every rank.
+    "qr"), ``topology`` "psum" | "gather" | "ring" | "hier" | "auto",
+    ``ring_chunk`` rows per ring message (default ``DEFAULT_RING_CHUNK``),
+    ``comm_bits`` 32 | 16 | 8 (default 32), ``membership`` the active-rank
+    mask (``None``: all alive).  ``topology="hier"`` and ``pod_group`` go
+    together: ``group`` is then this rank's pod-local group and
+    ``pod_group`` its slot's group across pods, the machines are all
+    pods x local ranks (pod-major), and ``membership`` is over them.
+    ``plan`` takes only ``None``: the planner is ROADMAP A7.  Returns the
+    (d, r) estimate, the same on every rank.
     """
     from repro_torch.kernels import ops as kops
 
@@ -118,14 +131,27 @@ def procrustes_average_collective(
         raise NotImplementedError(
             "plan= needs the cost-model planner, not ported yet (ROADMAP A7)"
         )
-    rank = dist.get_rank(group)
-    mem = resolve_membership(membership, dist.get_world_size(group))
     backend = kops.resolve_backend(backend or "torch", v_local.device)
     polar = procrustes.resolve_polar(polar or "svd")
     orth = resolve_orth(orth or "qr")
     topo = resolve_topology(topology, backend)
+    if (topo == "hier") != (pod_group is not None):
+        raise ValueError(
+            "topology='hier' and pod_group= go together: the two-level "
+            "schedule needs the (pod, local) groups, and no flat topology "
+            f"spans two (got topology={topo!r}, pod_group="
+            f"{'set' if pod_group is not None else None})"
+        )
     chunk = DEFAULT_RING_CHUNK if ring_chunk is None else ring_chunk
     bits = resolve_comm_bits(comm_bits)
+    if topo == "hier":
+        return hier_rounds(
+            v_local, ref, local_group=group, pod_group=pod_group,
+            n_iter=n_iter, backend=backend, polar=polar, orth=orth,
+            chunk=chunk, comm_bits=bits, membership=membership,
+        )
+    rank = dist.get_rank(group)
+    mem = resolve_membership(membership, dist.get_world_size(group))
     codec = get_codec(bits)
     dev = v_local.device
     if topo == "gather":
@@ -261,11 +287,13 @@ def distributed_pca_collective(
     ring_chunk: int | None = None,
     comm_bits=None,
     membership: Membership | None = None,
+    pod_group=None,
 ) -> torch.Tensor:
     """Distributed PCA with one shard per rank of ``group``: this rank's
     (n_local, d) ``x_local`` gives its covariance and top-r basis on
-    ``device``, and ``procrustes_average_collective`` aggregates (knobs as
-    there).  Returns the (d, r) estimate on every rank."""
+    ``device``, and ``procrustes_average_collective`` aggregates (knobs,
+    and ``pod_group`` with ``topology="hier"``, as there).  Returns the
+    (d, r) estimate on every rank."""
     from repro_torch.kernels import ops as kops
 
     dev = resolve_device(device)
@@ -276,5 +304,47 @@ def distributed_pca_collective(
     return procrustes_average_collective(
         v, group=group, n_iter=n_iter, backend=backend, polar=polar, orth=orth,
         topology=topology, ring_chunk=ring_chunk, comm_bits=comm_bits,
-        membership=membership,
+        membership=membership, pod_group=pod_group,
+    )
+
+
+def distributed_pca_from_covs(
+    cov_local: torch.Tensor,
+    r: int,
+    *,
+    group,
+    device: str | torch.device = "cuda",
+    n_iter: int = 1,
+    solver: str = "eigh",
+    iters: int = 30,
+    backend: str | None = None,
+    polar: str | None = None,
+    orth: str | None = None,
+    topology: str | None = None,
+    ring_chunk: int | None = None,
+    comm_bits=None,
+    membership: Membership | None = None,
+    pod_group=None,
+    ref: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Distributed PCA from pre-formed local matrices (the paper's abstract
+    setting: each machine holds a noisy X^i, e.g. quadratic sensing's D_N)
+    with one machine per rank of ``group``: ``cov_local`` is this rank's
+    (d, d) matrix, or a (k, d, d) block whose mean it takes.  Its top-r
+    basis on ``device`` goes to ``procrustes_average_collective`` (knobs,
+    and ``pod_group`` with ``topology="hier"``, as there).  ``ref``
+    optionally supplies the (d, r) alignment reference, the same on every
+    rank, in place of the first live rank's basis (no reference broadcast
+    then).  Returns the (d, r) estimate on every rank."""
+    dev = resolve_device(device)
+    strict_fp32()
+    cov = cov_local.to(dev)
+    if cov.dim() == 3:
+        cov = cov.mean(dim=0)
+    v, _ = local_eigenbasis(cov, r, method=solver, iters=iters)
+    return procrustes_average_collective(
+        v, group=group, n_iter=n_iter, ref=None if ref is None else ref.to(dev),
+        backend=backend, polar=polar, orth=orth, topology=topology,
+        ring_chunk=ring_chunk, comm_bits=comm_bits, membership=membership,
+        pod_group=pod_group,
     )

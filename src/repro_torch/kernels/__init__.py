@@ -7,6 +7,8 @@ versions.
   * ``procrustes_align.align_average``  B4, same source
   * ``procrustes_align.fused_round``    B5, ``csrc/fused_round.cu``
   * ``procrustes_align.fused_ring_round``  B6, same source
+  * ``procrustes_align.fused_ring_round_remote``  B7,
+    ``csrc/fused_ring_remote.cu``
   * ``flash_attention.flash_attention``  B8, ``csrc/flash_attention.cu``
 
 ``launch_counts`` / ``reset_launch_counts`` read and zero every wrapper's
@@ -28,6 +30,7 @@ WRAPPERS = {
     "align_average": procrustes_align.align_average,
     "fused_round": procrustes_align.fused_round,
     "fused_ring_round": procrustes_align.fused_ring_round,
+    "fused_ring_round_remote": procrustes_align.fused_ring_round_remote,
     "flash_attention": flash_attention.flash_attention,
 }
 

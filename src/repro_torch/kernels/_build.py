@@ -38,6 +38,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
 # B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, m, d, r,
 # rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c, grid_out, stream.
 _ROUND = (_I, *(_P,) * 9, *(_I,) * 8, _F, _F, _P, _P)
@@ -54,6 +55,17 @@ _SIGNATURES = {
     # device, bf16_in, q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
     # scale, stream.
     "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _P),
+    # B7 exchange buffers: alloc (device, bytes, *ptr, handle), open
+    # (device, handle, *ptr), close / free (device, ptr).
+    "rt_remote_alloc": (_I, ctypes.c_size_t, ctypes.POINTER(_P), _P),
+    "rt_remote_open": (_I, _P, ctypes.POINTER(_P)),
+    "rt_remote_close": (_I, _P),
+    "rt_remote_free": (_I, _P),
+    # B7 round: device, v, ref, out, part, z, vbar, q1, w, mine, right, left,
+    # status, seq0, timeout_ns, m, d, r, rows1, splits1, rows2, splits2,
+    # ns_iters, pivot_c, shift_c, grid_out, stream.
+    "rt_fused_ring_remote": (_I, *(_P,) * 12, _U64, _U64, *(_I,) * 8, _F, _F,
+                             _P, _P),
 }
 
 
@@ -128,6 +140,8 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
+    lib.rt_remote_exchange_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rt_remote_exchange_bytes.restype = ctypes.c_size_t
     return lib
 
 

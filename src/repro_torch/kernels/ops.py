@@ -35,6 +35,7 @@ __all__ = [
     "align_for_backend",
     "fused_round",
     "fused_ring_round",
+    "fused_ring_round_remote",
     "attention",
 ]
 
@@ -156,6 +157,26 @@ def fused_ring_round(
     return _dispatch(
         _pa.fused_ring_round, _ref.fused_ring_round, use_kernel,
         vs, ref, scales, **kw,
+    )
+
+
+def fused_ring_round_remote(
+    v_local: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    group,
+    use_kernel: bool | None = None,
+    **kw,
+) -> torch.Tensor:
+    """One ring round over the ranks of ``group``, each holding its own
+    (d, r) f32 basis, the hops peer writes between the ranks' buffers (B7)
+    -> (d, r) f32.  CPU tensors take the plain version (each hop a
+    ``transport.ring_shift``), sm_90 CUDA tensors the kernel; anything
+    else raises."""
+    return _dispatch(
+        lambda v, r_, **k: _pa.fused_ring_round_remote(v, r_, group=group, **k),
+        lambda v, r_, **k: _pa.plain_remote(v, r_, group=group, **k),
+        use_kernel, v_local, ref, **kw,
     )
 
 

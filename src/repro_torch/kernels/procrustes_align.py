@@ -1,4 +1,4 @@
-"""Wrappers over the Procrustes-fixing CUDA kernels (B2-B6).
+"""Wrappers over the Procrustes-fixing CUDA kernels (B2-B7).
 
 Replace the Pallas TPU kernels of ``repro/kernels/procrustes_align.py``:
 
@@ -7,6 +7,8 @@ Replace the Pallas TPU kernels of ``repro/kernels/procrustes_align.py``:
   * ``align_average``      (1/m) sum_i V_i Z_i           (d, r) f32
   * ``fused_round``        n_iter whole rounds, one launch each   (d, r)
   * ``fused_ring_round``   one whole round over a wire stack      (d, r) f32
+  * ``fused_ring_round_remote``  one ring round, each rank holding only
+                           its own basis, the hops peer writes  (d, r) f32
 
 The TPU kernels walk d sequentially per machine.  On the card the Gram
 stages split d across blocks instead (``_split_rows``): pass 1 writes
@@ -24,6 +26,15 @@ its launches in ``<wrapper>.launches`` (one per call, whatever the number
 of passes; ``fused_round`` launches once per round).  The kernels take
 float32 stacks, except ``fused_ring_round``, whose wire stack may also be
 bfloat16 or int8 with per-column scales.
+
+``fused_ring_round_remote`` (B7, ``csrc/fused_ring_remote.cu``) runs over
+the ranks of a process group: each rank exports one exchange buffer of its
+own (``cudaMalloc``, two (d, r) f32 slots and two sequence words), the
+64-byte IPC handles are all-gathered once per (group, d, r, device), and
+each rank maps its two neighbours' buffers (``_Exchange``, cached until
+``close_remote``).  The kernel writes each hop's basis into the right
+neighbour's slot and signals it there; every wait is bounded by
+``REMOTE_WAIT_S`` and one that runs out raises here.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import ctypes
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
@@ -42,6 +54,9 @@ __all__ = [
     "align_average",
     "fused_round",
     "fused_ring_round",
+    "fused_ring_round_remote",
+    "close_remote",
+    "REMOTE_WAIT_S",
 ]
 
 DEFAULT_NS_ITERS = 24  # as repro_torch.core.procrustes.DEFAULT_NS_ITERS
@@ -290,10 +305,175 @@ def ring_split_rows(d: int, ring_chunk: int | None) -> int:
     return chunk * math.ceil(len(chunk_spans(d, chunk)) / _MAX_RING_SPLITS)
 
 
+# Wall-clock bound of each wait inside B7 (a neighbour's push, or its
+# release of the slot a push fills); a wait that runs out raises.  Read at
+# every call, so a caller (or a test) may set it.
+REMOTE_WAIT_S = 60.0
+_IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
+_TIMED_OUT = {1: "the left neighbour's push", 2: "the right neighbour's release of a slot"}
+
+
+class _Exchange:
+    """This rank's B7 exchange buffer, exported, and its two neighbours'
+    buffers mapped into this process; ``calls`` counts the rounds run on
+    it (every rank of the group makes the same calls in the same order,
+    which keeps the hop sequence numbers in step)."""
+
+    def __init__(self, group, d: int, r: int, device: torch.device):
+        lib = _build.load()
+        self.group, self.device, self.calls = group, device, 0
+        ptr = ctypes.c_void_p()
+        handle = (ctypes.c_ubyte * _IPC_HANDLE_BYTES)()
+        _build.check(lib.rt_remote_alloc(
+            device.index, lib.rt_remote_exchange_bytes(d, r), ctypes.byref(ptr),
+            ctypes.addressof(handle)), "fused_ring_round_remote: export")
+        self.mine = ptr.value
+        from repro_torch.comm import transport
+
+        mine = torch.tensor(list(handle), dtype=torch.uint8, device=device)
+        handles = transport.all_gather(mine, group=group).cpu()
+        me, m = dist.get_rank(group), dist.get_world_size(group)
+        self.peers = {}
+        for k in dict.fromkeys(((me - 1) % m, (me + 1) % m)):
+            peer = (ctypes.c_ubyte * _IPC_HANDLE_BYTES)(*handles[k].tolist())
+            p = ctypes.c_void_p()
+            _build.check(lib.rt_remote_open(
+                device.index, ctypes.addressof(peer), ctypes.byref(p)),
+                f"fused_ring_round_remote: map rank {k}'s buffer")
+            self.peers[k] = p.value
+        self.left, self.right = self.peers[(me - 1) % m], self.peers[(me + 1) % m]
+
+    def close(self) -> None:
+        """Unmap the neighbours' buffers, wait until every rank of the
+        group has unmapped this one, then free it (collective)."""
+        from repro_torch.comm import transport
+
+        lib = _build.load()
+        torch.cuda.synchronize(self.device)
+        for p in self.peers.values():
+            _build.check(lib.rt_remote_close(self.device.index, p),
+                         "fused_ring_round_remote: unmap")
+        transport.barrier(group=self.group)
+        _build.check(lib.rt_remote_free(self.device.index, self.mine),
+                     "fused_ring_round_remote: free")
+
+
+_EXCHANGES: dict[tuple, _Exchange] = {}
+
+
+def close_remote(group=None) -> None:
+    """Release every B7 exchange of ``group`` (collective over it: each
+    rank unmaps its neighbours' buffers before any rank frees its own)."""
+    for key in [k for k in _EXCHANGES if k[0] == id(group)]:
+        _EXCHANGES.pop(key).close()
+
+
+def _check_basis(name: str, v: torch.Tensor, ref: torch.Tensor) -> None:
+    """B7 takes one contiguous (d, r) f32 basis and a reference of the same
+    shape, on one CPU or CUDA device."""
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    if ref.device != v.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    for t in (v, ref):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32 (the 32-bit wire), got {t.dtype}")
+    if v.dim() != 2 or min(v.shape) < 1 or tuple(ref.shape) != tuple(v.shape):
+        raise ValueError(
+            f"{name}: v_local and ref must be (d, r) of one shape, got "
+            f"{tuple(v.shape)} and {tuple(ref.shape)}"
+        )
+    if not (v.is_contiguous() and ref.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous inputs")
+
+
+def plain_remote(v_local, ref, *, group, ns_iters=DEFAULT_NS_ITERS):
+    """B7's plain version over ``group``: each hop a
+    ``transport.ring_shift`` to the right neighbour."""
+    from repro_torch.comm import transport
+
+    ranks = tuple(range(dist.get_world_size(group)))
+    return _ref.fused_ring_round_remote(
+        v_local, ref, m=len(ranks), ns_iters=ns_iters,
+        hop=lambda x: transport.ring_shift([x], ranks=ranks, group=group)[0],
+    )
+
+
+def fused_ring_round_remote(
+    v_local: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    group,
+    ns_iters: int = DEFAULT_NS_ITERS,
+) -> torch.Tensor:
+    """One fused ring round over the m ranks of ``group``, each rank holding
+    only its own (d, r) f32 basis: m hops, hop i on the basis of rank
+    (me - i) mod m (the right neighbour gets each basis by a peer write),
+    Gram against ``ref``, Newton-Schulz polar and V-bar += x Z, then
+    CholeskyQR2(V-bar / m).  32-bit wire only.  Every rank of the group
+    calls it with the same (d, r) and ``ref``; returns (d, r) f32.  CPU
+    tensors take the plain version (``plain_remote``); a world of one
+    rank makes no IPC call."""
+    name = "fused_ring_round_remote"
+    _check_basis(name, v_local, ref)
+    if v_local.device.type == "cpu":
+        return plain_remote(v_local, ref, group=group, ns_iters=ns_iters)
+    from repro_torch.core.orthonorm import cholqr_guard_coeffs
+
+    d, r = v_local.shape
+    if r > NS_MAX_R:
+        raise ValueError(
+            f"{name}: r={r} exceeds the in-shared-memory Newton-Schulz and "
+            f"Cholesky limit r <= {NS_MAX_R}"
+        )
+    _build.require_sm90(v_local)
+    dev = v_local.device
+    m = dist.get_world_size(group)
+    ex = None
+    if m > 1:
+        key = (id(group), d, r, dev.index)
+        ex = _EXCHANGES.get(key)
+        if ex is None:
+            ex = _EXCHANGES[key] = _Exchange(group, d, r, dev)
+    rows, splits = _split_rows(
+        d, 1, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    pivot_c, shift_c = cholqr_guard_coeffs(d, r, torch.finfo(torch.float32).eps)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out, vbar, q1 = (torch.empty((d, r), **f32) for _ in range(3))
+    part = torch.empty((splits, r, r), **f32)
+    z = torch.empty((r, r), **f32)
+    w = torch.empty((2, r, r), **f32)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    seq0 = 0 if ex is None else ex.calls * m
+    grid = ctypes.c_int(0)
+    code = _build.load().rt_fused_ring_remote(
+        dev.index, v_local.data_ptr(), ref.data_ptr(), out.data_ptr(),
+        part.data_ptr(), z.data_ptr(), vbar.data_ptr(), q1.data_ptr(),
+        w.data_ptr(), ex and ex.mine, ex and ex.right, ex and ex.left,
+        status.data_ptr(), seq0, int(REMOTE_WAIT_S * 1e9), m, d, r, rows,
+        splits, rows, splits, ns_iters, pivot_c, shift_c,
+        ctypes.addressof(grid), _build.stream_of(v_local),
+    )
+    _build.check(code, name)
+    fused_ring_round_remote.launches += 1
+    fused_ring_round_remote.grid = grid.value
+    if ex is not None:
+        ex.calls += 1
+    timed_out = int(status.item())  # waits for the round
+    if timed_out:
+        raise RuntimeError(
+            f"{name}: rank {dist.get_rank(group)} waited {REMOTE_WAIT_S} s for "
+            f"{_TIMED_OUT[timed_out]}; the ring of {m} ranks is stuck"
+        )
+    return out
+
+
 batched_gram.launches = 0
 batched_gram_polar.launches = 0
 align_average.launches = 0
 fused_round.launches = 0
 fused_ring_round.launches = 0
+fused_ring_round_remote.launches = 0
 fused_round.grid = 0
 fused_ring_round.grid = 0
+fused_ring_round_remote.grid = 0

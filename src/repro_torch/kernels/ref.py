@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/ref.py`` (``gram`` :23, ``batched_gram`` :29,
 ``batched_gram_polar`` :36, ``fused_round`` :49, ``fused_ring_round``
-:69, ``align_average`` :95, ``attention`` :104).  Each function but
+:69, ``align_average`` :95, ``attention`` :104), and the plain version of
+B7 ``fused_ring_round_remote``, which the reference has none of.  Each function but
 ``attention`` is the semantic ground truth of its kernel: the wrappers
 run it for tensors on the CPU, the CPU tests hold it against the
 reference's Pallas kernels, and ``chip_smoke.py`` holds each kernel
@@ -23,6 +24,7 @@ __all__ = [
     "batched_gram_polar",
     "fused_round",
     "fused_ring_round",
+    "fused_ring_round_remote",
     "align_average",
     "attention",
     "flash_attention",
@@ -106,6 +108,34 @@ def fused_ring_round(
         vsf = vsf * scales.to(torch.float32)[:, None, :]
     zs = batched_gram_polar(vsf, ref.to(torch.float32), ns_iters=ns_iters)
     return cholesky_qr2(align_average(vsf, zs)).to(torch.float32)
+
+
+def fused_ring_round_remote(
+    v_local: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    m: int,
+    hop,
+    ns_iters: int | None = None,
+) -> torch.Tensor:
+    """One ring round as rank j of an m-rank ring holding only its own
+    (d, r) basis: m hops in the order the two-slot schedule delivers the
+    bases (own, then ranks j-1, j-2, ...), each the per-hop Gram, polar and
+    apply of ``fused_ring_round``, then ``cholesky_qr2(V-bar / m)``.
+    ``hop(x)`` returns the left neighbour's ``x`` (the caller's ring
+    shift; this module calls no collective).  Returns (d, r) f32."""
+    from repro_torch.core.orthonorm import cholesky_qr2
+
+    x = v_local.to(torch.float32)
+    ref32 = ref.to(torch.float32)
+    vbar = None
+    for i in range(m):
+        z = batched_gram_polar(x[None], ref32, ns_iters=ns_iters)[0]
+        contrib = x @ z
+        vbar = contrib if vbar is None else vbar + contrib
+        if i < m - 1:
+            x = hop(x)
+    return cholesky_qr2(vbar / m).to(torch.float32)
 
 
 def _attention_mask(

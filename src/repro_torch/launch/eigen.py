@@ -12,7 +12,8 @@ One shard per rank, any topology, under ``torchrun``::
         --dim 512 --subspace-rank 16
 
 (``--dim``/``--subspace-rank`` are ``--d``/``--r`` in a spelling that
-``torchrun``'s parser leaves to the script.)
+``torchrun``'s parser leaves to the script.)  ``--topology hier --pods p``
+(the two go together) splits the ranks into p pods, pod-major.
 
 Draws (M1) Gaussian data from a seed, runs Procrustes-fixed distributed
 PCA, and prints the reference's keys: the resolved knobs and the subspace
@@ -26,8 +27,7 @@ memory.  ``--device`` defaults to the card; ``--backend auto`` runs the
 CUDA kernels there.
 
 Flags of later slices of the port are refused and name their ROADMAP
-item (the planner, pods and the hier topology, the elastic runtime,
-streaming).
+item (the planner, the elastic runtime, streaming).
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ _LATER_FLAGS = {
     "--plan": ("A7", 1),
     "--explain": ("A7", 0),
     "--calibrate": ("A7", 1),
-    "--pods": ("A5-hier", 1),
     "--fail-at": ("A8", 1),
     "--stream": ("A9", 1),
     "--cadence": ("A9", 1),
@@ -92,9 +91,17 @@ def run(
 
     ``agg`` (a ``launch.mesh.AggregationGroup``) runs the collective form,
     this rank on shard ``agg.rank`` of ``agg.world``; without it the
-    ``shards`` shards are stacked in this process.  Under ``agg`` only
+    ``shards`` shards are stacked in this process.  ``topology="hier"``
+    and an ``agg`` made with ``pods=`` go together.  Under ``agg`` only
     rank 0 returns stats (None elsewhere): it regenerates every shard
     from the data rule for the centralized, naive and local baselines."""
+    pods = None if agg is None else agg.pods
+    if (topology == "hier") != (pods is not None):
+        raise ValueError(
+            "--topology hier and --pods go together (the two-level schedule "
+            f"needs the (pod, local) groups; got topology={topology!r}, "
+            f"pods={pods!r})"
+        )
     dev = agg.device if agg is not None else resolve_device(device)
     strict_fp32()
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -132,9 +139,10 @@ def run(
         sync()
         t0 = time.perf_counter()
         v_dist = distributed_pca_collective(
-            x, r, group=agg.group, device=dev, n_iter=n_iter, solver=solver,
-            iters=iters, backend=backend, polar=polar, orth=orth,
-            topology=topo, comm_bits=bits,
+            x, r, group=agg.local_group if pods else agg.group, device=dev,
+            n_iter=n_iter, solver=solver, iters=iters, backend=backend,
+            polar=polar, orth=orth, topology=topo, comm_bits=bits,
+            pod_group=agg.pod_group,
         )
         sync()
         t_dist = time.perf_counter() - t0
@@ -155,6 +163,7 @@ def run(
         "polar": polar or "svd",
         "orth": orth or "qr",
         "topology": topo,
+        "pods": pods or 0,
         "comm_bits": bits,
         "dist_aligned": float(dist_2(v_dist, v1)),
         "dist_central": float(dist_2(v_cent, v1)),
@@ -206,10 +215,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "cuda and newton-schulz, cholesky-qr2 runs each "
                          "round as one fused kernel launch")
     ap.add_argument("--topology", default="auto", choices=TOPOLOGY_CHOICES,
-                    help="psum, gather or ring across the ranks (under "
-                         "torchrun); one process stacks the shards (gather); "
-                         "auto: gather under cuda, else psum; hier is "
-                         "ROADMAP A5-hier")
+                    help="psum, gather, ring or hier (with --pods) across "
+                         "the ranks (under torchrun); one process stacks the "
+                         "shards (gather); auto: gather under cuda, else psum")
     ap.add_argument("--comm-bits", default=None, choices=("32", "16", "8", "auto"),
                     help="wire precision of the collectives under torchrun: "
                          "32 exact, 16 bf16, 8 stochastic int8 with error "
@@ -217,6 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shards", type=int, default=None,
                     help="machines m in one process (default 8); under "
                          "torchrun the world size")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="pods of the hier topology (under torchrun; must "
+                         "tile the ranks; goes with --topology hier)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     for flag, (_, nargs) in _LATER_FLAGS.items():
@@ -229,18 +240,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
     try:
         resolve_comm_bits(args.comm_bits)
-        if args.topology == "hier":
-            resolve_topology("hier")
     except NotImplementedError as exc:
         ap.error(str(exc))
+    if (args.topology == "hier") != (args.pods is not None):
+        ap.error("--topology hier and --pods go together")
     agg = None
     if _under_torchrun():
         from repro_torch.launch.mesh import make_aggregation_mesh
 
-        agg = make_aggregation_mesh(device=args.device)
+        try:
+            agg = make_aggregation_mesh(device=args.device, pods=args.pods)
+        except ValueError as exc:
+            ap.error(str(exc))
         if args.shards not in (None, agg.world):
             ap.error(f"--shards {args.shards} under torchrun with {agg.world} ranks")
-    elif args.topology in ("psum", "ring"):
+    elif args.topology in ("psum", "ring", "hier"):
         ap.error(f"--topology {args.topology} runs across ranks: start the "
                  "launcher under torchrun")
     elif args.comm_bits not in (None, "32"):

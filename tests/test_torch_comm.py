@@ -110,7 +110,8 @@ def test_topologies_registry_and_auto_pairing():
     does ("cuda" in place of "pallas"); the stacked form keeps gather."""
     from repro_torch.core.distributed import resolve_stacked_topology
 
-    assert ttopo.TOPOLOGIES == ("psum", "gather", "ring")
+    assert ttopo.TOPOLOGIES == jtopo.TOPOLOGIES == ("psum", "gather", "ring", "hier")
+    assert ttopo.TOPOLOGY_CHOICES == jtopo.TOPOLOGY_CHOICES
     assert ttopo.resolve_topology("auto", "cuda") == jtopo.resolve_topology("auto", "pallas") == "gather"
     assert ttopo.resolve_topology("auto", "torch") == jtopo.resolve_topology("auto", "xla") == "psum"
     assert ttopo.resolve_topology(None) == "psum"
@@ -124,10 +125,13 @@ def test_topologies_registry_and_auto_pairing():
 
 
 def test_hier_raises_and_names_the_next_slice():
-    with pytest.raises(NotImplementedError, match="A5-hier"):
-        ttopo.resolve_topology("hier")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """hier is registered now (A5-hier ported); what it still refuses is a
+    cost query without pods, or pods that do not tile m."""
+    assert ttopo.resolve_topology("hier") == "hier"
+    with pytest.raises(ValueError, match="pods"):
         ttopo.comm_cost("hier", m=8, d=64, r=4)
+    with pytest.raises(ValueError, match="tile"):
+        ttopo.comm_cost("hier", m=8, d=64, r=4, pods=3)
 
 
 @pytest.mark.parametrize("dead", MEMBERSHIPS)

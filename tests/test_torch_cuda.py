@@ -15,7 +15,12 @@ config served through B8 and through plain attention gives the same
 greedy tokens in f32.  The cross-rank lanes run the
 collective on the card: two ranks sharing one card over gloo, and two
 ranks with a card each over NCCL (skipped below two cards; not yet run
-on such a machine).
+on such a machine).  B7 (the remote-hop ring round) runs in worlds of
+1, 2, 3 and 8 rank processes sharing one card, three rounds each on the
+same mapped buffers, held like B5/B6 against its plain version and
+against B6's plain version on the stack in each rank's hop order; a
+world whose neighbour never signals raises after the wait bound; and
+one rank per card over NVLink (skipped below two cards; not yet run).
 """
 
 import json
@@ -382,3 +387,147 @@ def test_cross_rank_lane_nccl_one_card_each(dev, tmp_path):
     """The NCCL lane: one rank per card.  Skips on a one-card machine."""
     res = _cross_rank_lane(tmp_path, 2, 2)
     assert all(r["backend"] == "nccl" for r in res)
+
+
+# ------------------------------------------------------------ B7 remote ----
+_REMOTE_WORKER = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from repro_torch.core.metrics import subspace_dist64
+from repro_torch.kernels import procrustes_align as pa, ref as tref
+from repro_torch.launch.mesh import make_aggregation_mesh
+
+rank, world, init, out_path, spec = sys.argv[1:6]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=world,
+                            local_rank=rank, local_world=world, init_method=init)
+dev, group = agg.device, agg.group
+res = {"backend": agg.backend}
+if spec["mode"] == "stall":
+    # Rank 0 runs a round; rank 1 maps the buffers and never signals.
+    d, r = spec["shape"]
+    v = torch.linalg.qr(torch.randn(d, r, device=dev))[0].contiguous()
+    if rank == 0:
+        pa.REMOTE_WAIT_S = spec["wait_s"]
+        t0 = time.monotonic()
+        try:
+            pa.fused_ring_round_remote(v, v, group=group)
+            res["raised"] = None
+        except RuntimeError as exc:
+            res["raised"] = str(exc)
+        res["seconds"] = time.monotonic() - t0
+        pa.close_remote(group)
+    else:
+        pa._Exchange(group, d, r, dev).close()
+else:
+    for d, r in spec["shapes"]:
+        g = torch.Generator().manual_seed(d * r)
+        base = torch.linalg.qr(torch.randn(d, r, generator=g))[0]
+        vs = torch.linalg.qr(base[None] + 0.1 / d ** 0.5 * torch.randn(world, d, r, generator=g))[0]
+        vs = vs.to(dev).contiguous()
+        v, ref = vs[rank].contiguous(), vs[0].contiguous()
+        rolled = vs[[(rank - h) % world for h in range(world)]].contiguous()
+        cell = []
+        for k in range(spec["rounds"]):
+            before = pa.fused_ring_round_remote.launches
+            got = pa.fused_ring_round_remote(v, ref, group=group)
+            launched = pa.fused_ring_round_remote.launches - before
+            plain = pa.plain_remote(v, ref, group=group)
+            staged = tref.fused_ring_round(rolled, ref)
+            cell.append({
+                "launched": launched,
+                "err": (got - plain).abs().max().item(),
+                "sd": subspace_dist64(got, plain),
+                "sd_b6": subspace_dist64(got, staged),
+                "finite": bool(torch.isfinite(got).all()),
+                "out": got.cpu().tolist()})
+            ref = got
+        res[f"{d}x{r}"] = cell
+    pa.close_remote(group)
+dist.destroy_process_group()
+json.dump(res, open(out_path, "w"))
+"""
+
+
+def _remote_world(tmp_path, world, spec, cards_needed=1):
+    """Run _REMOTE_WORKER on ``world`` rank processes: on one card (gloo)
+    or one card each (NCCL, skipped below ``cards_needed`` cards)."""
+    if torch.cuda.device_count() < cards_needed:
+        pytest.skip(f"needs {cards_needed} CUDA cards")
+    script = tmp_path / "remote_worker.py"
+    script.write_text(_REMOTE_WORKER)
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    if cards_needed == 1:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(k), str(world), f"file://{tmp_path / 'rdv'}",
+         str(tmp_path / f"r{k}.json"), json.dumps(spec)],
+        env=env, stderr=subprocess.PIPE, text=True) for k in range(world)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return [json.loads((tmp_path / f"r{k}.json").read_text()) for k in range(world)]
+
+
+def _hold_remote(res, shapes, rounds):
+    for d, r in shapes:
+        for k in range(rounds):
+            cells = [rk[f"{d}x{r}"][k] for rk in res]
+            for c in cells:
+                assert c["launched"] == 1 and c["finite"]
+                assert c["err"] <= 1e-4 and c["sd"] <= 1e-5 and c["sd_b6"] <= 1e-5
+            first = torch.tensor(cells[0]["out"])
+            for c in cells[1:]:
+                assert subspace_dist64(torch.tensor(c["out"]), first) <= 1e-5
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 8])
+def test_fused_ring_round_remote_kernel_one_card(dev, tmp_path, world):
+    """B7 in a world of rank processes sharing one card (gloo for the
+    plain version's hops, CUDA IPC for the kernel's): each rank's round
+    against its plain version and against B6's plain version on the stack
+    in its hop order, three rounds reusing the mapped buffers."""
+    shapes = [(205, 5), (1000, 7)]
+    res = _remote_world(tmp_path, world, {"mode": "check", "shapes": shapes, "rounds": 3})
+    _hold_remote(res, shapes, 3)
+
+
+def test_fused_ring_round_remote_kernel_one_card_each(dev, tmp_path):
+    """B7 over NVLink peer memory, one rank per card (NCCL).  Skips on a
+    one-card machine; not yet run on a machine with two cards."""
+    res = _remote_world(tmp_path, 2, {"mode": "check", "shapes": [(205, 5)], "rounds": 2},
+                        cards_needed=2)
+    assert all(r["backend"] == "nccl" for r in res)
+    _hold_remote(res, [(205, 5)], 2)
+
+
+def test_fused_ring_round_remote_times_out_rather_than_hangs(dev, tmp_path):
+    """Rank 1 maps the buffers but never runs the round: rank 0's wait for
+    its push runs out and the wrapper raises."""
+    res = _remote_world(tmp_path, 2, {"mode": "stall", "shape": [96, 4], "wait_s": 2.0})
+    assert "left neighbour's push" in res[0]["raised"]
+    assert 2.0 <= res[0]["seconds"] < 60
+
+
+def test_fused_ring_round_remote_refusals(dev):
+    v = _stack(dev, 1, 64, 4)[0].contiguous()
+    with pytest.raises(TypeError):
+        tpa.fused_ring_round_remote(v.double(), v.double(), group=None)
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round_remote(v[None], v[None], group=None)  # not (d, r)
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round_remote(v, v.T.contiguous(), group=None)
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round_remote(v.T, v.T, group=None)  # not contiguous
+    with pytest.raises(ValueError):
+        tpa.fused_ring_round_remote(v, v.cpu(), group=None)
+    big = torch.zeros(16, 140, device=dev)
+    with pytest.raises(ValueError, match="136"):
+        tpa.fused_ring_round_remote(big, big, group=None)

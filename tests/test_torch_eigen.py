@@ -11,10 +11,9 @@
   passes through an eigensolve, amplified by 1/gap (gap 0.2).
 * The fused (cuda, newton-schulz, cholesky-qr2) cell routes to the fused
   round (B5), not to the per-stage kernels.
-* The refusals: ``plan="auto"`` (A7), psum and ring in the stacked
-  one-process form (they run across ranks), ``topology="hier"``
-  (A5-hier), ``device="cuda"`` with no card, and the launcher's
-  later-slice flags.
+* The refusals: ``plan="auto"`` (A7), psum, ring and hier in the stacked
+  one-process form (they run across ranks), ``device="cuda"`` with no
+  card, and the launcher's later-slice flags.
 """
 
 import jax
@@ -41,7 +40,7 @@ CELLS = [
     for orth in ("qr", "cholesky-qr2")
 ]
 CLI_KEYS = [
-    "m", "n", "d", "r", "backend", "polar", "orth", "topology", "comm_bits",
+    "m", "n", "d", "r", "backend", "polar", "orth", "topology", "pods", "comm_bits",
     "dist_aligned", "dist_central", "dist_naive", "dist_local0", "wall_s",
 ]
 
@@ -188,12 +187,10 @@ def test_plan_auto_is_refused():
 
 @pytest.mark.parametrize("topology", ["psum", "ring", "hier"])
 def test_cross_rank_topologies_are_refused(topology):
-    """The stacked one-process form has only the gather schedule: psum and
-    ring name the collective form; hier is the next slice."""
+    """The stacked one-process form has only the gather schedule: psum,
+    ring and hier name the collective form."""
     x = torch.from_numpy(_normal(1, 64, 8))
-    exc, match = ((NotImplementedError, "A5-hier") if topology == "hier"
-                  else (ValueError, "distributed_pca_collective"))
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match="distributed_pca_collective"):
         tdist.distributed_pca(x, 2, shards=2, device="cpu", topology=topology)
 
 
@@ -232,11 +229,8 @@ def test_launcher_main_prints_keys(capsys):
     (["--plan", "auto"], "A7"),
     (["--explain"], "A7"),
     (["--calibrate", "BENCH_aggregate.json"], "A7"),
-    (["--topology", "hier"], "A5"),
-    (["--pods", "2"], "A5"),
     (["--fail-at", "2:1"], "A8"),
     (["--stream", "4"], "A9"),
-    (["--topology", "hier", "--pods", "2"], "A5"),
 ])
 def test_launcher_refuses_later_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -274,10 +268,14 @@ def test_launcher_width_flags_pass_through_torchrun():
     (["--topology", "ring"], "torchrun"),
     (["--topology", "psum"], "torchrun"),
     (["--comm-bits", "8"], "torchrun"),
+    (["--topology", "hier", "--pods", "2"], "torchrun"),
+    (["--topology", "hier"], "go together"),
+    (["--pods", "2"], "go together"),
 ])
 def test_launcher_refuses_what_one_process_cannot_run(argv, says, capsys):
     """Outside torchrun the launcher stacks the shards in one process:
-    the cross-rank schedules and lossy wires need ranks."""
+    the cross-rank schedules and lossy wires need ranks; --topology hier
+    and --pods go together."""
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", *argv])
     assert exc.value.code == 2

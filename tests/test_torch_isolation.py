@@ -64,7 +64,8 @@ def test_port_imports_with_jax_and_reference_poisoned():
         import repro_torch, repro_torch.core, repro_torch.kernels.ops
         import repro_torch.data.synthetic, repro_torch.interop
         import repro_torch.launch.eigen, repro_torch.launch.mesh
-        import repro_torch.comm, repro_torch.comm.transport
+        import repro_torch.comm, repro_torch.comm.transport, repro_torch.comm.hier
+        import repro_torch.kernels.procrustes_align
         import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
         import repro_torch.kernels.flash_attention
         print("ok")

@@ -149,7 +149,8 @@ def test_cpu_wrappers_launch_nothing():
     tops.attention(qkv, qkv, qkv, use_kernel=True)
     assert tkernels.launch_counts() == {
         "gram": 0, "batched_gram": 0, "batched_gram_polar": 0, "align_average": 0,
-        "fused_round": 0, "fused_ring_round": 0, "flash_attention": 0,
+        "fused_round": 0, "fused_ring_round": 0, "fused_ring_round_remote": 0,
+        "flash_attention": 0,
     }
 
 
