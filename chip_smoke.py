@@ -50,7 +50,8 @@ of JAX or of the reference package.  Phases, each ending in
    (``flash_attention``) against its plain version at the serving shape
    (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
    ones (GQA s 96 / t 160 in bf16 and f32, s > t with its zero rows,
-   windows 16 and 1024, MQA; bf16 also per query row, see
+   windows 16 and 1024, MQA, and s, t and windows at the bf16 kernel's
+   128-row and 128-key tile edges; bf16 also per query row, see
    ``FLASH_ROW_REL``); then the serve lane (``repro_torch.launch.serve``'s
    ``load`` and ``generate``, which ``serve`` is made of) at the full
    ``llama3.2-3b`` config (28 layers, d_model 3072), 4 prompts of 4096
@@ -63,9 +64,10 @@ of JAX or of the reference package.  Phases, each ending in
    short prompt.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
-   function (none for B3, B5, B6, B7; SDPA for B8).  B7 is timed in the
-   rank world, per round on every rank, against the bound of the 8
-   ranks' work on the one card.
+   function (none for B3, B5, B6, B7; SDPA for B8); B8 also the TFLOP/s
+   it reaches on its MMA work (S, and PV for p_hi and p_lo).  B7 is
+   timed in the rank world, per round on every rank, against the bound
+   of the 8 ranks' work on the one card.
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve call), then, last,
    ``{"ok": true, "device": ...}``.
@@ -144,6 +146,15 @@ FLASH_CHECKS = (
     ("ragged window 16 (1, 4/2, 200x200, 64) f32", (1, 4, 2, 200, 200, 64), "float32", 16),
     ("ragged window 1024 (1, 8/2, 2500x2500, 128) bf16", (1, 8, 2, 2500, 2500, 128), "bfloat16", 1024),
     ("ragged MQA (2, 8/1, 200x200, 64) bf16", (2, 8, 1, 200, 200, 64), "bfloat16", None),
+    # At the bf16 kernel's 128-row query tile and 128-key K/V tile edges.
+    ("ragged edge (1, 4/2, 128x128, 128) bf16", (1, 4, 2, 128, 128, 128), "bfloat16", None),
+    ("ragged edge (1, 4/2, 129x257, 128) bf16", (1, 4, 2, 129, 257, 128), "bfloat16", None),
+    ("ragged edge (2, 8/4, 127x1000, 80) bf16", (2, 8, 4, 127, 1000, 80), "bfloat16", None),
+    ("ragged edge s>t (1, 4/2, 257x129, 64) bf16", (1, 4, 2, 257, 129, 64), "bfloat16", None),
+    ("ragged edge window 128 (1, 4/2, 300x300, 128) bf16", (1, 4, 2, 300, 300, 128),
+     "bfloat16", 128),
+    ("ragged edge window 129 (1, 4/2, 300x300, 128) bf16", (1, 4, 2, 300, 300, 128),
+     "bfloat16", 129),
 )
 # The reference's own kernel-test bars (tests/test_kernels.py:122, :146).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -1122,7 +1133,8 @@ def main(argv=None) -> int:
         lambda: fused_ring_round(w32, rf), lambda: ref.fused_ring_round(w32, rf),
         None, 20, ring_ms["f32"][2])
     # B8 at the serving shape: bf16 tensor-core peak; operations counted
-    # over the visible keys (the kernel skips the rest).
+    # over the visible keys (the kernel skips the rest).  Its MMA work is
+    # S, then PV twice (p_hi and p_lo).
     _, (b, hq, hkv, s_, t_, hd), _, _ = FLASH_CHECKS[0]
     q, k_, v_ = qkv(FLASH_CHECKS[0][1], "bfloat16")
     visible = sum(min(t_, t_ - s_ + i + 1) for i in range(s_))
@@ -1134,6 +1146,7 @@ def main(argv=None) -> int:
         lambda: flash_attention(q, k_, v_), lambda: ref.flash_attention(q, k_, v_),
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v_, is_causal=True, enable_gqa=True), 10, fa_bound)
+    fa_mma_flops = 1.5 * fa_flops
     rows = []
     for k, (kern, plain, lib, reps, (bound_ms, bound_by)) in timing.items():
         k_ms = time_ms(kern, reps)
@@ -1143,9 +1156,11 @@ def main(argv=None) -> int:
         main_err = max(e for lbl, (e, _) in errs.items() if lbl.startswith("main"))
         rag_err = max(e for lbl, (e, _) in errs.items() if lbl.startswith("ragged"))
         tol = max(t for lbl, (_, t) in errs.items() if lbl.startswith("main"))
+        mma = (f" mma_tflops {fa_mma_flops / (k_ms * 1e9):.1f} ({fa_mma_flops / 1e12:.3f} "
+               f"TFLOP: S and PV with p_hi and p_lo)") if k == "flash_attention" else ""
         print(f"[time] {k:<18} kernel_ms {k_ms:.4f} launches/run {launches[k]} "
               f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms {p_ms:.4f} "
-              f"library_ms {'-' if l_ms is None else f'{l_ms:.4f}'}")
+              f"library_ms {'-' if l_ms is None else f'{l_ms:.4f}'}{mma}")
         src, replaces = KERNELS[k]
         rows.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
@@ -1157,6 +1172,7 @@ def main(argv=None) -> int:
         if k == "flash_attention":
             rows[-1]["row_err_over_bar"] = max(
                 r for lbl, r in row_ratio.items() if lbl.startswith("main"))
+            rows[-1]["mma_tflops"] = fa_mma_flops / (k_ms * 1e9)
         if k == "fused_ring_round":
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],

@@ -3,7 +3,10 @@
 Route: ``nvcc`` compiles each source to an object (all started at once),
 links them into ``build/repro_torch_kernels/libkernels.so`` at the repo
 root, and ``ctypes`` loads it.  The sources expose a plain C interface
-(no PyTorch headers), which keeps the build to seconds.  Every pointer
+(no PyTorch headers), which keeps the build to seconds.  B8's TMA
+descriptors are encoded on the host by ``cuTensorMapEncodeTiled``, which
+``csrc/flash_attention.cu`` reaches through the runtime's
+``cudaGetDriverEntryPoint``: the link needs no ``-lcuda``.  Every pointer
 and the stream cross as ``c_void_p`` and every size as ``c_int``; each
 entry point returns the ``cudaGetLastError()`` code of its launches,
 which ``check`` turns into an exception.
@@ -53,8 +56,9 @@ _SIGNATURES = {
     "rt_fused_round_bf16": _ROUND,
     "rt_fused_round_i8": _ROUND,
     # device, bf16_in, q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
-    # scale, stream.
-    "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _P),
+    # scale, wait_ns, stream.
+    "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _U64, _P),
+    "rt_flash_status": (),
     # B7 exchange buffers: alloc (device, bytes, *ptr, handle), open
     # (device, handle, *ptr), close / free (device, ptr).
     "rt_remote_alloc": (_I, ctypes.c_size_t, ctypes.POINTER(_P), _P),

@@ -3,12 +3,19 @@ B8 CUDA kernel.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``.  The kernel (``csrc/flash_attention.cu``) runs one
-block per (64-row query tile, batch x query head), reads each query
+block per (128-row query tile, batch x query head), reads each query
 head's KV head in place, loops over only the key tiles that hold a
 visible key, and masks ragged s, t and head_dim itself.  bf16 inputs go
-through the tensor cores (``mma.sync``, f32 accumulation, the
-probabilities split into two bf16 parts so they keep ~16 bits); f32
-inputs through plain f32 FMAs.
+through the tensor cores: a producer warpgroup streams Q, K and V tiles
+by TMA into a ring of shared-memory stages, two consumer warpgroups run
+``wgmma`` on them (f32 accumulation, the probabilities split into two
+bf16 parts so they keep ~16 bits).  f32 inputs go through plain f32
+FMAs.  Every wait of the bf16 kernel is bounded by ``FLASH_WAIT_S``: one
+that runs out records which wait in a host-mapped word and traps.  The
+trap ends the CUDA context, so the caller first sees CUDA's own launch
+failure at its next synchronising call; a later call of this wrapper
+raises with the recorded wait.  No test makes a wait run out, so this
+path has not been seen to run on a card.
 
 A CUDA tensor goes to the kernel (or the call raises); CPU tensors go to
 the plain version ``repro_torch.kernels.ref.flash_attention``.
@@ -22,10 +29,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["flash_attention"]
+__all__ = ["FLASH_WAIT_S", "flash_attention"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
+# Bound on every mbarrier wait of the bf16 kernel; a tile's wait takes
+# microseconds.
+FLASH_WAIT_S = 10.0
+_WAITS = {1: "Q tile", 2: "K/V stage to fill", 3: "K/V stage to empty"}
 
 
 def flash_attention(
@@ -81,11 +92,17 @@ def flash_attention(
         raise ValueError("flash_attention kernel needs 16-byte aligned q, k, v")
     _build.require_sm90(q)
     lib = _build.load()
+    stalled = lib.rt_flash_status()
+    if stalled:
+        raise RuntimeError(
+            f"flash_attention: an earlier launch waited {FLASH_WAIT_S} s for a "
+            f"{_WAITS.get(stalled, stalled)} and trapped")
     out = torch.empty_like(q)
     code = lib.rt_flash_attention(
         q.device.index, int(q.dtype == torch.bfloat16), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, t, d,
-        int(causal), window or 0, 1.0 / d**0.5, _build.stream_of(q),
+        int(causal), window or 0, 1.0 / d**0.5, int(FLASH_WAIT_S * 1e9),
+        _build.stream_of(q),
     )
     _build.check(code, "flash_attention")
     flash_attention.launches += 1

@@ -62,6 +62,7 @@ __all__ = [
 DEFAULT_NS_ITERS = 24  # as repro_torch.core.procrustes.DEFAULT_NS_ITERS
 
 _GRAM_TILE = 64  # output tile edge of the Gram pass (csrc kBM)
+_AVG_ROWS = 64  # rows of d per align_average block (csrc kAvgBM)
 _GRAM_ROWS = 16  # rows per shared-memory slice of the Gram pass (csrc kBK)
 _BLOCKS_PER_SM = 2  # pass-1 blocks aimed at per SM
 # Largest r whose Newton-Schulz working set (3 padded r x r f32 tiles)
@@ -162,7 +163,7 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
     if vs.device.type == "cpu":
         return _ref.align_average(vs, zs)
     m, d, r = _check_stack("align_average", vs, zs, lambda m, d, r: (m, r, r))
-    if math.ceil(d / _GRAM_TILE) > _MAX_GRID_YZ:
+    if math.ceil(d / _AVG_ROWS) > _MAX_GRID_YZ:
         raise ValueError(f"align_average: d={d} beyond the kernel's grid")
     lib = _build.load()
     out = torch.empty((d, r), dtype=torch.float32, device=vs.device)

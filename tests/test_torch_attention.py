@@ -106,6 +106,27 @@ def test_flash_bf16_matches_reference_kernel():
     np.testing.assert_allclose(got, want, atol=FLASH_TOL["bfloat16"], rtol=0)
 
 
+# The CUDA kernel's 128-row query tile and 128-key K/V tile edges (the
+# card checks of tests/test_torch_cuda.py), head_dim 80 (two 64-column
+# boxes, the second zero-padded): the plain version against the JAX kernel.
+@pytest.mark.parametrize("s,t", [(127, 127), (129, 129), (255, 255), (129, 255),
+                                 (255, 127)], ids=str)
+def test_flash_tile_edges_match_reference_kernel(s, t):
+    got, want = _flash_case(6, (1, 2, 1, s, t, 80))
+    np.testing.assert_allclose(got, want, atol=FLASH_TOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("window", [128, 129])
+def test_flash_window_tile_edges_match_reference_kernel(window):
+    got, want = _flash_case(7, (1, 2, 1, 255, 255, 80), window=window)
+    np.testing.assert_allclose(got, want, atol=FLASH_TOL["float32"], rtol=0)
+
+
+def test_flash_bf16_tile_edge_matches_reference_kernel():
+    got, want = _flash_case(8, (1, 4, 2, 129, 255, 80), "bfloat16")
+    np.testing.assert_allclose(got, want, atol=FLASH_TOL["bfloat16"], rtol=0)
+
+
 def test_flash_rows_without_keys_are_zero():
     """s > t under the causal mask: the first s - t rows see no key.  The
     kernel (and its plain version) give zeros there, where the oracle

@@ -4,13 +4,21 @@ Skipped where there is no Hopper card; run them on one with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+(``-k "flash or align"`` for B8's and B4's alone).
+
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors at ragged shapes, the wrappers' refusals are checked, and every
 launch is seen on its counter.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
 Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
-also held at 1e-5 f64 subspace distance.  B8 (flash attention): 2e-5 in
-f32 and 3e-2 in bf16, the reference's own kernel-test bars; a reduced
+also held at 1e-5 f64 subspace distance.  B4 also at the edges of its
+64-row, 128-column block (r 1 .. 136, d 1 .. 8192, m 1 and 8), bit for
+bit the same on a second call.  B8 (flash attention): 2e-5 in f32 and
+3e-2 in bf16, the reference's own kernel-test bars, bf16 also per query
+row (2^-7 max|want_row| + 1e-4), at the 128-row and 128-key tile edges,
+every head_dim class, window edges, MQA, rows without keys and a batch
+whose heads would show a read across a head's edge; the built library's
+bf16 kernel is made of wgmma and TMA instructions (cuobjdump); a reduced
 config served through B8 and through plain attention gives the same
 greedy tokens in f32.  The cross-rank lanes run the
 collective on the card: two ranks sharing one card over gloo, and two
@@ -98,7 +106,8 @@ def test_procrustes_kernels(dev, m, d, r):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "gram": 0, "batched_gram": 1, "batched_gram_polar": 1, "align_average": 1,
-        "fused_round": 0, "fused_ring_round": 0, "flash_attention": 0,
+        "fused_round": 0, "fused_ring_round": 0, "fused_ring_round_remote": 0,
+        "flash_attention": 0,
     }
 
 
@@ -110,6 +119,27 @@ def test_gram_stage_and_apply_beyond_one_tile(dev):
     _hold(tpa.batched_gram(vs, ref), tref.batched_gram(vs, ref), 300)
     zs = tref.batched_gram_polar(vs, ref)
     _hold(tpa.align_average(vs, zs), tref.align_average(vs, zs), 2 * 200)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 8192])
+@pytest.mark.parametrize("r", [1, 5, 127, 128, 130, 136])
+def test_align_average_kernel_edges(dev, m, d, r):
+    """B4 at the edges of its 64-row, 128-column block and its 16-deep
+    slices: r below, at and above one column tile (and r % 4 != 0, the
+    4-byte copy path), d below, at and past one row tile, one machine and
+    eight.  Two calls give the same bits (a fixed summation order)."""
+    g = torch.Generator(device=dev).manual_seed(m * 100003 + d * 131 + r)
+    vs = torch.randn(m, d, r, generator=g, device=dev)
+    zs = torch.linalg.qr(torch.randn(m, r, r, generator=g, device=dev))[0].contiguous()
+    before = tpa.align_average.launches
+    got = tpa.align_average(vs, zs)
+    again = tpa.align_average(vs, zs)
+    torch.cuda.synchronize()
+    assert tpa.align_average.launches == before + 2
+    assert got.shape == (d, r) and got.dtype == torch.float32
+    _hold(got, tref.align_average(vs, zs), m * r)
+    assert torch.equal(got, again)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -212,8 +242,8 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,s,t,hd,window", [
+_EDGES = (127, 128, 129, 255, 257, 1000)
+_FLASH_CASES = [
     (1, 4, 2, 96, 160, 64, None),     # ragged GQA, suffix queries
     (1, 2, 1, 160, 96, 32, None),     # s > t: rows without keys
     (2, 8, 1, 200, 200, 128, None),   # MQA
@@ -221,8 +251,30 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py
     (1, 4, 2, 130, 130, 16, 1024),    # reduced head_dim, window above s
     (1, 3, 3, 65, 65, 24, None),      # head_dim padded inside the kernel
     (1, 6, 2, 1, 70, 40, None),       # one query
-])
+    (2, 8, 1, 300, 170, 128, None),   # MQA with rows without keys
+] + [
+    # s and t at, below and past the bf16 kernel's 128-row query tile and
+    # 128-key K/V tile (and s > t).
+    (1, 4, 2, s, t, hd, None)
+    for s, t in [(n, n) for n in _EDGES] + [(127, 1000), (129, 257), (255, 128), (1000, 129)]
+    for hd in (64, 128)
+] + [
+    # Every head_dim class the wrapper takes: one 64-column TMA box
+    # (hd <= 64) or two, zero-filled past hd inside the kernel.
+    (2, 4, 2, 257, 257, hd, None) for hd in (16, 24, 40, 64, 80, 96, 128)
+] + [
+    # Window edges at the 128-key tile.
+    (1, 4, 2, s, t, 128, window)
+    for window in (127, 128, 129) for s, t in ((300, 300), (200, 457))
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd,window", _FLASH_CASES)
 def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
+    """FLASH_TOL over the whole output; bf16 also per query row,
+    2^-7 max|want_row| + 1e-4 (one bf16 step of the row's largest value:
+    both sides round the same f32 row to bf16 once)."""
     g = torch.Generator(device=dev).manual_seed(s * t + hd)
     q, k, v = (torch.randn(*sh, generator=g, device=dev).to(dtype)
                for sh in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
@@ -232,9 +284,51 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
     assert tfa.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = tref.flash_attention(q, k, v, causal=True, window=window)
-    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        bar = 2.0**-7 * want.abs().amax(-1) + 1e-4
+        assert ((got - want).abs().amax(-1) <= bar).all()
     if s > t:
         assert bool((got[:, :, : s - t] == 0).all())
+
+
+def test_flash_attention_heads_do_not_bleed(dev):
+    """A multi-head batch with s and t off every tile edge, and every other
+    KV head holding V = 1e3: a box or tile that read across a head's edge
+    would carry 1e3 into a neighbour and fail that head's per-row bar."""
+    b, hq, hkv, s, t, hd = 3, 8, 4, 200, 333, 80
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(*sh, generator=g, device=dev).to(torch.bfloat16)
+               for sh in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
+    v[:, 1::2] = 1e3
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tref.flash_attention(q, k, v, causal=True)
+    for h in range(hq):
+        bar = 2.0**-7 * want[:, h].float().abs().amax(-1) + 1e-4
+        err = (got[:, h].float() - want[:, h].float()).abs().amax(-1)
+        assert (err <= bar).all(), h
+
+
+def test_flash_attention_bf16_path_is_wgmma(dev):
+    """The built library's bf16 kernel runs on the Hopper tensor-core
+    instructions: HGMMA (wgmma) fed by UTMALDG (TMA loads), and no HMMA
+    (the mma.sync of the kernel it replaced)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        pytest.skip("no cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    kernels_sass = sass.split("Function : ")
+    flash = [k for k in kernels_sass if k.split("\n", 1)[0].find("flash_fwd_bf16") >= 0]
+    assert len(flash) == 2  # head_dim padded to 64 and to 128
+    for body in flash:
+        assert "HGMMA" in body and "UTMALDG" in body and "HMMA" not in body
 
 
 def test_flash_attention_refusals(dev):

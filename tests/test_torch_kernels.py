@@ -127,6 +127,20 @@ def test_align_average_plain_matches_pallas(m, d, r, bk):
     _close(got, jref.align_average(j["vs"], j["zs"]), STAGE_TOL)
 
 
+# m r across several 16-deep slices of the CUDA kernel's reduction (r off
+# the slice edge, so each machine ends on a short slice), d off its
+# 64-row block edge.
+@pytest.mark.parametrize("m,d,r", [(3, 205, 40), (2, 130, 33), (5, 65, 16)])
+def test_align_average_plain_matches_pallas_over_slices(m, d, r):
+    vs = _noisy_stack(m + r, m, d, r)
+    zs = np.linalg.qr(_normal(6, m, r, r))[0].astype(np.float32)
+    j, t = _both(vs=vs, zs=zs)
+    got = tpa.align_average(t["vs"], t["zs"])
+    assert got.shape == (d, r) and got.dtype == torch.float32
+    _close(got, jpa.align_average(j["vs"], j["zs"], bd=64, interpret=True), STAGE_TOL)
+    _close(got, jref.align_average(j["vs"], j["zs"]), STAGE_TOL)
+
+
 @pytest.mark.parametrize("polar", ["svd", "newton-schulz"])
 def test_align_one_matches_reference(polar):
     vs = _noisy_stack(21, 2, 97, 6)
