@@ -17,7 +17,11 @@ of JAX or of the reference package.  Phases, each ending in
    stack that forces the shifted Cholesky).  B7 fused_ring_round_remote
    needs a world of ranks: the rank processes of phase 3 hold it against
    its plain version first, at 8 ranks x (8192, 128) and on a subgroup
-   of 3 ranks at (1000, 7), and the ranks' outputs must agree.
+   of 3 ranks at (1000, 7), and the ranks' outputs must agree.  B1 must
+   give the same bits with the reference's ``symmetric`` option as
+   without (the kernel always mirrors its upper tiles); B3 and B5 are also
+   held at r = 192 and 256, where their Newton-Schulz and Cholesky tiles
+   live in a global workspace.
 3. Drive the main path at the production width of
    ``repro/configs/paper_pca.py`` (d = 8192, r = 128, 65536 samples per
    shard, 2 rounds, 30 subspace-iteration steps), m = 8 shards, shard k
@@ -51,9 +55,12 @@ of JAX or of the reference package.  Phases, each ending in
    (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
    ones (GQA s 96 / t 160 in bf16 and f32, s > t with its zero rows,
    windows 16 and 1024, MQA, and s, t and windows at the bf16 kernel's
-   128-row and 128-key tile edges; bf16 also per query row, see
-   ``FLASH_ROW_REL``); then the serve lane (``repro_torch.launch.serve``'s
-   ``load`` and ``generate``, which ``serve`` is made of) at the full
+   128-row and 128-key tile edges, and head_dim 136, 192 and 256 through
+   the wide kernel; each check names the kernel form that the library
+   reports it launched; bf16 also
+   per query row, see ``FLASH_ROW_REL``); then the serve lane
+   (``repro_torch.launch.serve``'s ``load`` and ``generate``, which
+   ``serve`` is made of) at the full
    ``llama3.2-3b`` config (28 layers, d_model 3072), 4 prompts of 4096
    tokens and 32 greedy tokens each, weights from a seeded generator on
    the card: exactly 28 flash launches in the prefill and none in
@@ -65,7 +72,12 @@ of JAX or of the reference package.  Phases, each ending in
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; SDPA for B8); B8 also the TFLOP/s
-   it reaches on its MMA work (S, and PV for p_hi and p_lo).  B7 is
+   it reaches on its MMA work (S, and PV for p_hi and p_lo).  B1 beside
+   the bound of the work the function needs (n d (d + 1) FLOP), the full
+   product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
+   r = 192 and 256; B8's wide kernel at recurrentgemma-2b's local
+   attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
+   2048, bf16).  B7 is
    timed in the rank world, per round on every rank, against the bound
    of the 8 ranks' work on the one card.
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
@@ -135,6 +147,10 @@ PEAKS = (
 # The serving lane: llama3.2-3b at its full config, 4 requests of 4096
 # prompt tokens, 32 greedy tokens each.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 4096, 32
+# B3 / B5 past the shared-memory Newton-Schulz tiles (r > 136).
+WIDE_RS = (192, 256)
+# B8's wide kernel timed at recurrentgemma-2b's local attention shape.
+FLASH_WIDE = ((4, 10, 1, 4096, 4096, 256), "bfloat16", 2048)
 # B8 checks: (label, (b, hq, hkv, s, t, hd), dtype, window).  Causal all.
 FLASH_CHECKS = (
     ("main (4, 24/8, 4096x4096, 128) bf16", (4, 24, 8, 4096, 4096, 128), "bfloat16", None),
@@ -155,6 +171,14 @@ FLASH_CHECKS = (
      "bfloat16", 128),
     ("ragged edge window 129 (1, 4/2, 300x300, 128) bf16", (1, 4, 2, 300, 300, 128),
      "bfloat16", 129),
+    # head_dim past 128: the wide kernel, both dtypes.
+    ("ragged hd 136 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 136), "bfloat16", None),
+    ("ragged hd 192 window 16 (1, 4/2, 200x457) f32", (1, 4, 2, 200, 457, 192),
+     "float32", 16),
+    ("ragged hd 256 (2, 10/1, 1000x1000) bf16", (2, 10, 1, 1000, 1000, 256), "bfloat16", None),
+    ("ragged hd 256 window 128 (1, 4/2, 300x300) f32", (1, 4, 2, 300, 300, 256),
+     "float32", 128),
+    ("ragged hd 256 s>t (1, 2/1, 160x96) bf16", (1, 2, 1, 160, 96, 256), "bfloat16", None),
 )
 # The reference's own kernel-test bars (tests/test_kernels.py:122, :146).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -614,9 +638,13 @@ def main(argv=None) -> int:
                      ("ragged (257, 205) bf16", x_rag.to(torch.bfloat16))):
         want = ref.gram(x)
         tol = sum_tol(x.shape[0], want.abs().max().item())
-        hold("gram", label, gram(x), want, tol)
-        hold("gram", label + " symmetric", gram(x, symmetric=True), want, tol)
-        del want
+        full, sym = gram(x), gram(x, symmetric=True)
+        hold("gram", label, full, want, tol)
+        same = torch.equal(full, sym)
+        print(f"[check] {'gram':<18} {label:<34} same bits with symmetric=True "
+              f"{same} {'ok' if same else 'FAIL'}")
+        require(same, f"gram: symmetric=True changed the bits at {label}")
+        del want, full, sym
     x_stack = torch.randn(2, RAGGED_N, RAGGED_D, generator=gen, device=dev)
     want = ref.gram(x_stack)
     hold("gram", "ragged stack (2, 257, 205)", gram(x_stack), want,
@@ -650,6 +678,18 @@ def main(argv=None) -> int:
               f"{'ok' if ok else 'FAIL'}")
         results[kernel]["errs"][label] = (err, ROUND_TOL)
         require(ok, f"{kernel} disagrees with its plain version at {label}")
+
+    # B3 and B5 past r = 136: Newton-Schulz and Cholesky tiles in the
+    # global workspace.
+    wide_stacks = {}
+    for r in WIDE_RS:
+        vs = noisy_stack(torch, gen, SHARDS, D, r, dev)
+        rf = vs[0].contiguous()
+        hold("batched_gram_polar", f"wide ({SHARDS}, {D}, {r})",
+             batched_gram_polar(vs, rf), ref.batched_gram_polar(vs, rf), NS_TOL)
+        hold_round("fused_round", f"wide ({SHARDS}, {D}, {r})", fused_round(vs, rf),
+                   ref.fused_round(vs, rf))
+        wide_stacks[r] = vs
 
     def int8_wire(vs):
         """Each machine's basis through the port's int8 codec."""
@@ -967,6 +1007,7 @@ def main(argv=None) -> int:
         q, k, v = qkv(shape, dtype)
         got = flash_attention(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
+        label = f"{label} [{flash_attention.last_form}]"
         want = ref.flash_attention(q, k, v, causal=True, window=window)
         got, want = got.float(), want.float()
         hold("flash_attention", label, got, want, FLASH_TOL[dtype])
@@ -1094,9 +1135,13 @@ def main(argv=None) -> int:
     zs = ref.batched_gram_polar(vs, rf)
     m, d, r = vs.shape
     stack_bytes = 4 * (m * d * r + d * r)
+    # B1: the function needs n d (d + 1) FLOP (each of the d (d + 1) / 2
+    # distinct entries, n FMAs); the whole product's bound, 2 n d^2, is
+    # printed beside it.
+    gram_bytes = 4 * (N_PER_SHARD * D + D * D)
     timing = {
         "gram": (lambda: gram(x), lambda: ref.gram(x), lambda: x.T @ x, 3,
-                 bound(2.0 * N_PER_SHARD * D * D, 4 * (N_PER_SHARD * D + D * D))),
+                 bound(1.0 * N_PER_SHARD * D * (D + 1), gram_bytes)),
         "batched_gram": (lambda: batched_gram(vs, rf),
                          lambda: ref.batched_gram(vs, rf),
                          lambda: torch.einsum("mdr,ds->mrs", vs, rf), 50,
@@ -1147,6 +1192,9 @@ def main(argv=None) -> int:
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_, v_, is_causal=True, enable_gqa=True), 10, fa_bound)
     fa_mma_flops = 1.5 * fa_flops
+    gram_full_bound, _ = bound(2.0 * N_PER_SHARD * D * D, gram_bytes)
+    tiles = -(-D // 128)
+    gram_tile_flops = tiles * (tiles + 1) // 2 * 2.0 * 128 * 128 * N_PER_SHARD
     rows = []
     for k, (kern, plain, lib, reps, (bound_ms, bound_by)) in timing.items():
         k_ms = time_ms(kern, reps)
@@ -1173,10 +1221,61 @@ def main(argv=None) -> int:
             rows[-1]["row_err_over_bar"] = max(
                 r for lbl, r in row_ratio.items() if lbl.startswith("main"))
             rows[-1]["mma_tflops"] = fa_mma_flops / (k_ms * 1e9)
+        if k == "gram":
+            rows[-1].update(full_bound_ms=gram_full_bound,
+                            tflops=N_PER_SHARD * D * (D + 1) / (k_ms * 1e9),
+                            tile_tflops=gram_tile_flops / (k_ms * 1e9))
+            print(f"[time] gram kernel_ms {k_ms:.4f} vs bound {bound_ms:.4f} ms "
+                  f"(n d (d + 1) FLOP) and {gram_full_bound:.4f} ms (the whole "
+                  f"product's 2 n d^2): {rows[-1]['tflops']:.2f} TFLOP/s of the needed "
+                  f"work, {rows[-1]['tile_tflops']:.2f} of the upper tiles' "
+                  f"{gram_tile_flops / 1e12:.3f} TFLOP; x.T @ x {l_ms:.4f} ms")
         if k == "fused_ring_round":
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                         "bound_by": t[2][1]} for wname, t in ring_ms.items()}
+    # B3 and B5 past r = 136 (tiles in the global workspace).
+    by_name = {row["name"]: row for row in rows}
+    for r_w in WIDE_RS:
+        vs_w = wide_stacks[r_w]
+        rf_w = vs_w[0].contiguous()
+        for k, kern, plain, flops in (
+            ("batched_gram_polar", lambda: batched_gram_polar(vs_w, rf_w),
+             lambda: ref.batched_gram_polar(vs_w, rf_w),
+             2.0 * SHARDS * D * r_w * r_w + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3),
+            ("fused_round", lambda: fused_round(vs_w, rf_w),
+             lambda: ref.fused_round(vs_w, rf_w),
+             4.0 * SHARDS * D * r_w * r_w + 8.0 * D * r_w * r_w
+             + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3),
+        ):
+            w_ms, w_plain = time_ms(kern, 5), time_ms(plain, 5)
+            w_bound, w_by = bound(flops, 4 * (SHARDS * D * r_w + 2 * D * r_w))
+            print(f"[time] {k:<18} wide r={r_w} (tiles in the workspace) kernel_ms "
+                  f"{w_ms:.4f} bound_ms {w_bound:.4f} ({w_by}) plain_ms {w_plain:.4f}")
+            by_name[k].setdefault("wide_r", {})[r_w] = {
+                "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": w_by}
+    # B8's wide kernel at recurrentgemma-2b's local attention shape.
+    (b, hq, hkv, s_, t_, hd), wdt, win = FLASH_WIDE
+    q, k_, v_ = qkv(FLASH_WIDE[0], wdt)
+    visible = sum(min(t_ - s_ + i + 1, win) for i in range(s_))
+    w_flops = 4.0 * b * hq * hd * visible
+    w_bound = 1e3 * max(w_flops / peak_bf16, 2 * (2 * b * hq * s_ * hd + 2 * b * hkv * t_ * hd)
+                        / peak_bw)
+    qpos = torch.arange(s_, device=dev)[:, None] + (t_ - s_)
+    kpos = torch.arange(t_, device=dev)[None, :]
+    mask = (kpos <= qpos) & (qpos - kpos < win)
+    w_ms = time_ms(lambda: flash_attention(q, k_, v_, window=win), 5)
+    w_plain = time_ms(lambda: ref.flash_attention(q, k_, v_, window=win), 3)
+    w_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_, v_, attn_mask=mask, enable_gqa=True), 5)
+    print(f"[time] flash_attention wide {FLASH_WIDE} [{flash_attention.last_form}] kernel_ms "
+          f"{w_ms:.4f} bound_ms {w_bound:.4f} (operations, bf16 peak) plain_ms {w_plain:.4f} "
+          f"library_ms {w_lib:.4f} (SDPA, boolean window mask); "
+          f"{w_flops / (w_ms * 1e9):.2f} TFLOP/s")
+    by_name["flash_attention"]["wide_hd256"] = {
+        "shape": list(FLASH_WIDE[0]), "window": win, "ms": w_ms, "plain_ms": w_plain,
+        "bound_ms": w_bound, "library_ms": w_lib}
+    del q, k_, v_, mask
     # B7, timed in the rank world (phase 3's processes): WORLD ranks share
     # the card, so the world's bound is WORLD ranks' work; each rank does
     # B6's operations and writes WORLD - 1 hops of d r f32 to its neighbour.

@@ -22,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,6 +32,7 @@ import torch
 
 __all__ = [
     "CSRC", "BUILD_DIR", "build", "load", "check", "stream_of", "require_sm90",
+    "ptxas_usage", "parse_ptxas",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -42,33 +44,37 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
-# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, m, d, r,
-# rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c, grid_out, stream.
-_ROUND = (_I, *(_P,) * 9, *(_I,) * 8, _F, _F, _P, _P)
+# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, ws, m, d,
+# r, rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c, grid_out,
+# stream.
+_ROUND = (_I, *(_P,) * 10, *(_I,) * 8, _F, _F, _P, _P)
 # C signature of every entry point: (argtypes), all return an int status.
 _SIGNATURES = {
-    "rt_gram_f32": (_I, _P, _P, _I, _I, _I, _I, _P),
-    "rt_gram_bf16": (_I, _P, _P, _I, _I, _I, _I, _P),
+    "rt_gram_f32": (_I, _P, _P, _I, _I, _I, _P),
+    "rt_gram_bf16": (_I, _P, _P, _I, _I, _I, _P),
     "rt_batched_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rt_batched_gram_polar": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # device, vs, ref, part, out, ws, m, d, r, rows, splits, ns_iters, stream.
+    "rt_batched_gram_polar": (_I, *(_P,) * 5, *(_I,) * 6, _P),
     "rt_align_average": (_I, _P, _P, _P, _I, _I, _I, _P),
     "rt_fused_round_f32": _ROUND,
     "rt_fused_round_bf16": _ROUND,
     "rt_fused_round_i8": _ROUND,
     # device, bf16_in, q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
-    # scale, wait_ns, stream.
-    "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _U64, _P),
+    # scale, wait_ns, form_out, stream.
+    "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _U64, _P, _P),
     "rt_flash_status": (),
+    # Test-only: device, wait_ns, stream (a wait that runs out and traps).
+    "rt_flash_stall_for_test": (_I, _U64, _P),
     # B7 exchange buffers: alloc (device, bytes, *ptr, handle), open
     # (device, handle, *ptr), close / free (device, ptr).
     "rt_remote_alloc": (_I, ctypes.c_size_t, ctypes.POINTER(_P), _P),
     "rt_remote_open": (_I, _P, ctypes.POINTER(_P)),
     "rt_remote_close": (_I, _P),
     "rt_remote_free": (_I, _P),
-    # B7 round: device, v, ref, out, part, z, vbar, q1, w, mine, right, left,
-    # status, seq0, timeout_ns, m, d, r, rows1, splits1, rows2, splits2,
-    # ns_iters, pivot_c, shift_c, grid_out, stream.
-    "rt_fused_ring_remote": (_I, *(_P,) * 12, _U64, _U64, *(_I,) * 8, _F, _F,
+    # B7 round: device, v, ref, out, part, z, vbar, q1, w, ws, mine, right,
+    # left, status, seq0, timeout_ns, m, d, r, rows1, splits1, rows2,
+    # splits2, ns_iters, pivot_c, shift_c, grid_out, stream.
+    "rt_fused_ring_remote": (_I, *(_P,) * 13, _U64, _U64, *(_I,) * 8, _F, _F,
                              _P, _P),
 }
 
@@ -130,6 +136,34 @@ def build() -> Path:
         os.replace(out, lib)
     stamp.write_text(digest)
     return lib
+
+
+def ptxas_usage(source: str) -> dict[str, dict[str, int]]:
+    """Compile ``csrc/<source>`` once more with ``-Xptxas -v`` (into a
+    temporary directory) and return, by mangled name, each entry
+    function's ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / source),
+             "-o", os.path.join(tmp, "ptxas.o")],
+            capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}{res.stderr}")
+    return parse_ptxas(res.stdout + res.stderr)
+
+
+def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes by entry function from ``-Xptxas -v`` output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            usage[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m[1])
+    return usage
 
 
 @functools.cache

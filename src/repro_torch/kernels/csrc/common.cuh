@@ -59,16 +59,12 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ As,
 // while the current one is multiplied (one-deep register prefetch).
 // Ragged rows and columns load as zero; stores are masked.  Offsets are
 // 64-bit: a (8, 65536, 8192) stack has 4.3e9 elements.
-//
-// ``symmetric`` (A == B, p == q): blocks below the diagonal exit at once,
-// and each block above it also writes its transposed tile, so the full
-// (p, p) result comes out of the upper-triangle tiles alone.
 template <typename T, int BM, int TM, int BK>
 __global__ void __launch_bounds__((BM / TM) * (BM / TM))
     atb_kernel(const T* __restrict__ a, long long a_z,
                const T* __restrict__ b, long long b_z,
                float* __restrict__ c, int rows, int rows_per_split, int p,
-               int q, int symmetric) {
+               int q) {
   constexpr int T1 = BM / TM;
   constexpr int NT = T1 * T1;
   constexpr int LOADS = BK * BM / NT;
@@ -79,7 +75,6 @@ __global__ void __launch_bounds__((BM / TM) * (BM / TM))
   const int tiles_q = (q + BM - 1) / BM;
   const int ti = blockIdx.x / tiles_q;
   const int tj = blockIdx.x % tiles_q;
-  if (symmetric && ti > tj) return;
   const int s = blockIdx.y;
   const int z = blockIdx.z;
   const int i0 = ti * BM;
@@ -138,10 +133,7 @@ __global__ void __launch_bounds__((BM / TM) * (BM / TM))
 #pragma unroll
     for (int v = 0; v < TM; ++v) {
       const int j = j0 + tx + v * T1;
-      if (i < p && j < q) {
-        cz[static_cast<size_t>(i) * q + j] = acc[u][v];
-        if (symmetric && ti != tj) cz[static_cast<size_t>(j) * q + i] = acc[u][v];
-      }
+      if (i < p && j < q) cz[static_cast<size_t>(i) * q + j] = acc[u][v];
     }
   }
 }

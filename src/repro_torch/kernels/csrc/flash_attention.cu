@@ -58,9 +58,8 @@
 //     status word and traps, so a lost arrival is a launch failure, not a
 //     hang.  The trap ends the context: the caller sees CUDA's own launch
 //     failure at its next synchronisation, and rt_flash_status (host
-//     memory, still readable) says which wait ran out.  Unverified: no
-//     test makes a wait run out (try_wait itself suspends until the phase
-//     completes, so a zero bound does not trip it).
+//     memory, still readable) says which wait ran out.  A card test makes
+//     one wait run out through the test-only rt_flash_stall_for_test.
 // Not yet done: ping-pong scheduling of the two consumers around the
 // softmax, a persistent tile scheduler, packing the query heads of one KV
 // head into one block (ROADMAP B.8).
@@ -68,6 +67,10 @@
 // f32: the reference's numerics exactly (no TF32): one thread per query
 // row, plain FMAs on the CUDA cores over 32-key tiles staged in shared
 // memory.  A correctness path; the model serves in bf16.
+//
+// head_dim 136..256, either dtype (recurrentgemma's local attention has
+// 256): the wide kernel below, f32 arithmetic on the CUDA cores.  A wgmma
+// form at hd 256 is later work (ROADMAP).
 #include "common.cuh"
 
 #include <cuda.h>
@@ -663,6 +666,175 @@ __global__ void __launch_bounds__(kBQF) flash_fwd_f32(const FlashParams p) {
     if (c < p.hd) o[static_cast<size_t>(row) * hd + c] = acc[c] / l;
 }
 
+// --------------------------------------------------------------- wide --
+// head_dim 136..256 (padded to 256), f32 or bf16 in: the reference's
+// numerics in f32 (q scaled in f32 and rounded to the input type, f32
+// logits, probabilities and PV sums, the output rounded to the input type)
+// on the CUDA cores.  A simple form: at hd 256 one thread per row cannot
+// hold q and the running output (512 floats), so four neighbouring lanes
+// share a query row, each owning every fourth float4 of the head (columns
+// 16 n + 4 part + 0..3), q and its part of the output in registers
+// (64 + 64 floats); a key's partial dot products meet by two shuffles, and
+// the four lanes keep the same softmax statistics.  32-key K and V tiles
+// are staged as f32 in dynamic shared memory (64 KB; the four lanes' float4
+// reads of a key's row are 64 contiguous bytes, broadcast over the warp's
+// eight rows).
+constexpr int kBQW = 64;     // query rows per block
+constexpr int kPartsW = 4;   // lanes per query row
+constexpr int kBKW = 32;     // keys per tile
+constexpr int kHDW = 256;    // padded head_dim
+constexpr int kThreadsW = kBQW * kPartsW;
+constexpr int kVecW = kHDW / (4 * kPartsW);  // float4s a lane owns: 16
+constexpr int kSmemW = 2 * kBKW * kHDW * static_cast<int>(sizeof(float));
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, bf16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p) {
+  extern __shared__ float4 smem_w[];
+  float4* sK = smem_w;                    // [kBKW][kHDW / 4]
+  float4* sV = smem_w + kBKW * kHDW / 4;  // [kBKW][kHDW / 4]
+  const int n_qt = (p.s + kBQW - 1) / kBQW;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);  // long rows first
+  const int bh = blockIdx.y;
+  const int bi = bh / p.hq;
+  const int hk = (bh % p.hq) / (p.hq / p.hkv);
+  const size_t hd = static_cast<size_t>(p.hd);
+  const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.s * hd;
+  const size_t kv_off = (static_cast<size_t>(bi) * p.hkv + hk) * p.t * hd;
+  const T* k = static_cast<const T*>(p.k) + kv_off;
+  const T* v = static_cast<const T*>(p.v) + kv_off;
+  T* o = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.s * hd;
+
+  const int tid = threadIdx.x;
+  const int part = tid % kPartsW;
+  const int row0 = qt * kBQW;
+  const int row = row0 + tid / kPartsW;
+  const int qpos = p.t - p.s + row;
+  int j0, j1;
+  kv_tiles(p, row0, min(row0 + kBQW, p.s) - 1, kBKW, j0, j1);
+
+  float4 qr[kVecW];
+  float4 acc[kVecW];
+#pragma unroll
+  for (int n = 0; n < kVecW; ++n) {
+    float e[4];
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) {
+      const int c = 16 * n + 4 * part + c4;
+      const float x = (row < p.s && c < p.hd)
+                          ? rt::to_f32(q[static_cast<size_t>(row) * hd + c])
+                          : 0.f;
+      e[c4] = round_to(x * p.scale, T());
+    }
+    qr[n] = make_float4(e[0], e[1], e[2], e[3]);
+    acc[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m_run = kNegInf;
+  float l_run = 0.f;
+  float* fk = reinterpret_cast<float*>(sK);
+  float* fv = reinterpret_cast<float*>(sV);
+
+  for (int j = j0; j < j1; ++j) {
+    for (int e = tid; e < kBKW * kHDW; e += kThreadsW) {
+      const int r = e / kHDW;
+      const int c = e % kHDW;
+      const int key = j * kBKW + r;
+      const bool ok = key < p.t && c < p.hd;
+      const size_t off = static_cast<size_t>(key) * hd + c;
+      fk[e] = ok ? rt::to_f32(k[off]) : 0.f;
+      fv[e] = ok ? rt::to_f32(v[off]) : 0.f;
+    }
+    __syncthreads();
+    float sc[kBKW];
+    float mx = kNegInf;
+    uint32_t vis = 0;
+#pragma unroll 1
+    for (int kk = 0; kk < kBKW; ++kk) {
+      const float4* kr = sK + kk * (kHDW / 4) + part;
+      float dot = 0.f;
+#pragma unroll
+      for (int n = 0; n < kVecW; ++n) {
+        const float4 kv = kr[4 * n];
+        dot = fmaf(qr[n].x, kv.x, dot);
+        dot = fmaf(qr[n].y, kv.y, dot);
+        dot = fmaf(qr[n].z, kv.z, dot);
+        dot = fmaf(qr[n].w, kv.w, dot);
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if (visible(p, qpos, j * kBKW + kk)) {
+        vis |= 1u << kk;
+      } else {
+        dot = kNegInf;
+      }
+      sc[kk] = dot;
+      mx = fmaxf(mx, dot);
+    }
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    m_run = m_new;
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kVecW; ++n) {
+      acc[n].x *= alpha;
+      acc[n].y *= alpha;
+      acc[n].z *= alpha;
+      acc[n].w *= alpha;
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < kBKW; ++kk) {
+      if (!((vis >> kk) & 1u)) continue;
+      const float pe = expf(sc[kk] - m_new);
+      psum += pe;
+      const float4* vr = sV + kk * (kHDW / 4) + part;
+#pragma unroll
+      for (int n = 0; n < kVecW; ++n) {
+        const float4 vv = vr[4 * n];
+        acc[n].x = fmaf(pe, vv.x, acc[n].x);
+        acc[n].y = fmaf(pe, vv.y, acc[n].y);
+        acc[n].z = fmaf(pe, vv.z, acc[n].z);
+        acc[n].w = fmaf(pe, vv.w, acc[n].w);
+      }
+    }
+    l_run = alpha * l_run + psum;
+    __syncthreads();
+  }
+  if (row >= p.s) return;
+  const float l = l_run == 0.f ? 1.f : l_run;  // no visible key: zeros
+#pragma unroll
+  for (int n = 0; n < kVecW; ++n) {
+    const float e[4] = {acc[n].x, acc[n].y, acc[n].z, acc[n].w};
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) {
+      const int c = 16 * n + 4 * part + c4;
+      if (c < p.hd) store_as(o + static_cast<size_t>(row) * hd + c, e[c4] / l);
+    }
+  }
+}
+
+// ------------------------------------------------------------- testing --
+// Test-only (rt_flash_stall_for_test, never reached from
+// rt_flash_attention): one thread arms an mbarrier for 16 bytes that no
+// copy delivers and waits for it through mbar_wait, the bf16 kernel's
+// bounded wait.  The wait runs out after p.wait_ns, writes kTimedOutFull
+// to the host-mapped status word and traps.
+__global__ void flash_stall_kernel(const FlashParams p) {
+  __shared__ __align__(8) unsigned long long bar;
+  const uint32_t b = smem_addr(&bar);
+  mbar_init(b, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  mbar_expect_tx(b, 16);
+  mbar_wait(b, 0, p, kTimedOutFull);
+}
+
 // ---------------------------------------------------------------- host --
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -736,6 +908,16 @@ int launch_f32(const FlashParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_wide(const FlashParams& p, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.s + kBQW - 1) / kBQW, p.b * p.hq);
+  flash_fwd_wide<T><<<grid, kThreadsW, kSmemW, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The status word of the bf16 waits: host memory mapped into every
 // device's address space, readable after a trap has ended the context.
 int* g_status = nullptr;
@@ -761,12 +943,15 @@ extern "C" {
 
 // q: (b, hq, s, hd), k, v: (b, hkv, t, hd), o: (b, hq, s, hd), all
 // row-major, one dtype (bf16 if bf16_in, else f32); hq % hkv == 0,
-// 16 <= hd <= 128, hd % 8 == 0, 16-byte aligned.  window <= 0: none.
+// 16 <= hd <= 256, hd % 8 == 0, 16-byte aligned.  window <= 0: none.
+// hd <= 128: the wgmma kernel (bf16) or the f32 kernel; above: the wide
+// kernel.  *form_out names the one launched: 1 wgmma, 2 f32, 3 wide.
 // wait_ns bounds every mbarrier wait of the bf16 kernel.
 int rt_flash_attention(int device, int bf16_in, const void* q, const void* k,
                        const void* v, void* o, int b, int hq, int hkv, int s,
                        int t, int hd, int causal, int window, float scale,
-                       unsigned long long wait_ns, void* stream) {
+                       unsigned long long wait_ns, int* form_out,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int* status = nullptr;
@@ -775,6 +960,8 @@ int rt_flash_attention(int device, int bf16_in, const void* q, const void* k,
   const FlashParams p{q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
                       scale, status, wait_ns};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *form_out = hd > 128 ? 3 : bf16_in ? 1 : 2;
+  if (hd > 128) return bf16_in ? launch_wide<bf16>(p, st) : launch_wide<float>(p, st);
   if (bf16_in) return hd <= 64 ? launch_bf16<64>(p, st) : launch_bf16<128>(p, st);
   if (hd <= 32) return launch_f32<32>(p, st);
   if (hd <= 64) return launch_f32<64>(p, st);
@@ -785,6 +972,22 @@ int rt_flash_attention(int device, int bf16_in, const void* q, const void* k,
 // on the host, with no CUDA call.
 int rt_flash_status(void) {
   return g_status ? *static_cast<volatile int*>(g_status) : 0;
+}
+
+// Test-only: launch flash_stall_kernel, whose one wait runs out after
+// wait_ns and traps (it ends the CUDA context).  Nothing else calls it.
+int rt_flash_stall_for_test(int device, unsigned long long wait_ns,
+                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* status = nullptr;
+  const int code = status_word(&status);
+  if (code) return code;
+  FlashParams p{};
+  p.status = status;
+  p.wait_ns = wait_ns;
+  flash_stall_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -96,6 +96,7 @@ struct RemoteArgs {
   float* vbar;       // (d, r) running sum, then V-bar
   float* q1;         // (d, r)
   float* w;          // (2, r, r): W1, W2
+  float* ws;         // round_ws_floats(r) past kNsSmemMaxR, else null
   char* mine;        // this rank's exchange buffer
   char* right;       // the right neighbour's, mapped (null when m == 1)
   char* left;        // the left neighbour's, mapped (null when m == 1)
@@ -202,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
         __threadfence_system();
         st_release_sys(reinterpret_cast<u64*>(a.right + kArrivedOff), g + 2);
       }
-      rt::ns_polar_block(a.part, a.z, a.splits1, r, a.ns_iters, smem,
+      rt::ns_polar_block(a.part, a.z, a.splits1, r, a.ns_iters, smem, a.ws,
                          warp_sums);
     }
     grid.sync();
@@ -223,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   cholqr2_tail(grid, a.vbar, a.q1, a.w, a.part, a.out, d, r, a.rows2,
-               a.splits2, a.pivot_c, a.shift_c, smem);
+               a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
 }
 
 }  // namespace
@@ -280,24 +281,26 @@ int rt_remote_free(int device, void* ptr) {
 }
 
 // One B7 round.  v, ref, out, vbar, q1: (d, r) f32; part:
-// (max(splits1, splits2), r, r); z: (r, r); w: (2, r, r); status: int[1],
-// zero on entry.  mine: this rank's exchange buffer; right / left: the
+// (max(splits1, splits2), r, r); z: (r, r); w: (2, r, r); ws:
+// round_ws_floats(r) f32 when r > kNsSmemMaxR, else unused (may be null);
+// status: int[1], zero on entry.  mine: this rank's exchange buffer; right / left: the
 // neighbours' mapped buffers (null when m == 1).  seq0 = call index * m.
 // grid_out (may be null) receives the grid.
 int rt_fused_ring_remote(int device, const void* v, const void* ref,
                          void* out, void* part, void* z, void* vbar, void* q1,
-                         void* w, void* mine, void* right, void* left,
+                         void* w, void* ws, void* mine, void* right, void* left,
                          void* status, u64 seq0, u64 timeout_ns, int m, int d,
                          int r, int rows1, int splits1, int rows2, int splits2,
                          int ns_iters, float pivot_c, float shift_c,
                          int* grid_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (r > rt::kNsSmemMaxR && !ws) return static_cast<int>(cudaErrorInvalidValue);
   RemoteArgs a{static_cast<const float*>(v), static_cast<const float*>(ref),
                static_cast<float*>(out), static_cast<float*>(part),
                static_cast<float*>(z), static_cast<float*>(vbar),
                static_cast<float*>(q1), static_cast<float*>(w),
-               static_cast<char*>(mine), static_cast<char*>(right),
+               static_cast<float*>(ws), static_cast<char*>(mine), static_cast<char*>(right),
                static_cast<char*>(left), static_cast<int*>(status), seq0,
                timeout_ns, m, d, r, rows1, splits1, rows2, splits2, ns_iters,
                pivot_c, shift_c};

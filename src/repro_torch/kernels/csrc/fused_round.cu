@@ -45,8 +45,10 @@
 // exact triangular inverse by column substitution (the TPU kernel's
 // log-depth nilpotent product is a VMEM idiom).  The r x r work runs in
 // dynamic shared memory: 3 * rp * (rp + 1) floats (198 KB at r = 128), so
-// r <= 136 and one block fits per SM at r = 128.  Offsets into the stack
-// are 64-bit.  The tile products, the guarded Cholesky and the tail
+// one block fits per SM at r = 128.  Past r = 136 those tiles no longer
+// fit: they go to a global workspace of one slot per machine (Newton-
+// Schulz; slot 0 also holds block 0's Cholesky tiles), and the blocks keep
+// only the tile products' 16 KB.  Offsets into the stack are 64-bit.  The tile products, the guarded Cholesky and the tail
 // (phases 4-9) live in round_tiles.cuh, shared with B7.
 #include <cooperative_groups.h>
 
@@ -75,6 +77,7 @@ struct RoundArgs {
   float* vbar;          // (d, r)
   float* q1;            // (d, r)
   float* w;             // (2, r, r): W1, W2
+  float* ws;            // (m, round_ws_floats(r)) past kNsSmemMaxR, else null
   int m, d, r;
   int rows1, splits1;   // d-split of the stack's Grams (phase 1)
   int rows2, splits2;   // d-split of S1 / S2 (phases 4, 7)
@@ -128,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int z = blockIdx.x; z < m; z += gridDim.x) {
     rt::ns_polar_block(a.part + static_cast<size_t>(z) * a.splits1 * rr,
                        a.zs + z * rr, a.splits1, r, a.ns_iters, smem,
-                       warp_sums);
+                       a.ws + z * round_ws_floats(r), warp_sums);
   }
   grid.sync();
 
@@ -142,23 +145,24 @@ __global__ void __launch_bounds__(kThreads)
 
   // 4-9: Q = CholeskyQR2(V-bar).
   cholqr2_tail(grid, a.vbar, a.q1, a.w, a.part, a.out, d, r, a.rows2,
-               a.splits2, a.pivot_c, a.shift_c, smem);
+               a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
 }
 
 template <typename T>
 int launch_round(int device, const void* vs, const void* scales,
                  const void* ref, void* out, void* part, void* zs, void* vbar,
-                 void* q1, void* w, int m, int d, int r, int rows1,
+                 void* q1, void* w, void* ws, int m, int d, int r, int rows1,
                  int splits1, int rows2, int splits2, int ns_iters,
                  float pivot_c, float shift_c, int* grid_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (r > rt::kNsSmemMaxR && !ws) return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs<T> a{static_cast<const T*>(vs), static_cast<const float*>(scales),
                  static_cast<const float*>(ref), static_cast<float*>(out),
                  static_cast<float*>(part), static_cast<float*>(zs),
                  static_cast<float*>(vbar), static_cast<float*>(q1),
-                 static_cast<float*>(w), m, d, r, rows1, splits1, rows2,
-                 splits2, ns_iters, pivot_c, shift_c};
+                 static_cast<float*>(w), static_cast<float*>(ws), m, d, r,
+                 rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c};
   const size_t smem = round_smem_bytes(r);
   auto kernel = fused_round_kernel<T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -194,15 +198,17 @@ extern "C" {
 
 // vs: (m, d, r) wire stack; scales: (m, r) f32 for int8, else null;
 // ref, out, vbar, q1: (d, r) f32; part: (max(m * splits1, splits2), r, r);
-// zs: (m, r, r); w: (2, r, r).  grid_out (may be null) receives the grid.
+// zs: (m, r, r); w: (2, r, r); ws: (m, round_ws_floats(r)) when
+// r > kNsSmemMaxR, else unused (may be null).  grid_out (may be null)
+// receives the grid.
 #define RT_FUSED_ROUND(NAME, T)                                               \
   int NAME(int device, const void* vs, const void* scales, const void* ref,   \
            void* out, void* part, void* zs, void* vbar, void* q1, void* w,    \
-           int m, int d, int r, int rows1, int splits1, int rows2,            \
+           void* ws, int m, int d, int r, int rows1, int splits1, int rows2,  \
            int splits2, int ns_iters, float pivot_c, float shift_c,           \
            int* grid_out, void* stream) {                                     \
     return launch_round<T>(device, vs, scales, ref, out, part, zs, vbar, q1,  \
-                           w, m, d, r, rows1, splits1, rows2, splits2,        \
+                           w, ws, m, d, r, rows1, splits1, rows2, splits2,    \
                            ns_iters, pivot_c, shift_c, grid_out, stream);     \
   }
 

@@ -23,7 +23,9 @@
 //     r = 128 that tile, X^T X and a temporary take 3 * 128 * 129 * 4 B =
 //     198 KB, above the 48 KB static limit: the launch asks for it as
 //     dynamic shared memory after cudaFuncSetAttribute, and a refused
-//     launch comes back as the cudaGetLastError() code.
+//     launch comes back as the cudaGetLastError() code.  Past r = 136 the
+//     three tiles no longer fit and go to a global workspace of one slot
+//     per machine (ns_polar.cuh), which stays in L2.
 //   * B4 is one (d x m r) . (m r x r) product over the stack as it lies in
 //     memory: the sum over machines and over r is one reduction of depth
 //     K = m r, walked in 16-deep slices (one machine each) in a fixed
@@ -61,7 +63,7 @@ int launch_partial(const float* vs, const float* ref, float* part, int m,
   const dim3 grid(static_cast<unsigned>(tiles) * tiles, splits, m);
   rt::atb_kernel<float, kBM, kTM, kBK><<<grid, kThreads, 0, stream>>>(
       vs, static_cast<long long>(d) * r, ref, 0LL, part, d, rows_per_split,
-      r, r, 0);
+      r, r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -82,17 +84,18 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
 }
 
 // Pass 2 of B3: one block per machine reduces its splits into the r x r
-// Gram and runs the Newton-Schulz steps in shared memory (ns_polar.cuh).
+// Gram and runs the Newton-Schulz steps on its tiles (ns_polar.cuh): in
+// shared memory, or past rt::kNsSmemMaxR in machine z's slot of ws.
 __global__ void __launch_bounds__(kNsThreads)
     ns_polar_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    int splits, int r, int ns_iters) {
+                    float* ws, int splits, int r, int ns_iters) {
   extern __shared__ float smem[];
   __shared__ float warp_sums[kNsThreads / 32];
   const int z = blockIdx.x;
   const size_t rr = static_cast<size_t>(r) * r;
   rt::ns_polar_block(part + static_cast<size_t>(z) * splits * rr,
                      out + static_cast<size_t>(z) * rr, splits, r, ns_iters,
-                     smem, warp_sums);
+                     smem, ws + z * rt::ns_tile_floats(r), warp_sums);
 }
 
 // B4: out (d, r) = (1/m) sum_i vs[i] (d, r) @ zs[i] (r, r), one product
@@ -258,12 +261,15 @@ int rt_batched_gram(int device, const void* vs, const void* ref, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ws: (m, ns_tile_floats(r)) f32 workspace when r > rt::kNsSmemMaxR, else
+// unused (may be null).
 int rt_batched_gram_polar(int device, const void* vs, const void* ref,
-                          void* part, void* out, int m, int d, int r,
-                          int rows_per_split, int splits, int ns_iters,
+                          void* part, void* out, void* ws, int m, int d,
+                          int r, int rows_per_split, int splits, int ns_iters,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (r > rt::kNsSmemMaxR && !ws) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int code = launch_partial(static_cast<const float*>(vs),
                             static_cast<const float*>(ref),
@@ -276,8 +282,8 @@ int rt_batched_gram_polar(int device, const void* vs, const void* ref,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   ns_polar_kernel<<<m, kNsThreads, smem, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), splits, r,
-      ns_iters);
+      static_cast<const float*>(part), static_cast<float*>(out),
+      static_cast<float*>(ws), splits, r, ns_iters);
   return static_cast<int>(cudaGetLastError());
 }
 

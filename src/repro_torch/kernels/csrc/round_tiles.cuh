@@ -4,8 +4,10 @@
 // guarded Cholesky of an r x r Gram with its triangular inverse, and the
 // CholeskyQR2 tail that turns V-bar into the round's output.  Each kernel
 // that uses them is one cooperative launch of kThreads-thread blocks with
-// round_smem_bytes(r) of dynamic shared memory.  See fused_round.cu for
-// the design notes.
+// round_smem_bytes(r) of dynamic shared memory.  The r x r working tiles
+// (Newton-Schulz's, and the Cholesky factor's) sit in that shared memory
+// up to r = kNsSmemMaxR and in a global workspace past it (ns_polar.cuh).
+// See fused_round.cu for the design notes.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -144,12 +146,14 @@ inline __device__ bool cholesky_lower(float* __restrict__ l, int r, int ld,
 
 // Block 0's step: S = sum of the splits partial Grams in part (in order),
 // guarded Cholesky S = L L^T (shifted retry), W = L^-T written to w (r, r).
+// The three r x (r + 1) tiles are in tiles: shared memory, or a workspace
+// slot past kNsSmemMaxR.
 inline __device__ void inverse_factor(const float* __restrict__ part,
                                       int splits, int r, float pivot_c,
                                       float shift_c, float* __restrict__ w,
-                                      float* __restrict__ smem) {
+                                      float* __restrict__ tiles) {
   const int ld = r + 1;
-  float* s = smem;             // S, kept for the shifted retry
+  float* s = tiles;            // S, kept for the shifted retry
   float* l = s + r * ld;       // factor
   float* x = l + r * ld;       // L^-1
   __shared__ float tr_s;
@@ -227,14 +231,22 @@ inline __device__ void cholqr2_tail(cooperative_groups::grid_group& grid,
                                     float* __restrict__ w, float* part,
                                     float* __restrict__ out, int d, int r,
                                     int rows2, int splits2, float pivot_c,
-                                    float shift_c, float* smem) {
+                                    float shift_c, float* smem, float* ws) {
   const size_t rr = static_cast<size_t>(r) * r;
+  // Block 0's step; each branch keeps its tiles' address space known.
+  auto factor = [&](float* wk) {
+    if (r <= kNsSmemMaxR) {
+      inverse_factor(part, splits2, r, pivot_c, shift_c, wk, smem);
+    } else {
+      inverse_factor(part, splits2, r, pivot_c, shift_c, wk, ws);
+    }
+  };
   const int tiles = (r + kBM - 1) / kBM;
   const int dtiles = (d + kBM - 1) / kBM;
   self_gram_partials(vbar, d, r, rows2, splits2, part, smem);
   grid.sync();
   if (blockIdx.x == 0) {
-    inverse_factor(part, splits2, r, pivot_c, shift_c, w, smem);
+    factor(w);
   }
   grid.sync();
   auto load_vbar = [&](int, int i, int k) {
@@ -248,7 +260,7 @@ inline __device__ void cholqr2_tail(cooperative_groups::grid_group& grid,
   self_gram_partials(q1, d, r, rows2, splits2, part, smem);
   grid.sync();
   if (blockIdx.x == 0) {
-    inverse_factor(part, splits2, r, pivot_c, shift_c, w + rr, smem);
+    factor(w + rr);
   }
   grid.sync();
   auto load_q1 = [&](int, int i, int k) {
@@ -261,12 +273,21 @@ inline __device__ void cholqr2_tail(cooperative_groups::grid_group& grid,
 }
 
 // Dynamic shared memory of a round kernel: the largest of the phases'
-// working sets (Newton-Schulz, the Cholesky tiles, the tile products).
+// working sets (Newton-Schulz, the Cholesky tiles, the tile products);
+// past kNsSmemMaxR the r x r tiles are in the workspace.
 inline size_t round_smem_bytes(int r) {
   const size_t ns = rt::ns_smem_bytes(r);
-  const size_t chol = 3 * static_cast<size_t>(r) * (r + 1) * sizeof(float);
+  const size_t chol = r <= kNsSmemMaxR
+                          ? 3 * static_cast<size_t>(r) * (r + 1) * sizeof(float)
+                          : 0;
   const size_t tiles = static_cast<size_t>(kBK) * (kLDA + kBM) * sizeof(float);
   return std::max(ns, std::max(chol, tiles));
+}
+
+// Floats of one workspace slot past kNsSmemMaxR: Newton-Schulz's three
+// padded tiles, which also hold the Cholesky step's three r x (r + 1).
+__host__ __device__ inline size_t round_ws_floats(int r) {
+  return rt::ns_tile_floats(r);
 }
 
 }  // namespace round

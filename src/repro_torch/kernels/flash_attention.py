@@ -10,12 +10,15 @@ through the tensor cores: a producer warpgroup streams Q, K and V tiles
 by TMA into a ring of shared-memory stages, two consumer warpgroups run
 ``wgmma`` on them (f32 accumulation, the probabilities split into two
 bf16 parts so they keep ~16 bits).  f32 inputs go through plain f32
-FMAs.  Every wait of the bf16 kernel is bounded by ``FLASH_WAIT_S``: one
-that runs out records which wait in a host-mapped word and traps.  The
-trap ends the CUDA context, so the caller first sees CUDA's own launch
-failure at its next synchronising call; a later call of this wrapper
-raises with the recorded wait.  No test makes a wait run out, so this
-path has not been seen to run on a card.
+FMAs.  head_dim 136..256 (either dtype) goes through a simple wide form:
+f32 arithmetic on the CUDA cores, four lanes per query row
+(``flash_attention.last_form`` names the kernel the last launch took, as
+the library reports it).  Every wait of the bf16 kernel is bounded
+by ``FLASH_WAIT_S``: one that runs out records which wait in a host-mapped
+word and traps.  The trap ends the CUDA context, so the caller first sees
+CUDA's own launch failure at its next synchronising call; a later call of
+this wrapper raises with the recorded wait (a card test makes a wait run
+out through the library's test-only ``rt_flash_stall_for_test``).
 
 A CUDA tensor goes to the kernel (or the call raises); CPU tensors go to
 the plain version ``repro_torch.kernels.ref.flash_attention``.
@@ -23,6 +26,8 @@ the plain version ``repro_torch.kernels.ref.flash_attention``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -37,6 +42,8 @@ _MAX_GRID_Y = 65535
 # microseconds.
 FLASH_WAIT_S = 10.0
 _WAITS = {1: "Q tile", 2: "K/V stage to fill", 3: "K/V stage to empty"}
+# The kernel ``rt_flash_attention`` reports it launched.
+_FORMS = {1: "wgmma (TMA)", 2: "f32 (CUDA cores)", 3: "wide (CUDA cores, f32)"}
 
 
 def flash_attention(
@@ -74,9 +81,9 @@ def flash_attention(
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads not a multiple of {hkv} KV heads")
-    if not (16 <= d <= 128 and d % 8 == 0):
+    if not (16 <= d <= 256 and d % 8 == 0):
         raise ValueError(
-            f"flash_attention kernel takes head_dim 16..128 in steps of 8, got {d}"
+            f"flash_attention kernel takes head_dim 16..256 in steps of 8, got {d}"
         )
     if min(b, s, t) < 1 or b * hq > _MAX_GRID_Y:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} x {tuple(k.shape)} "
@@ -98,15 +105,18 @@ def flash_attention(
             f"flash_attention: an earlier launch waited {FLASH_WAIT_S} s for a "
             f"{_WAITS.get(stalled, stalled)} and trapped")
     out = torch.empty_like(q)
+    launched = ctypes.c_int(0)
     code = lib.rt_flash_attention(
         q.device.index, int(q.dtype == torch.bfloat16), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, t, d,
         int(causal), window or 0, 1.0 / d**0.5, int(FLASH_WAIT_S * 1e9),
-        _build.stream_of(q),
+        ctypes.addressof(launched), _build.stream_of(q),
     )
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.last_form = _FORMS[launched.value]
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_form = None

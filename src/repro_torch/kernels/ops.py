@@ -70,8 +70,8 @@ def _dispatch(kernel_fn, plain_fn, use_kernel: bool | None, *args, **kw):
 def gram(
     x: torch.Tensor, *, use_kernel: bool | None = None, symmetric: bool = False
 ) -> torch.Tensor:
-    """X^T X (f32).  ``symmetric`` is a kernel knob (upper tiles only,
-    mirrored); the plain version computes the full product either way."""
+    """X^T X (f32).  ``symmetric`` is the reference's option; the result is
+    the same either way (the kernel always mirrors its upper tiles)."""
     return _dispatch(
         lambda x: _cov.gram(x, symmetric=symmetric), _ref.gram, use_kernel, x
     )

@@ -14,7 +14,9 @@ The TPU kernels walk d sequentially per machine.  On the card the Gram
 stages split d across blocks instead (``_split_rows``): pass 1 writes
 partial Grams into an (m, splits, r, r) f32 scratch allocated here, pass 2
 reduces them in a fixed order (and, for the polar variant, runs the
-Newton-Schulz steps on the r x r tile in shared memory).  See
+Newton-Schulz steps on the r x r tile in shared memory; past
+``NS_SMEM_MAX_R`` the tiles go to a global workspace allocated here, one
+slot per machine, ``_ns_workspace``).  See
 ``csrc/procrustes_align.cu`` for the design notes.  The two round kernels
 are one cooperative launch each (``csrc/fused_round.cu``): phases that
 reduce over d meet at grid-wide barriers and hand over through scratch
@@ -66,8 +68,10 @@ _AVG_ROWS = 64  # rows of d per align_average block (csrc kAvgBM)
 _GRAM_ROWS = 16  # rows per shared-memory slice of the Gram pass (csrc kBK)
 _BLOCKS_PER_SM = 2  # pass-1 blocks aimed at per SM
 # Largest r whose Newton-Schulz working set (3 padded r x r f32 tiles)
-# fits the 227 KB of shared memory a block may use on Hopper.
-NS_MAX_R = 136
+# fits the 227 KB of shared memory a block may use on Hopper
+# (csrc/ns_polar.cuh kNsSmemMaxR); past it the tiles live in a global
+# workspace.
+NS_SMEM_MAX_R = 136
 _MAX_GRID_YZ = 65535
 # Most d-splits of a round's Gram phase over a wire stack: ring chunks are
 # grouped into splits of whole chunks beyond this (bounds the scratch).
@@ -114,25 +118,37 @@ def _check_stack(name: str, vs: torch.Tensor, other: torch.Tensor,
     return m, d, r
 
 
+def _ns_workspace(slots: int, r: int, device: torch.device) -> torch.Tensor | None:
+    """Global-memory Newton-Schulz / Cholesky tiles past NS_SMEM_MAX_R:
+    ``slots`` slots of 3 rp (rp + 1) f32 (rp = r rounded up to 4;
+    csrc/ns_polar.cuh ns_tile_floats), else None (shared memory)."""
+    if r <= NS_SMEM_MAX_R:
+        return None
+    rp = (r + 3) // 4 * 4
+    return torch.empty((slots, 3 * rp * (rp + 1)), dtype=torch.float32, device=device)
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def _gram_stage(name: str, vs: torch.Tensor, ref: torch.Tensor,
                 ns_iters: int | None) -> torch.Tensor:
     m, d, r = _check_stack(name, vs, ref, lambda m, d, r: (d, r))
-    if ns_iters is not None and r > NS_MAX_R:
-        raise ValueError(
-            f"{name}: r={r} exceeds the in-shared-memory Newton-Schulz "
-            f"limit r <= {NS_MAX_R}"
-        )
     sms = torch.cuda.get_device_properties(vs.device).multi_processor_count
     rows, splits = _split_rows(d, m, r, sms)
     lib = _build.load()
     part = torch.empty((m, splits, r, r), dtype=torch.float32, device=vs.device)
     out = torch.empty((m, r, r), dtype=torch.float32, device=vs.device)
     args = [vs.device.index, vs.data_ptr(), ref.data_ptr(), part.data_ptr(),
-            out.data_ptr(), m, d, r, rows, splits]
+            out.data_ptr()]
+    shape = [m, d, r, rows, splits]
     if ns_iters is None:
-        code = lib.rt_batched_gram(*args, _build.stream_of(vs))
+        code = lib.rt_batched_gram(*args, *shape, _build.stream_of(vs))
     else:
-        code = lib.rt_batched_gram_polar(*args, ns_iters, _build.stream_of(vs))
+        ws = _ns_workspace(m, r, vs.device)
+        code = lib.rt_batched_gram_polar(*args, _ptr(ws), *shape, ns_iters,
+                                         _build.stream_of(vs))
     _build.check(code, name)
     return out
 
@@ -184,11 +200,6 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     from repro_torch.core.orthonorm import cholqr_guard_coeffs
 
     m, d, r = vs.shape
-    if r > NS_MAX_R:
-        raise ValueError(
-            f"{wrapper.__name__}: r={r} exceeds the in-shared-memory "
-            f"Newton-Schulz and Cholesky limit r <= {NS_MAX_R}"
-        )
     _build.require_sm90(vs)
     dev = vs.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -201,6 +212,7 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     vbar = torch.empty((d, r), **f32)
     q1 = torch.empty((d, r), **f32)
     w = torch.empty((2, r, r), **f32)
+    ws = _ns_workspace(m, r, dev)
     outs = (torch.empty((d, r), **f32), torch.empty((d, r), **f32))
     grid = ctypes.c_int(0)
     entry = getattr(_build.load(), _WIRE_ENTRY[vs.dtype])
@@ -212,7 +224,7 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
         code = entry(
             dev.index, vs.data_ptr(), scales_ptr, cur.data_ptr(),
             out.data_ptr(), part.data_ptr(), zs.data_ptr(), vbar.data_ptr(),
-            q1.data_ptr(), w.data_ptr(), m, d, r, rows1, splits1, rows2,
+            q1.data_ptr(), w.data_ptr(), _ptr(ws), m, d, r, rows1, splits1, rows2,
             splits2, ns_iters, pivot_c, shift_c, ctypes.addressof(grid),
             stream,
         )
@@ -422,11 +434,6 @@ def fused_ring_round_remote(
     from repro_torch.core.orthonorm import cholqr_guard_coeffs
 
     d, r = v_local.shape
-    if r > NS_MAX_R:
-        raise ValueError(
-            f"{name}: r={r} exceeds the in-shared-memory Newton-Schulz and "
-            f"Cholesky limit r <= {NS_MAX_R}"
-        )
     _build.require_sm90(v_local)
     dev = v_local.device
     m = dist.get_world_size(group)
@@ -444,13 +451,14 @@ def fused_ring_round_remote(
     part = torch.empty((splits, r, r), **f32)
     z = torch.empty((r, r), **f32)
     w = torch.empty((2, r, r), **f32)
+    ws = _ns_workspace(1, r, dev)
     status = torch.zeros(1, dtype=torch.int32, device=dev)
     seq0 = 0 if ex is None else ex.calls * m
     grid = ctypes.c_int(0)
     code = _build.load().rt_fused_ring_remote(
         dev.index, v_local.data_ptr(), ref.data_ptr(), out.data_ptr(),
         part.data_ptr(), z.data_ptr(), vbar.data_ptr(), q1.data_ptr(),
-        w.data_ptr(), ex and ex.mine, ex and ex.right, ex and ex.left,
+        w.data_ptr(), _ptr(ws), ex and ex.mine, ex and ex.right, ex and ex.left,
         status.data_ptr(), seq0, int(REMOTE_WAIT_S * 1e9), m, d, r, rows,
         splits, rows, splits, ns_iters, pivot_c, shift_c,
         ctypes.addressof(grid), _build.stream_of(v_local),

@@ -8,7 +8,15 @@ Skipped where there is no Hopper card; run them on one with
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors at ragged shapes, the wrappers' refusals are checked, and every
-launch is seen on its counter.  Tolerance: 4 eps sqrt(k) times the largest
+launch is seen on its counter.  B1 computes its upper tiles and mirrors
+them: ``gram(x)`` and ``gram(x, symmetric=True)`` (the reference's option,
+which changes nothing here) give the same bits and an exactly symmetric
+result, and ptxas must report its kernels within 128 registers and
+without spills (B8's wide kernel: without spills).  B3, B5, B6 and B7 also run at
+r = 137, 192 and 256, where their Newton-Schulz and Cholesky tiles live
+in a global workspace; B8 at head_dim 136, 192 and 256 (its wide form);
+and a subprocess makes one of B8's bounded waits run out and sees the
+launch failure, then the wrapper's error.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
 Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
 also held at 1e-5 f64 subspace distance.  B4 also at the edges of its
@@ -93,6 +101,32 @@ def test_gram_kernel_stack(dev):
     _hold(tcov.gram(x), tref.gram(x), 300)
 
 
+@pytest.mark.parametrize("shape", [(257, 205), (64, 64), (1000, 300), (0, 17),
+                                   (3, 300, 129), (300, 256), (130, 1000)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_symmetric_is_bit_identical(dev, shape, dtype):
+    """``symmetric`` changes nothing: both calls give the same bits, and
+    each mirrored tile equals its transpose exactly (one ascending sum over
+    the rows per element, and fmaf is symmetric in its products)."""
+    x = torch.randn(*shape, device=dev).to(dtype)
+    full, sym = tcov.gram(x), tcov.gram(x, symmetric=True)
+    torch.cuda.synchronize()
+    assert torch.equal(full, sym)
+    assert torch.equal(sym, sym.mT)
+
+
+def test_gram_kernel_has_no_spills(dev):
+    """ptxas: every instance of the B1 kernel (f32 / bf16, 16-byte copies
+    or plain loads) fits 128 registers, two blocks an SM, with no spills."""
+    from repro_torch.kernels import _build
+
+    usage = {k: u for k, u in _build.ptxas_usage("covariance.cu").items()
+             if "gram_kernel" in k}
+    assert len(usage) == 4, usage
+    for name, u in usage.items():
+        assert u["registers"] <= 128 and u["spill_stores"] == 0, (name, u)
+
+
 @pytest.mark.parametrize("m,d,r", [(3, 205, 5), (1, 130, 3), (8, 1000, 128), (2, 96, 1)])
 def test_procrustes_kernels(dev, m, d, r):
     vs = _stack(dev, m, d, r)
@@ -112,13 +146,37 @@ def test_procrustes_kernels(dev, m, d, r):
 
 
 def test_gram_stage_and_apply_beyond_one_tile(dev):
-    """r = 200 spans several 64-wide output tiles (no Newton-Schulz:
-    above its shared-memory limit)."""
+    """r = 200 spans several 64-wide output tiles."""
     vs = _stack(dev, 2, 300, 200)
     ref = vs[0].contiguous()
     _hold(tpa.batched_gram(vs, ref), tref.batched_gram(vs, ref), 300)
     zs = tref.batched_gram_polar(vs, ref)
     _hold(tpa.align_average(vs, zs), tref.align_average(vs, zs), 2 * 200)
+
+
+@pytest.mark.parametrize("r", [137, 192, 256])
+def test_newton_schulz_kernels_past_shared_memory(dev, r):
+    """Past r = 136 the Newton-Schulz and Cholesky tiles live in a global
+    workspace: B3, B5 and B6 (every wire) held to their plain versions
+    with the bars of r <= 136."""
+    vs = _stack(dev, 3, 300, r)
+    ref = vs[0].contiguous()
+    kernels.reset_launch_counts()
+    z = tpa.batched_gram_polar(vs, ref)
+    torch.cuda.synchronize()
+    assert (z - tref.batched_gram_polar(vs, ref)).abs().max().item() <= 1e-4
+    _hold_round(tpa.fused_round(vs, ref, n_iter=2), tref.fused_round(vs, ref, n_iter=2))
+    for wire in ("f32", "bf16", "int8"):
+        w, scales = vs, None
+        if wire == "bf16":
+            w = vs.to(torch.bfloat16)
+        elif wire == "int8":
+            w, scales = _int8_wire(vs)
+        _hold_round(tpa.fused_ring_round(w, ref, scales, ring_chunk=33),
+                    tref.fused_ring_round(w, ref, scales))
+    counts = kernels.launch_counts()
+    assert (counts["batched_gram_polar"], counts["fused_round"],
+            counts["fused_ring_round"]) == (1, 2, 3)
 
 
 @pytest.mark.parametrize("m", [1, 8])
@@ -154,9 +212,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tpa.batched_gram(vs, vs[0].T.contiguous())  # wrong shape
     with pytest.raises(ValueError):
         tpa.align_average(vs, torch.zeros(2, 4, 4, device=dev).mT)
-    big = torch.zeros(1, 16, 140, device=dev)
-    with pytest.raises(ValueError):
-        tpa.batched_gram_polar(big, big[0])  # r above the shared-memory limit
 
 
 def _hold_round(got, want):
@@ -231,11 +286,6 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tpa.fused_ring_round(vs.to(torch.int8), ref)
     with pytest.raises(TypeError):
         tpa.fused_ring_round(vs, ref.double())
-    big = torch.zeros(1, 16, 140, device=dev)
-    with pytest.raises(ValueError, match="136"):
-        tpa.fused_round(big, big[0])
-    with pytest.raises(ValueError, match="136"):
-        tpa.fused_ring_round(big, big[0])
 
 
 # ------------------------------------------------------------- B8 flash ----
@@ -266,6 +316,14 @@ _FLASH_CASES = [
     # Window edges at the 128-key tile.
     (1, 4, 2, s, t, 128, window)
     for window in (127, 128, 129) for s, t in ((300, 300), (200, 457))
+] + [
+    # head_dim past 128: the wide kernel (both dtypes), causal and windowed,
+    # ragged s and t, and s > t (rows without keys).
+    case for hd in (136, 192, 256) for case in (
+        (1, 4, 2, 130, 130, hd, None),
+        (1, 4, 2, 200, 257, hd, 16),
+        (2, 4, 1, 160, 96, hd, None),
+    )
 ]
 
 
@@ -282,6 +340,8 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
     got = tfa.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.last_form.startswith(
+        "wide" if hd > 128 else "wgmma" if dtype == torch.bfloat16 else "f32")
     assert got.dtype == dtype and got.shape == q.shape
     want = tref.flash_attention(q, k, v, causal=True, window=window)
     got, want = got.float(), want.float()
@@ -331,11 +391,23 @@ def test_flash_attention_bf16_path_is_wgmma(dev):
         assert "HGMMA" in body and "UTMALDG" in body and "HMMA" not in body
 
 
+def test_flash_attention_wide_kernel_has_no_spills(dev):
+    """ptxas: both instances of the wide kernel (hd 136..256) keep q and
+    the K/V tiles in shared memory and spill nothing."""
+    from repro_torch.kernels import _build
+
+    usage = {k: u for k, u in _build.ptxas_usage("flash_attention.cu").items()
+             if "flash_fwd_wide" in k}
+    assert len(usage) == 2, usage
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
+
+
 def test_flash_attention_refusals(dev):
     q = torch.zeros(1, 4, 8, 64, device=dev, dtype=torch.bfloat16)
     kv = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros(1, 2, 8, 256, device=dev, dtype=torch.bfloat16)
+        big = torch.zeros(1, 2, 8, 264, device=dev, dtype=torch.bfloat16)
         tfa.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="head_dim"):
         odd = torch.zeros(1, 2, 8, 20, device=dev, dtype=torch.bfloat16)
@@ -352,6 +424,56 @@ def test_flash_attention_refusals(dev):
         tfa.flash_attention(q, kv.cpu(), kv)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention(q, kv, kv, window=0)
+
+
+_STALL_WORKER = r"""
+import json, os, sys, time
+import torch
+from repro_torch.kernels import _build, flash_attention as fa
+
+q = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+fa.flash_attention(q, q, q)  # a normal launch first
+torch.cuda.synchronize()
+lib = _build.load()
+res = {"before": lib.rt_flash_status()}
+t0 = time.monotonic()
+res["launch"] = lib.rt_flash_stall_for_test(0, int(float(sys.argv[2]) * 1e9),
+                                            _build.stream_of(q))
+try:
+    torch.cuda.synchronize()
+    res["sync"] = None
+except Exception as exc:
+    res["sync"] = [isinstance(exc, RuntimeError), str(exc)]
+res["seconds"] = time.monotonic() - t0
+try:
+    fa.flash_attention(q, q, q)
+    res["call"] = None
+except RuntimeError as exc:
+    res["call"] = str(exc)
+with open(sys.argv[1], "w") as f:
+    json.dump(res, f)
+os._exit(0)  # the context is dead: skip CUDA's teardown
+"""
+
+
+def test_flash_wait_runs_out_and_the_wrapper_raises(dev, tmp_path):
+    """One of B8's bounded mbarrier waits runs out (the library's test-only
+    entry arms a barrier for bytes that never arrive, bound 0.5 s): the
+    trap surfaces as CUDA's launch failure at the next synchronisation,
+    and the wrapper's next call raises with the wait that ran out.  In a
+    subprocess: the trap ends its CUDA context."""
+    script = tmp_path / "stall.py"
+    script.write_text(_STALL_WORKER)
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "res.json"), "0.5"],
+                          env={**os.environ, "PYTHONPATH": src}, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads((tmp_path / "res.json").read_text())
+    assert res["before"] == 0 and res["launch"] == 0
+    assert res["sync"] is not None and res["sync"][0], res
+    assert 0.5 <= res["seconds"] < 60
+    assert res["call"] is not None and "K/V stage to fill" in res["call"], res
 
 
 def test_attention_dispatch_on_the_card(dev):
@@ -593,6 +715,14 @@ def test_fused_ring_round_remote_kernel_one_card(dev, tmp_path, world):
     _hold_remote(res, shapes, 3)
 
 
+def test_fused_ring_round_remote_kernel_past_shared_memory(dev, tmp_path):
+    """B7 at r = 137, 192 and 256 (Newton-Schulz and Cholesky tiles in the
+    global workspace), 2 ranks sharing the card, two rounds each."""
+    shapes = [(300, 137), (300, 192), (300, 256)]
+    res = _remote_world(tmp_path, 2, {"mode": "check", "shapes": shapes, "rounds": 2})
+    _hold_remote(res, shapes, 2)
+
+
 def test_fused_ring_round_remote_kernel_one_card_each(dev, tmp_path):
     """B7 over NVLink peer memory, one rank per card (NCCL).  Skips on a
     one-card machine; not yet run on a machine with two cards."""
@@ -622,6 +752,3 @@ def test_fused_ring_round_remote_refusals(dev):
         tpa.fused_ring_round_remote(v.T, v.T, group=None)  # not contiguous
     with pytest.raises(ValueError):
         tpa.fused_ring_round_remote(v, v.cpu(), group=None)
-    big = torch.zeros(16, 140, device=dev)
-    with pytest.raises(ValueError, match="136"):
-        tpa.fused_ring_round_remote(big, big, group=None)
