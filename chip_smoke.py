@@ -21,7 +21,11 @@ of JAX or of the reference package.  Phases, each ending in
    give the same bits with the reference's ``symmetric`` option as
    without (the kernel always mirrors its upper tiles); B3 and B5 are also
    held at r = 192 and 256, where their Newton-Schulz and Cholesky tiles
-   live in a global workspace.
+   live in a global workspace.  B2 (one launch, the splits of d summed
+   across a thread-block cluster; B3's first pass) must give the same bits
+   on a second call, and prints its plan (rows a split, cluster size);
+   B5 and B6 print the Newton-Schulz form they ran (a group of blocks a
+   machine up to r = 136).
 3. Drive the main path at the production width of
    ``repro/configs/paper_pca.py`` (d = 8192, r = 128, 65536 samples per
    shard, 2 rounds, 30 subspace-iteration steps), m = 8 shards, shard k
@@ -71,7 +75,8 @@ of JAX or of the reference package.  Phases, each ending in
    short prompt.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
-   function (none for B3, B5, B6, B7; SDPA for B8); B8 also the TFLOP/s
+   function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
+   B8); B8 also the TFLOP/s
    it reaches on its MMA work (S, and PV for p_hi and p_lo).  B1 beside
    the bound of the work the function needs (n d (d + 1) FLOP), the full
    product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
@@ -574,6 +579,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.covariance import gram
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate, load
+    from repro_torch.kernels import procrustes_align as pa
     from repro_torch.kernels.procrustes_align import (
         align_average,
         batched_gram,
@@ -654,12 +660,21 @@ def main(argv=None) -> int:
         "main (8, 8192, 128)": noisy_stack(torch, gen, SHARDS, D, R, dev),
         "ragged (3, 205, 5)": noisy_stack(torch, gen, RAGGED_M, RAGGED_D, RAGGED_R, dev),
     }
+    gram_plan = {}
     for label, vs in stacks.items():
         m, d, r = vs.shape
         rf = vs[0].contiguous()
         g_want = ref.batched_gram(vs, rf)
-        hold("batched_gram", label, batched_gram(vs, rf), g_want,
-             sum_tol(d, g_want.abs().max().item()))
+        g_got = batched_gram(vs, rf)
+        hold("batched_gram", label, g_got, g_want, sum_tol(d, g_want.abs().max().item()))
+        rows, cluster = gram_plan[label] = pa._gram_plan(
+            d, m, r, pa._cluster_slots(dev.index).__getitem__)
+        same = torch.equal(g_got, batched_gram(vs, rf))
+        print(f"[check] {'batched_gram':<18} {label:<34} one launch, clusters of "
+              f"{cluster} x {rows} rows (clusters the card holds at once, by "
+              f"size: {pa._cluster_slots(dev.index)}); same bits on a second "
+              f"call {same} {'ok' if same else 'FAIL'}")
+        require(same, f"batched_gram: a second call changed the bits at {label}")
         hold("batched_gram_polar", label, batched_gram_polar(vs, rf),
              ref.batched_gram_polar(vs, rf), NS_TOL)
         zs = ref.batched_gram_polar(vs, rf)
@@ -707,7 +722,7 @@ def main(argv=None) -> int:
                        ref.fused_round(vs, rf, n_iter=n_iter))
         if label.startswith("main"):
             print(f"[check] fused_round grid: {fused_round.grid} blocks "
-                  f"(cooperative, co-resident)")
+                  f"(cooperative, co-resident); Newton-Schulz {fused_round.last_form}")
             deficient = vs.clone()
             deficient[:, :, -1] = 0  # V-bar of rank r - 1: the shifted factor
             hold_round("fused_round", f"{label} rank-deficient",
@@ -720,6 +735,8 @@ def main(argv=None) -> int:
             hold_round("fused_ring_round", f"{label} {wire} chunk={chunk}",
                        fused_ring_round(w, rf, sc, ring_chunk=chunk),
                        ref.fused_ring_round(w, rf, sc))
+        print(f"[check] fused_ring_round {label}: Newton-Schulz "
+              f"{fused_ring_round.last_form}")
     torch.cuda.synchronize()
 
     # -- phase 3: the main path --------------------------------------------
@@ -1230,6 +1247,12 @@ def main(argv=None) -> int:
                   f"product's 2 n d^2): {rows[-1]['tflops']:.2f} TFLOP/s of the needed "
                   f"work, {rows[-1]['tile_tflops']:.2f} of the upper tiles' "
                   f"{gram_tile_flops / 1e12:.3f} TFLOP; x.T @ x {l_ms:.4f} ms")
+        if k == "batched_gram":
+            g_rows, g_cluster = gram_plan["main (8, 8192, 128)"]
+            rows[-1].update(cluster=g_cluster, rows_per_split=g_rows)
+        if k in ("fused_round", "fused_ring_round"):
+            rows[-1]["newton_schulz_form"] = (fused_round if k == "fused_round"
+                                              else fused_ring_round).last_form
         if k == "fused_ring_round":
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],

@@ -44,21 +44,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
-# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, ws, m, d,
-# r, rows1, splits1, rows2, splits2, ns_iters, pivot_c, shift_c, grid_out,
-# stream.
-_ROUND = (_I, *(_P,) * 10, *(_I,) * 8, _F, _F, _P, _P)
+_PI = ctypes.POINTER(ctypes.c_int)
+# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, ws, nsn,
+# ctr, m, d, r, rows1, splits1, rows2, splits2, ns_iters, grid, group,
+# pivot_c, shift_c, form_out, stream.
+_ROUND = (_I, *(_P,) * 12, *(_I,) * 10, _F, _F, _P, _P)
 # C signature of every entry point: (argtypes), all return an int status.
 _SIGNATURES = {
     "rt_gram_f32": (_I, _P, _P, _I, _I, _I, _P),
     "rt_gram_bf16": (_I, _P, _P, _I, _I, _I, _P),
-    "rt_batched_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # device, vs, ref, part, out, ws, m, d, r, rows, splits, ns_iters, stream.
+    # device, vs, ref, out, m, d, r, rows, cluster, stream.
+    "rt_batched_gram": (_I, _P, _P, _P, *(_I,) * 5, _P),
+    # device, cluster, *active.
+    "rt_batched_gram_clusters": (_I, _I, _PI),
+    # device, vs, ref, g, out, ws, m, d, r, rows, cluster, ns_iters, stream.
     "rt_batched_gram_polar": (_I, *(_P,) * 5, *(_I,) * 6, _P),
     "rt_align_average": (_I, _P, _P, _P, _I, _I, _I, _P),
     "rt_fused_round_f32": _ROUND,
     "rt_fused_round_bf16": _ROUND,
     "rt_fused_round_i8": _ROUND,
+    # device, wire (0 f32, 1 bf16, 2 int8), r, *blocks.
+    "rt_fused_round_coresident": (_I, _I, _I, _PI),
     # device, bf16_in, q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
     # scale, wait_ns, form_out, stream.
     "rt_flash_attention": (_I, _I, *(_P,) * 4, *(_I,) * 8, _F, _U64, _P, _P),

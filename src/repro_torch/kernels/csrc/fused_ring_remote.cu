@@ -52,6 +52,9 @@
 // between phases, the push is a grid-stride copy beside the Gram, and
 // each hop's r x r Newton-Schulz runs on one block while the rest wait
 // (the TPU kernel also runs the hops' polar steps one after another).
+// The hop's Gram and apply and the CholeskyQR2 tail are B5/B6's
+// (round_tiles.cuh): every read of a slot goes through L2 (cp.async.cg or
+// ld.global.cg), never a stale L1 line.
 // On one card without MPS the ranks' kernels time-slice: a rank that waits
 // spins until the card switches to the neighbour's context.
 #include <cooperative_groups.h>
@@ -140,16 +143,16 @@ __device__ bool wait_at_least(const u64* p, u64 want, u64 timeout_ns) {
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// VEC: r % 4 == 0 and 16-byte aligned operands (16-byte copies).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
     fused_ring_remote_kernel(const RemoteArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kThreads / 32];
   cg::grid_group grid = cg::this_grid();
   const int m = a.m;
   const int d = a.d;
   const int r = a.r;
-  const int tiles = (r + kBM - 1) / kBM;
-  const int dtiles = (d + kBM - 1) / kBM;
   const size_t dr = static_cast<size_t>(d) * r;
   const size_t slot = slot_floats(d, r);
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
@@ -173,7 +176,6 @@ __global__ void __launch_bounds__(kThreads)
     grid.sync();
     if (*status) return;  // every block reads the same word: no sync left
     const float* x = i == 0 ? a.v : my_slots + (i % 2) * slot;
-    auto ldx = [&](int k, int j) { return __ldcg(x + static_cast<size_t>(k) * r + j); };
 
     // Push x into the right neighbour's slot (i + 1) % 2; Gram partials
     // G[s] = x[split s]^T ref[split s].
@@ -185,16 +187,8 @@ __global__ void __launch_bounds__(kThreads)
         __stcg(dst + e, __ldcg(x + e));
       }
     }
-    for (int u = blockIdx.x; u < tiles * tiles * a.splits1; u += gridDim.x) {
-      const int s = u / (tiles * tiles);
-      const int t = u % (tiles * tiles);
-      const int k_begin = s * a.rows1;
-      const int k_end = min(d, k_begin + a.rows1);
-      atb_tile(ldx,
-               [&](int k, int j) { return a.ref[static_cast<size_t>(k) * r + j]; },
-               k_begin, k_end, r, r, (t / tiles) * kBM, (t % tiles) * kBM,
-               a.part + static_cast<size_t>(s) * r * r, smem);
-    }
+    gram_units<VEC>(x, 0, nullptr, a.ref, 1, d, r, a.rows1, a.splits1, a.part,
+                    smem);
     grid.sync();
 
     // The push is complete: tell the right neighbour.  Z = NS-polar(G).
@@ -209,12 +203,9 @@ __global__ void __launch_bounds__(kThreads)
     grid.sync();
 
     // V-bar += x Z; the last hop divides the sum by m.
-    for (int u = blockIdx.x; u < dtiles * tiles; u += gridDim.x) {
-      apply_tile([&](int, int k, int j) { return ldx(k, j); }, a.z, 1, d, r,
-                 (u / tiles) * kBM, (u % tiles) * kBM,
-                 i == m - 1 ? static_cast<float>(m) : 1.f, i > 0, a.vbar,
-                 smem);
-    }
+    apply_units<VEC>(x, 0, nullptr, a.z, 1, d, r,
+                     i == m - 1 ? static_cast<float>(m) : 1.f, i > 0, a.vbar,
+                     smem);
     grid.sync();
     // Every read of x is done: release this hop's slot to the left
     // neighbour (hop g finished).
@@ -223,8 +214,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  cholqr2_tail(grid, a.vbar, a.q1, a.w, a.part, a.out, d, r, a.rows2,
-               a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
+  // The hops are done: z is the tail's S.
+  cholqr2_tail<VEC>(grid, a.vbar, a.q1, a.w, a.part, a.z, a.out, d, r,
+                    a.rows2, a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
 }
 
 }  // namespace
@@ -304,14 +296,20 @@ int rt_fused_ring_remote(int device, const void* v, const void* ref,
                static_cast<char*>(left), static_cast<int*>(status), seq0,
                timeout_ns, m, d, r, rows1, splits1, rows2, splits2, ns_iters,
                pivot_c, shift_c};
-  const size_t smem = round_smem_bytes(r);
-  err = cudaFuncSetAttribute(fused_ring_remote_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // The round's phases, and B3's one-block Newton-Schulz tiles.
+  const size_t smem = std::max(round_smem_bytes(r), rt::ns_smem_bytes(r));
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = r % 4 == 0 && aligned(v) && aligned(ref) && aligned(vbar) &&
+                   aligned(part) && aligned(out) && aligned(q1);
+  auto kernel = vec ? fused_ring_remote_kernel<true> : fused_ring_remote_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_ring_remote_kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   int sms = 0;
@@ -319,15 +317,17 @@ int rt_fused_ring_remote(int device, const void* v, const void* ref,
   if (err != cudaSuccess) return static_cast<int>(err);
   // Every block must be resident at once for grid.sync(): the co-resident
   // count, capped where more blocks would find no work.
-  const int tiles = (r + kBM - 1) / kBM;
-  const int most_units =
-      std::max({tiles * tiles * splits1, ((d + kBM - 1) / kBM) * tiles,
-                tiles * tiles * splits2, 1});
+  const int tiles = (r + rt::gram::kBM - 1) / rt::gram::kBM;
+  const int most_units = std::max(
+      {tiles * tiles * splits1,
+       ((d + rt::apply::kBM - 1) / rt::apply::kBM) *
+           ((r + rt::apply::kBN - 1) / rt::apply::kBN),
+       tiles * tiles * splits2, 1});
   const int blocks = std::min(per_sm * sms, most_units);
   if (grid_out) *grid_out = blocks;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_ring_remote_kernel), dim3(blocks),
+      reinterpret_cast<const void*>(kernel), dim3(blocks),
       dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

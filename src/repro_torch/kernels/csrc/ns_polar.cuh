@@ -4,21 +4,33 @@
 //
 // Replaces _ns_polar_tile of src/repro/kernels/procrustes_align.py (:90-98):
 // X <- G / max(||G||_F, 1e-30), then ns_iters steps of
-// X <- 0.5 * X (3I - X^T X), all in f32.  One block owns one machine's
-// tile: X, X^T X and a temporary take ns_tile_floats(r) = 3 rp (rp + 1)
-// floats (rp = r rounded up to 4).  Up to kNsSmemMaxR (136; 218 KB) they
-// live in dynamic shared memory, and the caller sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize to ns_smem_bytes(r).  Past
-// it they live in a global-memory workspace slot of ns_tile_floats(r)
-// floats that the wrapper allocates (0.8 MB a machine at r = 256, held in
-// L2): the same code, instantiated with kGlobal, reads those tiles with
-// ld.global.ca (the block's own writes, ordered by __syncthreads, never
-// the non-coherent read-only path).
+// X <- 0.5 * X (3I - X^T X), all in f32.  Two forms:
+//
+// * ns_polar_block: one block owns one machine's tile (B3, B7's hops, and
+//   B5/B6 past kNsSmemMaxR).  X, X^T X and a temporary take
+//   ns_tile_floats(r) = 3 rp (rp + 1) floats (rp = r rounded up to 4).  Up
+//   to kNsSmemMaxR (136; 218 KB) they live in dynamic shared memory, and
+//   the caller sets cudaFuncAttributeMaxDynamicSharedMemorySize to
+//   ns_smem_bytes(r).  Past it they live in a global-memory workspace slot
+//   of ns_tile_floats(r) floats that the wrapper allocates (0.8 MB a
+//   machine at r = 256, held in L2): the same code, instantiated with
+//   kGlobal, reads those tiles with ld.global.ca (the block's own writes,
+//   ordered by __syncthreads, never the non-coherent read-only path).
+// * ns_polar_group: a group of g blocks of a cooperative launch owns one
+//   machine (B5/B6 up to kNsSmemMaxR), each block r / g columns of X.  A
+//   step stages the whole of X in shared memory from L2, computes the
+//   block's columns of M = 3I - X^T X (M is symmetric: they are its rows)
+//   and then its columns of 0.5 X M into the other of two iterate
+//   buffers, and the group meets once.  The group meets at a counter in
+//   global memory (group_sync), which is safe because a cooperative
+//   launch keeps every block resident.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "tile_products.cuh"
 
 namespace rt {
 
@@ -170,6 +182,276 @@ __device__ inline void ns_polar_block(const float* __restrict__ part_z,
     ns_polar_tiles<false>(part_z, out_z, splits, r, ns_iters, smem, warp_sums);
   } else {
     ns_polar_tiles<true>(part_z, out_z, splits, r, ns_iters, ws, warp_sums);
+  }
+}
+
+// Barrier of the g blocks that share counter ctr (zero before the first
+// barrier): the n-th barrier waits for target = n g arrivals.  Writes
+// before it, by any thread of the group, are visible after it to loads
+// through L2 (ld.global.cg, cp.async.cg).
+__device__ __forceinline__ void group_sync(unsigned* ctr, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctr, 1u);
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(ctr)
+                   : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// Sum of one float a thread over the block, the same on every thread:
+// a warp tree, then the warps' sums in order (red: one float a warp).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += red[w];
+  __syncthreads();  // red may be rewritten by the next call
+  return total;
+}
+
+// Shared memory of ns_polar_group at edge r (r <= kNsSmemMaxR): the whole
+// X, rp rows of rp + 4 floats; the block's columns of X and of M,
+// depth-major (2 rp nr floats, nr <= rp the block's columns rounded up to
+// 4); and, when a block has few columns, the depth-split partial sums (at
+// most 4096 floats, and then rp nr < 4096).
+__host__ __device__ inline size_t ns_group_smem_bytes(int r) {
+  const size_t rp = static_cast<size_t>((r + 3) & ~3);
+  const size_t rest = 2 * rp * rp > 12288 ? 2 * rp * rp : 12288;
+  return (rp * (rp + 4) + rest) * sizeof(float);
+}
+
+// Depth splits of a product of `tasks` tasks: up to 4 groups of threads
+// share the depth when there are fewer tasks than threads.
+__device__ __forceinline__ int depth_splits(int tasks) {
+  return tasks >= static_cast<int>(blockDim.x)
+             ? 1
+             : min(4, static_cast<int>(blockDim.x) / tasks);
+}
+
+// The block's columns of M = 3I - X^T X, depth-major: mt[k][c] =
+// M[k][i0 + c] = M[i0 + c][k] (M is symmetric), c < nr, k < rp, as
+// sum_t X[t][i0 + c] X[t][k] from F = X (rp x rp in shared memory, row
+// stride ld, zero past r) and xc[t][c] = X[t][i0 + c] (zero past n).  A
+// task is a 4 x 4 register tile (columns c of xc by k of F), a float4 of
+// each a step of the depth; the depth splits add their partial sums
+// (part) in order.
+inline __device__ void ns_gram_cols(const float* __restrict__ f, const float* __restrict__ xc,
+                             int nr, int ld, int rp, int i0,
+                             float* __restrict__ mt, float* __restrict__ part) {
+  const int nk4 = rp / 4;
+  const int tasks = nr / 4 * nk4;
+  const int splits = depth_splits(tasks);
+  const int kd = (rp + splits - 1) / splits;
+  auto store = [&](int c, int k, float sum) {
+    mt[k * nr + c] = (k == i0 + c ? 3.f : 0.f) - sum;
+  };
+  for (int t = threadIdx.x; t < tasks * splits; t += blockDim.x) {
+    const int task = t % tasks;
+    const int ks = t / tasks;
+    const int c0 = (task / nk4) * 4;
+    const int k0 = (task % nk4) * 4;
+    const int t1 = min(rp, (ks + 1) * kd);
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+#pragma unroll 4
+    for (int d = ks * kd; d < t1; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(xc + d * nr + c0);
+      const float4 b = *reinterpret_cast<const float4*>(f + d * ld + k0);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (splits > 1) {
+          part[(ks * nr + c0 + u) * rp + k0 + v] = acc[u][v];
+        } else {
+          store(c0 + u, k0 + v, acc[u][v]);
+        }
+      }
+  }
+  if (splits > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < nr * rp; e += blockDim.x) {
+      const int c = e / rp;
+      const int k = e % rp;
+      float sum = 0.f;
+      for (int ks = 0; ks < splits; ++ks) sum += part[(ks * nr + c) * rp + k];
+      store(c, k, sum);
+    }
+  }
+}
+
+// Columns i0 .. i0 + n - 1 of 0.5 X M (rows i < r) into y (global, row
+// stride r): y[i][i0 + c] = 0.5 sum_k X[i][k] M[k][i0 + c], from F = X
+// and mt (ns_gram_cols).  A task is one row by 4 columns, four steps of
+// the depth at a time (a float4 of X's row, four of mt's rows).
+inline __device__ void ns_apply_cols(const float* __restrict__ f, const float* __restrict__ mt,
+                              int nr, int ld, int rp, int r, int i0, int n,
+                              float* __restrict__ y, float* __restrict__ part) {
+  const int nc4 = nr / 4;
+  const int tasks = r * nc4;
+  const int splits = depth_splits(tasks);
+  const int kd = (rp / 4 + splits - 1) / splits * 4;
+  auto store = [&](int i, int c, float sum) {
+    y[static_cast<size_t>(i) * r + i0 + c] = 0.5f * sum;
+  };
+  for (int t = threadIdx.x; t < tasks * splits; t += blockDim.x) {
+    const int task = t % tasks;
+    const int ks = t / tasks;
+    const int i = task / nc4;
+    const int c0 = (task % nc4) * 4;
+    const int k1 = min(rp, (ks + 1) * kd);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int k = ks * kd; k < k1; k += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(f + i * ld + k);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b = *reinterpret_cast<const float4*>(mt + (k + q) * nr + c0);
+        acc[0] = fmaf(av[q], b.x, acc[0]);
+        acc[1] = fmaf(av[q], b.y, acc[1]);
+        acc[2] = fmaf(av[q], b.z, acc[2]);
+        acc[3] = fmaf(av[q], b.w, acc[3]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (splits > 1) {
+        part[(ks * r + i) * nr + c0 + v] = acc[v];
+      } else if (c0 + v < n) {
+        store(i, c0 + v, acc[v]);
+      }
+    }
+  }
+  if (splits > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < r * n; e += blockDim.x) {
+      const int i = e / n;
+      const int c = e % n;
+      float sum = 0.f;
+      for (int ks = 0; ks < splits; ++ks) sum += part[(ks * r + i) * nr + c];
+      store(i, c, sum);
+    }
+  }
+}
+
+// The r x r matrix src (global, row stride r) into the rp x rp tile f
+// (row stride ld), zero past r; vec: r % 4 == 0 (16-byte copies).
+__device__ inline void stage_square(float* __restrict__ f, const float* src,
+                                    int r, int rp, int ld, bool vec) {
+  if (vec) {
+    const int c4 = r / 4;
+    for (int e = threadIdx.x; e < r * c4; e += blockDim.x) {
+      const int row = e / c4;
+      const int col = (e % c4) * 4;
+      cp_async16(f + row * ld + col, src + static_cast<size_t>(row) * r + col, true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int e = threadIdx.x; e < rp * rp; e += blockDim.x) {
+      const int row = e / rp;
+      const int col = e % rp;
+      f[row * ld + col] =
+          row < r && col < r ? __ldcg(src + static_cast<size_t>(row) * r + col) : 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+// Block q of the g blocks of machine z (r <= kNsSmemMaxR): columns
+// q ceil(r / g) .. of Z = NS-polar(sum of the splits of part_z), written to
+// x (the machine's (r, r) slot).  The iterates alternate between x and
+// alt ((r, r) scratch of the machine, which may be part_z's first slot):
+// a step stages the whole iterate, computes the block's columns of M and
+// then of the next iterate into the other buffer, and the group meets
+// once, so no block overwrites an iterate another is still staging; the
+// Gram starts in the buffer that leaves the last step's result in x.
+// nsn: g floats, the blocks' sums of squares; ctr: the machine's barrier
+// counter, zero on entry.  The Gram's norm is the blocks' sums in block
+// order, each a block_sum of its rows: the same on every block and from
+// run to run.
+__device__ inline void ns_polar_group(const float* __restrict__ part_z,
+                                      int splits, float* x, float* alt,
+                                      float* nsn, unsigned* ctr, int g, int q,
+                                      int r, int ns_iters, float* smem,
+                                      float* red) {
+  const int rp = (r + 3) & ~3;
+  const int ld = rp + 4;
+  const bool vec = r % 4 == 0;
+  const int rb = (r + g - 1) / g;
+  const int i0 = min(r, q * rb);
+  const int n = min(r, i0 + rb) - i0;
+  const int nr = (n + 3) & ~3;
+  float* f = smem;
+  float* xc = f + rp * ld;   // X's columns i0 .., depth-major [rp][nr]
+  float* mt = xc + rp * nr;  // M's columns i0 .., depth-major [rp][nr]
+  float* part = mt + rp * nr;
+  float* const buf[2] = {x, alt};
+  const size_t rr = static_cast<size_t>(r) * r;
+  const int first = ns_iters % 2;  // the Gram's buffer
+  unsigned arrivals = 0;
+
+  // The block's rows of G, the splits summed in order, and their squares
+  // (each element read before it is written: alt may be part_z's slot 0).
+  float sq = 0.f;
+  for (int e = threadIdx.x; e < n * r; e += blockDim.x) {
+    const size_t idx = static_cast<size_t>(i0) * r + e;
+    float gv = 0.f;
+    for (int s = 0; s < splits; ++s) gv += __ldcg(part_z + s * rr + idx);
+    buf[first][idx] = gv;
+    sq = fmaf(gv, gv, sq);
+  }
+  sq = block_sum(sq, red);
+  if (threadIdx.x == 0) nsn[q] = sq;
+  group_sync(ctr, arrivals += g);
+  float total = 0.f;
+  for (int b = 0; b < g; ++b) total += __ldcg(nsn + b);
+  const float norm = fmaxf(sqrtf(total), 1e-30f);
+  if (ns_iters == 0) {
+    for (int e = threadIdx.x; e < n * r; e += blockDim.x) {
+      const size_t idx = static_cast<size_t>(i0) * r + e;
+      x[idx] = __ldcg(x + idx) / norm;
+    }
+    return;
+  }
+
+  for (int it = 0; it < ns_iters; ++it) {
+    stage_square(f, buf[(first + it) % 2], r, rp, ld, vec);
+    if (it == 0) {
+      for (int i = threadIdx.x / 32; i < r; i += blockDim.x / 32) {
+        for (int j = threadIdx.x % 32; j < r; j += 32) f[i * ld + j] = f[i * ld + j] / norm;
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < rp * nr; e += blockDim.x) {
+      const int k = e / nr;
+      const int c = e % nr;
+      xc[e] = c < n ? f[k * ld + i0 + c] : 0.f;
+    }
+    __syncthreads();
+    ns_gram_cols(f, xc, nr, ld, rp, i0, mt, part);
+    __syncthreads();
+    ns_apply_cols(f, mt, nr, ld, rp, r, i0, n, buf[(first + it + 1) % 2], part);
+    if (it + 1 < ns_iters) group_sync(ctr, arrivals += g);
   }
 }
 

@@ -10,17 +10,21 @@ Replace the Pallas TPU kernels of ``repro/kernels/procrustes_align.py``:
   * ``fused_ring_round_remote``  one ring round, each rank holding only
                            its own basis, the hops peer writes  (d, r) f32
 
-The TPU kernels walk d sequentially per machine.  On the card the Gram
-stages split d across blocks instead (``_split_rows``): pass 1 writes
-partial Grams into an (m, splits, r, r) f32 scratch allocated here, pass 2
-reduces them in a fixed order (and, for the polar variant, runs the
-Newton-Schulz steps on the r x r tile in shared memory; past
-``NS_SMEM_MAX_R`` the tiles go to a global workspace allocated here, one
-slot per machine, ``_ns_workspace``).  See
+The TPU kernels walk d sequentially per machine.  On the card B2 splits
+d across the blocks of a thread-block cluster, one cluster per (machine,
+output tile), which sum their partial Grams through distributed shared
+memory in one launch (``_gram_plan`` picks the rows a split and the
+cluster size from the card's cluster occupancy).  The polar variant runs
+B2 into an (m, r, r) Gram and then the Newton-Schulz steps on one block
+per machine (in shared memory; past ``NS_SMEM_MAX_R`` in a global
+workspace allocated here, one slot per machine, ``_ns_workspace``).  See
 ``csrc/procrustes_align.cu`` for the design notes.  The two round kernels
-are one cooperative launch each (``csrc/fused_round.cu``): phases that
-reduce over d meet at grid-wide barriers and hand over through scratch
-this module allocates once per call, before the first launch.
+are one cooperative launch each (``csrc/fused_round.cu``) of the grid
+``_round_plan`` gives: phases that reduce over d meet at grid-wide
+barriers and hand over through scratch this module allocates once per
+call, before the first launch; the Newton-Schulz phase spreads each
+machine over a group of blocks, and ``<wrapper>.last_form`` says which
+form ran.
 
 Each wrapper sends a CUDA tensor to its kernel (or raises) and a CPU
 tensor to the plain version in ``repro_torch.kernels.ref``; each counts
@@ -42,6 +46,7 @@ neighbour's slot and signals it there; every wait is bounded by
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -63,10 +68,11 @@ __all__ = [
 
 DEFAULT_NS_ITERS = 24  # as repro_torch.core.procrustes.DEFAULT_NS_ITERS
 
-_GRAM_TILE = 64  # output tile edge of the Gram pass (csrc kBM)
-_AVG_ROWS = 64  # rows of d per align_average block (csrc kAvgBM)
-_GRAM_ROWS = 16  # rows per shared-memory slice of the Gram pass (csrc kBK)
-_BLOCKS_PER_SM = 2  # pass-1 blocks aimed at per SM
+_GRAM_TILE = 128  # output tile edge of the Gram tile (csrc gram::kBM)
+_GRAM_SLICE = 32  # rows a slice of the Gram tile (csrc gram::kBK)
+_AVG_ROWS = 64  # rows of d per align_average block (csrc apply::kBM)
+_MAX_CLUSTER = 16  # B2's largest cluster (a non-portable size on Hopper)
+_NS_GROUP_COLS = 8  # fewest iterate columns a block of a Newton-Schulz group owns
 # Largest r whose Newton-Schulz working set (3 padded r x r f32 tiles)
 # fits the 227 KB of shared memory a block may use on Hopper
 # (csrc/ns_polar.cuh kNsSmemMaxR); past it the tiles live in a global
@@ -81,16 +87,68 @@ _WIRE_ENTRY = {
     torch.bfloat16: "rt_fused_round_bf16",
     torch.int8: "rt_fused_round_i8",
 }
+_WIRE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _split_rows(d: int, m: int, r: int, sms: int) -> tuple[int, int]:
-    """(rows per split, splits) of the Gram pass: enough (machine, tile,
-    split) blocks for ``_BLOCKS_PER_SM`` per SM, each split a whole number
-    of ``_GRAM_ROWS`` slices, the splits covering all d rows."""
+def _split_rows(d: int, m: int, r: int, blocks: int) -> tuple[int, int]:
+    """(rows per split, splits) of a Gram phase over ``blocks`` blocks:
+    about one (machine, 128 x 128 tile, split) unit a block, the splits
+    covering all d rows."""
     tiles = math.ceil(r / _GRAM_TILE) ** 2
-    want = max(1, math.ceil(_BLOCKS_PER_SM * sms / (m * tiles)))
-    rows = max(_GRAM_ROWS, math.ceil(math.ceil(d / want) / _GRAM_ROWS) * _GRAM_ROWS)
+    rows = math.ceil(d / max(1, blocks // (m * tiles)))
     return rows, math.ceil(d / rows)
+
+
+def _gram_plan(d: int, m: int, r: int, active) -> tuple[int, int]:
+    """(rows per split, cluster size) of B2's one launch.  A (machine,
+    tile) is one cluster of k blocks (k = 1, 2, 4, ..., ``_MAX_CLUSTER``,
+    at most one per ``_GRAM_SLICE`` rows of d), block q owning rows
+    q rows .. (q + 1) rows - 1; ``active(k)`` is how many clusters of k
+    the card holds at once.  Takes the k with the least waves x rows (the
+    smaller k on a tie)."""
+    units = m * math.ceil(r / _GRAM_TILE) ** 2
+    best = None
+    k = 1
+    while k <= min(_MAX_CLUSTER, math.ceil(d / _GRAM_SLICE)):
+        held = active(k)
+        if held >= 1:
+            rows = math.ceil(d / k)
+            cost = math.ceil(units / held) * rows
+            if best is None or cost < best[0]:
+                best = (cost, rows, k)
+        k *= 2
+    if best is None:
+        raise RuntimeError("batched_gram: the card holds no cluster of its blocks")
+    return best[1], best[2]
+
+
+def _round_plan(m: int, d: int, r: int, coresident: int,
+                rows1: int | None = None) -> tuple[int, int, int, int, int, int]:
+    """(grid, rows1, splits1, rows2, splits2, group) of one round launch on
+    at most ``coresident`` blocks: the stack's Gram split (about one unit a
+    block; a given ``rows1``, a ring's whole chunks, is divided evenly by
+    the largest factor that keeps it within one unit a block), the S1 / S2
+    split (about one unit a block), and the Newton-Schulz group, g blocks a
+    machine owning ceil(r / g) columns of the iterate each (at least
+    ``_NS_GROUP_COLS``; 1 past ``NS_SMEM_MAX_R`` or when m exceeds the
+    grid, and the blocks take machines in turn)."""
+    tiles = math.ceil(r / _GRAM_TILE) ** 2
+    if rows1 is None:
+        rows1, splits1 = _split_rows(d, m, r, coresident)
+    else:
+        parts = max(1, coresident // (m * tiles * math.ceil(d / rows1)))
+        while rows1 % parts:
+            parts -= 1
+        rows1 //= parts
+        splits1 = math.ceil(d / rows1)
+    rows2, splits2 = _split_rows(d, 1, r, coresident)
+    group = 1
+    if r <= NS_SMEM_MAX_R:
+        want = max(1, min(coresident // m, math.ceil(r / _NS_GROUP_COLS)))
+        group = math.ceil(r / math.ceil(r / want))  # no block without columns
+    units = max(m * tiles * splits1, tiles * splits2, m * group,
+                math.ceil(d / _AVG_ROWS) * math.ceil(r / _GRAM_TILE))
+    return min(coresident, units), rows1, splits1, rows2, splits2, group
 
 
 def _check_stack(name: str, vs: torch.Tensor, other: torch.Tensor,
@@ -132,23 +190,48 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+@functools.cache
+def _cluster_slots(device_index: int) -> dict[int, int]:
+    """Clusters of B2's blocks the card holds at once, by cluster size."""
+    lib = _build.load()
+    slots = {}
+    k = 1
+    while k <= _MAX_CLUSTER:
+        held = ctypes.c_int(0)
+        _build.check(lib.rt_batched_gram_clusters(device_index, k, ctypes.byref(held)),
+                     "batched_gram: cluster occupancy")
+        slots[k] = held.value
+        k *= 2
+    return slots
+
+
+@functools.cache
+def _round_coresident(device_index: int, dtype: torch.dtype, r: int) -> int:
+    """Blocks of the round kernel for this wire dtype and r that fit on
+    the card at once: the most a cooperative launch may have."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load().rt_fused_round_coresident(
+        device_index, _WIRE_CODE[dtype], r, ctypes.byref(blocks)),
+        "fused round: occupancy")
+    return blocks.value
+
+
 def _gram_stage(name: str, vs: torch.Tensor, ref: torch.Tensor,
                 ns_iters: int | None) -> torch.Tensor:
     m, d, r = _check_stack(name, vs, ref, lambda m, d, r: (d, r))
-    sms = torch.cuda.get_device_properties(vs.device).multi_processor_count
-    rows, splits = _split_rows(d, m, r, sms)
+    rows, cluster = _gram_plan(d, m, r, _cluster_slots(vs.device.index).__getitem__)
     lib = _build.load()
-    part = torch.empty((m, splits, r, r), dtype=torch.float32, device=vs.device)
     out = torch.empty((m, r, r), dtype=torch.float32, device=vs.device)
-    args = [vs.device.index, vs.data_ptr(), ref.data_ptr(), part.data_ptr(),
-            out.data_ptr()]
-    shape = [m, d, r, rows, splits]
+    stream = _build.stream_of(vs)
     if ns_iters is None:
-        code = lib.rt_batched_gram(*args, *shape, _build.stream_of(vs))
+        code = lib.rt_batched_gram(vs.device.index, vs.data_ptr(), ref.data_ptr(),
+                                   out.data_ptr(), m, d, r, rows, cluster, stream)
     else:
+        g = torch.empty((m, r, r), dtype=torch.float32, device=vs.device)
         ws = _ns_workspace(m, r, vs.device)
-        code = lib.rt_batched_gram_polar(*args, _ptr(ws), *shape, ns_iters,
-                                         _build.stream_of(vs))
+        code = lib.rt_batched_gram_polar(
+            vs.device.index, vs.data_ptr(), ref.data_ptr(), g.data_ptr(),
+            out.data_ptr(), _ptr(ws), m, d, r, rows, cluster, ns_iters, stream)
     _build.check(code, name)
     return out
 
@@ -192,19 +275,28 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _ns_form(group: int) -> str:
+    """The Newton-Schulz form a round kernel reports it ran."""
+    if group == 0:
+        return "one block a machine, workspace tiles"
+    if group == 1:
+        return "one block a machine, shared-memory tiles"
+    return f"grouped, {group} blocks a machine"
+
+
 def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     """Launch ``n_iter`` rounds of the fused round kernel on the wire stack
     ``vs``; round k's (d, r) f32 output is round k+1's reference, with no
     torch op between launches (scratch and both output buffers are
-    allocated first).  Counts one launch per round on ``wrapper``."""
+    allocated first).  Counts one launch per round on ``wrapper`` and
+    records its grid and Newton-Schulz form (``_ns_form``)."""
     from repro_torch.core.orthonorm import cholqr_guard_coeffs
 
     m, d, r = vs.shape
     _build.require_sm90(vs)
     dev = vs.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits1 = math.ceil(d / rows1)
-    rows2, splits2 = _split_rows(d, 1, r, sms)
+    grid, rows1, splits1, rows2, splits2, group = _round_plan(
+        m, d, r, _round_coresident(dev.index, vs.dtype, r), rows1)
     pivot_c, shift_c = cholqr_guard_coeffs(d, r, torch.finfo(torch.float32).eps)
     f32 = dict(dtype=torch.float32, device=dev)
     part = torch.empty((max(m * splits1, splits2), r, r), **f32)
@@ -213,8 +305,10 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     q1 = torch.empty((d, r), **f32)
     w = torch.empty((2, r, r), **f32)
     ws = _ns_workspace(m, r, dev)
+    nsn = torch.empty((m, group), **f32)
+    ctr = torch.empty((m,), dtype=torch.int32, device=dev)
     outs = (torch.empty((d, r), **f32), torch.empty((d, r), **f32))
-    grid = ctypes.c_int(0)
+    form = ctypes.c_int(-1)
     entry = getattr(_build.load(), _WIRE_ENTRY[vs.dtype])
     stream = _build.stream_of(vs)
     scales_ptr = None if scales is None else scales.data_ptr()
@@ -224,14 +318,15 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
         code = entry(
             dev.index, vs.data_ptr(), scales_ptr, cur.data_ptr(),
             out.data_ptr(), part.data_ptr(), zs.data_ptr(), vbar.data_ptr(),
-            q1.data_ptr(), w.data_ptr(), _ptr(ws), m, d, r, rows1, splits1, rows2,
-            splits2, ns_iters, pivot_c, shift_c, ctypes.addressof(grid),
-            stream,
+            q1.data_ptr(), w.data_ptr(), _ptr(ws), nsn.data_ptr(), ctr.data_ptr(),
+            m, d, r, rows1, splits1, rows2, splits2, ns_iters, grid, group,
+            pivot_c, shift_c, ctypes.addressof(form), stream,
         )
         _build.check(code, wrapper.__name__)
         wrapper.launches += 1
         cur = out
-    wrapper.grid = grid.value
+    wrapper.grid = grid
+    wrapper.last_form = _ns_form(form.value)
     return cur
 
 
@@ -247,11 +342,9 @@ def fused_round(
     ref (d, r) f32 -> (d, r) f32 (vs.dtype)."""
     if vs.device.type == "cpu":
         return _ref.fused_round(vs, ref, n_iter=n_iter, ns_iters=ns_iters)
-    m, d, r = _check_stack("fused_round", vs, ref, lambda m, d, r: (d, r))
-    rows1, _ = _split_rows(d, m, r, torch.cuda.get_device_properties(
-        vs.device).multi_processor_count)
+    _check_stack("fused_round", vs, ref, lambda m, d, r: (d, r))
     return _round_launches(
-        fused_round, vs, ref, None, n_iter=n_iter, rows1=rows1,
+        fused_round, vs, ref, None, n_iter=n_iter, rows1=None,
         ns_iters=ns_iters,
     )
 
@@ -268,7 +361,9 @@ def fused_ring_round(
     int8 with (m', r) f32 per-column ``scales`` (required exactly for
     int8), decoded as the kernel loads it.  ``ring_chunk`` rows (any
     value; need not divide d) are the granularity of the Gram phase's
-    d-splits and do not change the result.  ref (d, r) f32 -> (d, r) f32."""
+    d-splits (whole chunks, ``ring_split_rows``, divided evenly where too
+    few fill the card) and do not change the result beyond summation
+    order.  ref (d, r) f32 -> (d, r) f32."""
     if vs.dtype not in _WIRE_ENTRY:
         raise ValueError(
             f"fused_ring_round expects a wire-dtype stack (f32/bf16/int8), "
@@ -486,3 +581,5 @@ fused_ring_round_remote.launches = 0
 fused_round.grid = 0
 fused_ring_round.grid = 0
 fused_ring_round_remote.grid = 0
+fused_round.last_form = None
+fused_ring_round.last_form = None

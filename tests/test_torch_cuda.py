@@ -16,7 +16,12 @@ without spills (B8's wide kernel: without spills).  B3, B5, B6 and B7 also run a
 r = 137, 192 and 256, where their Newton-Schulz and Cholesky tiles live
 in a global workspace; B8 at head_dim 136, 192 and 256 (its wide form);
 and a subprocess makes one of B8's bounded waits run out and sees the
-launch failure, then the wrapper's error.  Tolerance: 4 eps sqrt(k) times the largest
+launch failure, then the wrapper's error.  B2 runs at the edges of its
+128-wide tile and its clusters (m 1, 8, 17; d 1 .. 8192; r 1 .. 256); B2,
+B3, B5 and B6 give the same bits on a second call; B5 and B6 run in each
+Newton-Schulz form (grouped, one block a machine, workspace) and report
+the one they ran; ptxas must report no spills in B2 and the round
+kernels.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
 Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
 also held at 1e-5 f64 subspace distance.  B4 also at the edges of its
@@ -198,6 +203,91 @@ def test_align_average_kernel_edges(dev, m, d, r):
     assert got.shape == (d, r) and got.dtype == torch.float32
     _hold(got, tref.align_average(vs, zs), m * r)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", [1, 8, 17])
+@pytest.mark.parametrize("d", [1, 63, 65, 8192])
+@pytest.mark.parametrize("r", [1, 5, 127, 128, 129, 136, 137, 256])
+def test_batched_gram_kernel_edges(dev, m, d, r):
+    """B2 (one launch, the splits of d summed across a thread-block
+    cluster) at the edges of its 128-wide tile and 32-row slices, with one
+    block (d < 64) and clusters of several: r off the tile and off float4
+    rows, d below and past one slice; two calls give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(m * 100003 + d * 131 + r)
+    vs = torch.randn(m, d, r, generator=g, device=dev)
+    ref = torch.randn(d, r, generator=g, device=dev)
+    before = tpa.batched_gram.launches
+    got = tpa.batched_gram(vs, ref)
+    again = tpa.batched_gram(vs, ref)
+    torch.cuda.synchronize()
+    assert tpa.batched_gram.launches == before + 2
+    assert got.shape == (m, r, r) and got.dtype == torch.float32
+    _hold(got, tref.batched_gram(vs, ref), d)
+    assert torch.equal(got, again)
+
+
+def test_batched_gram_kernel_has_no_spills(dev):
+    """ptxas: both B2 instances (16-byte copies or register fetches) and
+    the six round instances (f32, bf16, int8 wires, each with 16-byte
+    copies or register fetches) spill nothing."""
+    from repro_torch.kernels import _build
+
+    for source, kernel, count in (("procrustes_align.cu", "batched_gram_kernel", 2),
+                                  ("fused_round.cu", "fused_round_kernel", 6)):
+        usage = {k: u for k, u in _build.ptxas_usage(source).items() if kernel in k}
+        assert len(usage) == count, usage
+        for name, u in usage.items():
+            assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
+
+
+def test_round_kernels_give_the_same_bits_twice(dev):
+    """B2, B3, B5 and B6 (every wire) sum in a fixed order: a second call
+    gives the same bits."""
+    vs = _stack(dev, 8, 8192, 128)
+    ref = vs[0].contiguous()
+    w8, scales = _int8_wire(vs)
+    calls = {
+        "B2": lambda: tpa.batched_gram(vs, ref),
+        "B3": lambda: tpa.batched_gram_polar(vs, ref),
+        "B5": lambda: tpa.fused_round(vs, ref, n_iter=2),
+        "B6 f32": lambda: tpa.fused_ring_round(vs, ref),
+        "B6 bf16": lambda: tpa.fused_ring_round(vs.to(torch.bfloat16), ref),
+        "B6 int8": lambda: tpa.fused_ring_round(w8, ref, scales),
+    }
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.parametrize("m,d,r,form", [
+    (8, 8192, 128, "grouped, 16 blocks a machine"),
+    (33, 1000, 128, "grouped, 4 blocks a machine"),
+    (200, 300, 16, "one block a machine, shared-memory tiles"),
+    (3, 205, 5, "one block a machine, shared-memory tiles"),
+    (33, 1000, 137, "one block a machine, workspace tiles"),
+    (8, 1000, 256, "one block a machine, workspace tiles"),
+])
+def test_fused_round_newton_schulz_forms(dev, m, d, r, form):
+    """B5 and B6 (every wire) report the Newton-Schulz form they ran and
+    hold their plain versions in each: a group of blocks a machine, one
+    block a machine when m exceeds what the grid can group (the blocks
+    take machines in turn), and the workspace tiles past r = 136.  The
+    forms assume a 132-SM card (one round block an SM)."""
+    vs = _stack(dev, m, d, r)
+    ref = vs[0].contiguous()
+    _hold_round(tpa.fused_round(vs, ref), tref.fused_round(vs, ref))
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert tpa.fused_round.last_form == form
+    for wire in ("f32", "bf16", "int8"):
+        w, scales = vs, None
+        if wire == "bf16":
+            w = vs.to(torch.bfloat16)
+        elif wire == "int8":
+            w, scales = _int8_wire(vs)
+        _hold_round(tpa.fused_ring_round(w, ref, scales, ring_chunk=33),
+                    tref.fused_ring_round(w, ref, scales))
+        assert tpa.fused_ring_round.last_form == tpa.fused_round.last_form
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -185,28 +185,68 @@ def test_dispatch_defaults_to_plain_off_hopper(monkeypatch):
     _close(tops.gram(x), jref.gram(jnp.asarray(x.numpy())), 1e-4)
 
 
-@pytest.mark.parametrize("d,m,r,sms", [
-    (8192, 8, 128, 132), (205, 3, 5, 132), (16, 1, 1, 132), (100000, 2, 64, 114),
-])
-def test_split_rows_cover_d(d, m, r, sms):
-    rows, splits = tpa._split_rows(d, m, r, sms)
-    assert rows % tpa._GRAM_ROWS == 0
-    assert (splits - 1) * rows < d <= splits * rows
+@pytest.mark.parametrize("d", [1, 15, 16, 17, 8192])
+@pytest.mark.parametrize("m", [1, 8, 17])
+@pytest.mark.parametrize("r", [5, 128, 256])
+def test_split_rows_cover_d(d, m, r):
+    """B2's plan: one cluster of k blocks per (machine, tile), k a power of
+    two up to 16 (so it divides the 128-row tile the blocks share out),
+    at most one block per 32-row slice of d, the k splits of ``rows``
+    covering d with none empty; a cluster size the card refuses is never
+    taken."""
+    for active in (lambda k: 132 // k, lambda k: 0 if k > 8 else 132 // k):
+        rows, k = tpa._gram_plan(d, m, r, active)
+        assert k in (1, 2, 4, 8, 16) and tpa._GRAM_TILE % k == 0
+        assert active(k) >= 1
+        assert k <= max(1, -(-d // tpa._GRAM_SLICE))
+        assert (k - 1) * rows < d <= k * rows
+    assert tpa._gram_plan(8192, 8, 128, lambda k: 132 // k) == (512, 16)
 
 
 def test_split_then_reduce_equals_plain():
-    """The d-split of the two-pass Gram stages (partials per split, summed
-    in split order) is the plain Gram: the wrapper's row arithmetic."""
+    """B2's split of d over a cluster (a partial per block, summed in rank
+    order) is the plain Gram: the wrapper's row arithmetic."""
     vs = torch.from_numpy(_noisy_stack(4, 3, 205, 5))
     ref = vs[0]
-    rows, splits = tpa._split_rows(205, 3, 5, 132)
+    rows, k = tpa._gram_plan(205, 3, 5, lambda c: 132 // c)
     parts = [
-        torch.einsum("mdr,ds->mrs", vs[:, s * rows:(s + 1) * rows],
-                     ref[s * rows:(s + 1) * rows])
-        for s in range(splits)
+        torch.einsum("mdr,ds->mrs", vs[:, q * rows:(q + 1) * rows],
+                     ref[q * rows:(q + 1) * rows])
+        for q in range(k)
     ]
-    assert splits > 1
+    assert k > 1
     _close(sum(parts), tref.batched_gram(vs, ref), 1e-6)
+
+
+@pytest.mark.parametrize("m,d,r", [
+    (8, 8192, 128), (1, 7, 3), (33, 8192, 128), (8, 8192, 136), (8, 8192, 137),
+    (8, 8192, 256), (3, 205, 5), (1, 8192, 129), (200, 300, 16), (4, 300, 136),
+])
+@pytest.mark.parametrize("coresident", [132, 114, 8])
+def test_round_plan_groups_cover_r(m, d, r, coresident):
+    """The round's plan: a grid no larger than the card holds at once;
+    every machine's Newton-Schulz group has at least one block, covers r,
+    and gives each block rows; a group of more than one block has a
+    machine to itself (m g <= grid), and past NS_SMEM_MAX_R the group is
+    one block; both d-splits cover d."""
+    grid, rows1, splits1, rows2, splits2, g = tpa._round_plan(m, d, r, coresident)
+    assert 1 <= grid <= coresident
+    assert g >= 1 and (g == 1 or m * g <= grid)
+    rb = -(-r // g)
+    assert (g - 1) * rb < r <= g * rb
+    if r > tpa.NS_SMEM_MAX_R:
+        assert g == 1
+    for rows, splits in ((rows1, splits1), (rows2, splits2)):
+        assert (splits - 1) * rows < d <= splits * rows
+    if (m, d, r, coresident) == (8, 8192, 128, 132):
+        assert (g, rows1, splits1) == (16, 512, 16)
+    # A ring's whole chunks, divided evenly only as far as they fill the grid.
+    tiles = (-(-r // tpa._GRAM_TILE)) ** 2
+    for chunk in (1000, 2048, 33):
+        rows1, splits1 = tpa._round_plan(m, d, r, coresident, rows1=chunk)[1:3]
+        assert chunk % rows1 == 0 and (splits1 - 1) * rows1 < d <= splits1 * rows1
+        assert rows1 == chunk or m * tiles * splits1 <= coresident
+    assert tpa._round_plan(8, 8192, 128, 132, rows1=2048)[1:3] == (512, 16)
 
 
 def test_wrappers_refuse_other_devices():
