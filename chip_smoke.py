@@ -21,11 +21,12 @@ of JAX or of the reference package.  Phases, each ending in
    give the same bits with the reference's ``symmetric`` option as
    without (the kernel always mirrors its upper tiles); B3 and B5 are also
    held at r = 192 and 256, where their Newton-Schulz and Cholesky tiles
-   live in a global workspace.  B2 (one launch, the splits of d summed
-   across a thread-block cluster; B3's first pass) must give the same bits
-   on a second call, and prints its plan (rows a split, cluster size);
-   B5 and B6 print the Newton-Schulz form they ran (a group of blocks a
-   machine up to r = 136).
+   live in a global workspace (B5) or where B3's grouped Newton-Schulz
+   form streams its iterate from L2.  B2 (one launch, the splits of d
+   summed across a thread-block cluster; B3's first pass) must give the
+   same bits on a second call, and prints its plan (rows a split, cluster
+   size); B3, B5, B6 and B7 print the Newton-Schulz form they ran (a group
+   of blocks a machine: B3 and B7 at every r, B5/B6 up to r = 136).
 3. Drive the main path at the production width of
    ``repro/configs/paper_pca.py`` (d = 8192, r = 128, 65536 samples per
    shard, 2 rounds, 30 subspace-iteration steps), m = 8 shards, shard k
@@ -84,7 +85,9 @@ of JAX or of the reference package.  Phases, each ending in
    attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
    2048, bf16).  B7 is
    timed in the rank world, per round on every rank, against the bound
-   of the 8 ranks' work on the one card.
+   of the 8 ranks' work on the one card, with each round split into the
+   time its hops waited between launches and the time they computed (the
+   wrapper's CUDA events).
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve call), then, last,
    ``{"ok": true, "device": ...}``.
@@ -335,7 +338,8 @@ def rank_worker(rank: int, init: str, out: str) -> int:
         report["b7"][label] = {
             "err": (got - want).abs().max().item(), "sd": subspace_dist64(got, want),
             "finite": bool(torch.isfinite(got).all()),
-            "grid": pa.fused_ring_round_remote.grid}
+            "grid": pa.fused_ring_round_remote.grid,
+            "form": pa.fused_ring_round_remote.last_form}
         return got
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -400,8 +404,9 @@ def rank_worker(rank: int, init: str, out: str) -> int:
     del shards
 
     # Phase 4: B7 per round at the main shape, CUDA events around B7_REPS
-    # rounds on every rank (each round waits for its status word), and the
-    # host clock from a common barrier.
+    # rounds on every rank (each call returns once its round is done), and
+    # the host clock from a common barrier; each round's waits and compute
+    # from the wrapper's events.
     def per_round(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -416,12 +421,19 @@ def rank_worker(rank: int, init: str, out: str) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, 1e3 * (time.perf_counter() - t0) / reps
 
+    split = []
+
+    def b7_round():
+        pa.fused_ring_round_remote(v_b7, ref_b7, group=world)
+        hops = pa.fused_ring_round_remote.last_hops
+        split.append((sum(w for w, _ in hops), sum(c for _, c in hops)))
+
     report["b7_time"] = {
-        "kernel": per_round(lambda: pa.fused_ring_round_remote(v_b7, ref_b7, group=world),
-                            B7_REPS),
+        "kernel": per_round(b7_round, B7_REPS),
         "plain": per_round(lambda: pa.plain_remote(v_b7, ref_b7, group=world),
                            B7_PLAIN_REPS),
     }
+    report["b7_split"] = [sum(x) / B7_REPS for x in zip(*split[1:])]  # after the warm-up
     pa.close_remote(world)
     pa.close_remote(sub)
     dist.destroy_process_group()
@@ -660,7 +672,7 @@ def main(argv=None) -> int:
         "main (8, 8192, 128)": noisy_stack(torch, gen, SHARDS, D, R, dev),
         "ragged (3, 205, 5)": noisy_stack(torch, gen, RAGGED_M, RAGGED_D, RAGGED_R, dev),
     }
-    gram_plan = {}
+    gram_plan, b3_form = {}, {}
     for label, vs in stacks.items():
         m, d, r = vs.shape
         rf = vs[0].contiguous()
@@ -677,6 +689,9 @@ def main(argv=None) -> int:
         require(same, f"batched_gram: a second call changed the bits at {label}")
         hold("batched_gram_polar", label, batched_gram_polar(vs, rf),
              ref.batched_gram_polar(vs, rf), NS_TOL)
+        print(f"[check] {'batched_gram_polar':<18} {label:<34} Newton-Schulz "
+              f"{batched_gram_polar.last_form}, grid {batched_gram_polar.grid} blocks")
+        b3_form[label] = batched_gram_polar.last_form
         zs = ref.batched_gram_polar(vs, rf)
         a_want = ref.align_average(vs, zs)
         hold("align_average", label, align_average(vs, zs), a_want,
@@ -702,6 +717,10 @@ def main(argv=None) -> int:
         rf = vs[0].contiguous()
         hold("batched_gram_polar", f"wide ({SHARDS}, {D}, {r})",
              batched_gram_polar(vs, rf), ref.batched_gram_polar(vs, rf), NS_TOL)
+        print(f"[check] {'batched_gram_polar':<18} {f'wide ({SHARDS}, {D}, {r})':<34} "
+              f"Newton-Schulz {batched_gram_polar.last_form}, grid "
+              f"{batched_gram_polar.grid} blocks")
+        b3_form[r] = batched_gram_polar.last_form
         hold_round("fused_round", f"wide ({SHARDS}, {D}, {r})", fused_round(vs, rf),
                    ref.fused_round(vs, rf))
         wide_stacks[r] = vs
@@ -845,8 +864,8 @@ def main(argv=None) -> int:
             extra = f" rank spread {spread:.1e}"
         print(f"[check] {'fused_ring_round_remote':<18} {label:<34} max_abs_err {err:.3e} "
               f"tol {ROUND_TOL:.0e} subspace_dist64 {sd:.3e} tol {ROUND_SD_TOL:.0e}"
-              f"{extra} over {len(cells)} ranks, grid {cells[0]['grid']} blocks "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{extra} over {len(cells)} ranks, grid {cells[0]['grid']} blocks, "
+              f"hops' Newton-Schulz {cells[0]['form']} {'ok' if ok else 'FAIL'}")
         results["fused_ring_round_remote"]["errs"][label] = (err, ROUND_TOL)
         require(ok, f"fused_ring_round_remote disagrees with its plain version at {label}")
     del b7_main
@@ -919,6 +938,8 @@ def main(argv=None) -> int:
         require(spread <= ROUND_SD_TOL, f"{lane}: ranks disagree by {spread}")
         require(d_cent < DIST_BAR, f"{lane}: dist_2(v, central) {d_cent} >= {DIST_BAR}")
     b7_time = [rep["b7_time"] for rep in reports]
+    b7_split = [rep["b7_split"] for rep in reports]
+    b7_form = reports[0]["b7"][f"main ({WORLD} ranks, {D}, {R})"]["form"]
     del ests, factor
 
     # A small input through both backends: the kernels' path must give the
@@ -1253,11 +1274,14 @@ def main(argv=None) -> int:
         if k in ("fused_round", "fused_ring_round"):
             rows[-1]["newton_schulz_form"] = (fused_round if k == "fused_round"
                                               else fused_ring_round).last_form
+        if k == "batched_gram_polar":
+            rows[-1]["newton_schulz_form"] = b3_form["main (8, 8192, 128)"]
         if k == "fused_ring_round":
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                         "bound_by": t[2][1]} for wname, t in ring_ms.items()}
-    # B3 and B5 past r = 136 (tiles in the global workspace).
+    # B3 and B5 past r = 136 (B3's grouped form streams its iterate from
+    # L2; B5's tiles live in the global workspace).
     by_name = {row["name"]: row for row in rows}
     for r_w in WIDE_RS:
         vs_w = wide_stacks[r_w]
@@ -1273,10 +1297,13 @@ def main(argv=None) -> int:
         ):
             w_ms, w_plain = time_ms(kern, 5), time_ms(plain, 5)
             w_bound, w_by = bound(flops, 4 * (SHARDS * D * r_w + 2 * D * r_w))
-            print(f"[time] {k:<18} wide r={r_w} (tiles in the workspace) kernel_ms "
+            form = b3_form[r_w] if k == "batched_gram_polar" else "tiles in the workspace"
+            print(f"[time] {k:<18} wide r={r_w} ({form}) kernel_ms "
                   f"{w_ms:.4f} bound_ms {w_bound:.4f} ({w_by}) plain_ms {w_plain:.4f}")
             by_name[k].setdefault("wide_r", {})[r_w] = {
                 "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": w_by}
+            if k == "batched_gram_polar":
+                by_name[k]["wide_r"][r_w]["newton_schulz_form"] = b3_form[r_w]
     # B8's wide kernel at recurrentgemma-2b's local attention shape.
     (b, hq, hkv, s_, t_, hd), wdt, win = FLASH_WIDE
     q, k_, v_ = qkv(FLASH_WIDE[0], wdt)
@@ -1307,6 +1334,12 @@ def main(argv=None) -> int:
     b7_ms = max(t["kernel"][0] for t in b7_time)
     b7_wall = max(t["kernel"][1] for t in b7_time)
     b7_plain = max(t["plain"][0] for t in b7_time)
+    slow = max(range(WORLD), key=lambda k: b7_time[k]["kernel"][0])
+    print(f"[time] fused_ring_round_remote per round, the wrapper's CUDA events around "
+          f"each hop's waits and launch: slowest rank (rank {slow}) waits "
+          f"{b7_split[slow][0]:.4f} ms, compute {b7_split[slow][1]:.4f} ms; mean over "
+          f"ranks waits {sum(w for w, _ in b7_split) / WORLD:.4f} ms, compute "
+          f"{sum(c for _, c in b7_split) / WORLD:.4f} ms; hops' Newton-Schulz {b7_form}")
     errs = results["fused_ring_round_remote"]["errs"]
     print(f"[time] fused_ring_round_remote kernel_ms {b7_ms:.4f} (slowest of {WORLD} ranks "
           f"sharing the card, CUDA events, {B7_REPS} rounds; the world's host wall "
@@ -1324,8 +1357,10 @@ def main(argv=None) -> int:
         "ragged_max_abs_err": max(e for lbl, (e, _) in errs.items()
                                   if lbl.startswith("ragged")),
         "verdict": "pass", "ranks_sharing_card": WORLD, "rank_bound_ms": rank_bound,
-        "world_wall_ms": b7_wall,
-        "per_rank": [{"ms": t["kernel"][0], "plain_ms": t["plain"][0]} for t in b7_time],
+        "world_wall_ms": b7_wall, "newton_schulz_form": b7_form,
+        "wait_ms": b7_split[slow][0], "compute_ms": b7_split[slow][1],
+        "per_rank": [{"ms": t["kernel"][0], "plain_ms": t["plain"][0], "wait_ms": sp[0],
+                      "compute_ms": sp[1]} for t, sp in zip(b7_time, b7_split)],
     })
     torch.cuda.synchronize()
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -18,9 +18,9 @@ reads only the local basis and the previous residual, never a round's
 output, which is what lets the staging come first.
 
 ``remote_ring_rounds``: the same cell with nothing staged: each round is
-one launch of the remote-hop ring round (B7), in which every rank keeps
-only its own basis and the hops are the kernel's writes into the right
-neighbour's buffer.  32-bit wire only.
+one call of the remote-hop ring round (B7, a kernel launch a hop), in
+which every rank keeps only its own basis and the hops are the kernel's
+writes into the right neighbour's buffer.  32-bit wire only.
 
 Wire precision (``comm_bits``): a lossy round quantizes once and the
 payload circulates verbatim (receivers decode for compute and forward
@@ -198,7 +198,7 @@ def remote_ring_rounds(
     n_iter: int = 1,
 ) -> torch.Tensor:
     """``n_iter`` rounds of the fused ring cell at 32 bits, one remote-hop
-    launch (B7) each, round k's (d, r) f32 output round k+1's reference.
+    round (B7) each, round k's (d, r) f32 output round k+1's reference.
     ``ref`` defaults to the first rank's basis (one broadcast).  Returns
     the (d, r) output in ``v_local.dtype`` on every rank."""
     from repro_torch.kernels import ops as kops

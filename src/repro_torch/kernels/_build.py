@@ -4,8 +4,10 @@ Route: ``nvcc`` compiles each source to an object (all started at once),
 links them into ``build/repro_torch_kernels/libkernels.so`` at the repo
 root, and ``ctypes`` loads it.  The sources expose a plain C interface
 (no PyTorch headers), which keeps the build to seconds.  B8's TMA
-descriptors are encoded on the host by ``cuTensorMapEncodeTiled``, which
-``csrc/flash_attention.cu`` reaches through the runtime's
+descriptors are encoded on the host by ``cuTensorMapEncodeTiled``, and
+B7's waits are the stream memory operations ``cuStreamWaitValue64`` /
+``cuStreamWriteValue*``; ``csrc/flash_attention.cu`` and
+``csrc/fused_ring_remote.cu`` reach them through the runtime's
 ``cudaGetDriverEntryPoint``: the link needs no ``-lcuda``.  Every pointer
 and the stream cross as ``c_void_p`` and every size as ``c_int``; each
 entry point returns the ``cudaGetLastError()`` code of its launches,
@@ -57,8 +59,11 @@ _SIGNATURES = {
     "rt_batched_gram": (_I, _P, _P, _P, *(_I,) * 5, _P),
     # device, cluster, *active.
     "rt_batched_gram_clusters": (_I, _I, _PI),
-    # device, vs, ref, g, out, ws, m, d, r, rows, cluster, ns_iters, stream.
-    "rt_batched_gram_polar": (_I, *(_P,) * 5, *(_I,) * 6, _P),
+    # device, vs, ref, g, out, nsn, ctr, m, d, r, rows, cluster, ns_iters,
+    # grid, group, form_out, stream.
+    "rt_batched_gram_polar": (_I, *(_P,) * 6, *(_I,) * 8, _PI, _P),
+    # device, r, *blocks.
+    "rt_batched_gram_polar_coresident": (_I, _I, _PI),
     "rt_align_average": (_I, _P, _P, _P, _I, _I, _I, _P),
     "rt_fused_round_f32": _ROUND,
     "rt_fused_round_bf16": _ROUND,
@@ -77,11 +82,16 @@ _SIGNATURES = {
     "rt_remote_open": (_I, _P, ctypes.POINTER(_P)),
     "rt_remote_close": (_I, _P),
     "rt_remote_free": (_I, _P),
-    # B7 round: device, v, ref, out, part, z, vbar, q1, w, ws, mine, right,
-    # left, status, seq0, timeout_ns, m, d, r, rows1, splits1, rows2,
-    # splits2, ns_iters, pivot_c, shift_c, grid_out, stream.
-    "rt_fused_ring_remote": (_I, *(_P,) * 13, _U64, _U64, *(_I,) * 8, _F, _F,
-                             _P, _P),
+    # B7: device, r, *blocks (the hop kernel's co-resident blocks); a hop's
+    # waits: device, mine, arrived_want, consumed_want, stream; a hop:
+    # device, v, ref, out, part, z, vbar, q1, w, ws, nsn, ctr, mine, right,
+    # left, status, seq0, m, d, r, rows1, splits1, rows2, splits2,
+    # ns_iters, grid, group, hop, pivot_c, shift_c, stream; the release of
+    # a stuck round: device, mine, status, arrived_want, *code.
+    "rt_fused_ring_remote_coresident": (_I, _I, _PI),
+    "rt_remote_wait": (_I, _P, _U64, _U64, _P),
+    "rt_remote_hop": (_I, *(_P,) * 15, _U64, *(_I,) * 11, _F, _F, _P),
+    "rt_remote_release": (_I, _P, _P, _U64, _PI),
 }
 
 

@@ -34,8 +34,8 @@
 //      M = 3I - X^T X and of 0.5 X M, and the group meets once at a
 //      counter in global memory; Z_i ends in zs.  When m exceeds the
 //      grid, g = 1 and the blocks take machines in turn; past
-//      r = kNsSmemMaxR one block a machine runs B3's code on a workspace
-//      slot (ns_polar_block)
+//      r = kNsSmemMaxR one block a machine runs the one-block form on a
+//      workspace slot (ns_polar_block)
 //   3  V-bar = (1/m) sum_i V_i Z_i: B4's 64x128 blocks -> vbar (d, r)
 //   4  S1 partials = V-bar^T V-bar over d-splits -> part
 //   5  S1 = the partials summed in order, over the grid -> s (zs[0])

@@ -10,7 +10,8 @@
 // 2 m d r^2 = 2.15 GFLOP (32 us at 67 TFLOP/s) over the 33.5 MB stack
 // (10 us at 3.35 TB/s); both are small enough that launch latency and
 // filling 132 SMs matter as much as either floor.  B3 adds 24
-// Newton-Schulz steps on eight r x r tiles, each on one SM.
+// Newton-Schulz steps on eight r x r tiles (1.6 GFLOP at r = 128), which
+// one SM a machine would take ~1.2 ms over.
 //
 // The TPU kernels walk d sequentially per machine.  Here a
 // machine-per-block grid would fill 8 of 132 SMs, so:
@@ -32,15 +33,20 @@
 //     of 8, so at the main shape 8 clusters of 8 splits of 1024 rows run
 //     in one wave on 64 SMs.  A block takes at least one 32-row slice, so
 //     at d <= 32 k is 1.
-//   * B3's first pass is B2 into an (m, r, r) Gram; its second is one
-//     block per machine that runs the 24 Newton-Schulz steps on the r x r
-//     tile in shared memory (ns_polar.cuh).  At r = 128 that tile,
-//     X^T X and a temporary take 3 * 128 * 129 * 4 B = 198 KB, above the
-//     48 KB static limit: the launch asks for it as dynamic shared memory
-//     after cudaFuncSetAttribute, and a refused launch comes back as the
-//     cudaGetLastError() code.  Past r = 136 the three tiles no longer fit
-//     and go to a global workspace of one slot per machine, which stays
-//     in L2.
+//   * B3's first pass is B2 into an (m, r, r) Gram.  Its second is one
+//     cooperative launch of groups of g blocks (ns_polar.cuh's grouped
+//     form): group j runs the 24 Newton-Schulz steps of machine j (then
+//     j + groups, ... when m exceeds the groups the grid holds), each
+//     block owning ceil(r / g) columns of the iterate, the group meeting
+//     once a step at its counter in global memory.  One machine on one
+//     block would keep 8 of 132 SMs busy at the main shape.  The iterates
+//     alternate between the machine's slot of out and its Gram's slot.
+//     Up to r = 136 a block stages the whole iterate in shared memory;
+//     past it, it streams the iterate from L2 in slices of rows.  The
+//     wrapper plans g and the grid from the co-resident block count
+//     (_polar_plan): at the main shape 8 groups of 16 blocks.  Block 0
+//     zeroes the groups' counters before a grid barrier, so every launch
+//     starts them at zero.
 //   * B4 is one (d x m r) . (m r x r) product over the stack as it lies in
 //     memory: the sum over machines and over r is one reduction of depth
 //     K = m r, walked in 16-deep slices (one machine each) in a fixed
@@ -200,18 +206,38 @@ int launch_gram(const float* vs, const float* ref, float* out, int m, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 2 of B3: one block per machine runs the Newton-Schulz steps on its
-// Gram (ns_polar.cuh): in shared memory, or past rt::kNsSmemMaxR in
-// machine z's slot of ws.
-__global__ void __launch_bounds__(kNsThreads)
-    ns_polar_kernel(const float* __restrict__ g, float* __restrict__ out,
-                    float* ws, int r, int ns_iters) {
-  extern __shared__ float smem[];
-  __shared__ float warp_sums[kNsThreads / 32];
-  const int z = blockIdx.x;
+// Pass 2 of B3, one cooperative launch: machine z on the group of `group`
+// blocks z .. (taking machines in turn when m exceeds the groups), the
+// Newton-Schulz steps on its Gram g[z] (ns_polar_grouped), the iterates
+// alternating between out[z] and g[z].  nsn: (m, group) sums of squares;
+// ctr: (m) barrier counters, zeroed here.
+__global__ void __launch_bounds__(kNsThreads, 1)
+    ns_group_kernel(float* g, float* out, float* nsn, unsigned* ctr, int m,
+                    int r, int ns_iters, int group) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kNsThreads / 32];
+  cg::grid_group grid = cg::this_grid();
+  if (blockIdx.x == 0) {
+    for (int z = threadIdx.x; z < m; z += blockDim.x) ctr[z] = 0;
+  }
+  grid.sync();
   const size_t rr = static_cast<size_t>(r) * r;
-  rt::ns_polar_block(g + z * rr, out + z * rr, 1, r, ns_iters, smem,
-                     ws + z * rt::ns_tile_floats(r), warp_sums);
+  const int groups = static_cast<int>(gridDim.x) / group;
+  for (int z = blockIdx.x / group; z < m; z += groups) {
+    rt::ns_polar_grouped(g + z * rr, 1, out + z * rr, g + z * rr,
+                         nsn + static_cast<size_t>(z) * group, ctr + z, group,
+                         blockIdx.x % group, r, ns_iters, smem, red);
+  }
+}
+
+// The pass-2 kernel's shared memory at edge r set as its limit; *smem the
+// bytes, 0 when r is past the grouped form's reach.
+int group_kernel_smem(int r, size_t* smem) {
+  *smem = rt::ns_grouped_smem_bytes(r);
+  if (!*smem) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(
+      ns_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem)));
 }
 
 // B4: out (d, r) = (1/m) sum_i vs[i] (d, r) @ zs[i] (r, r), one product
@@ -263,27 +289,56 @@ int rt_batched_gram_clusters(int device, int cluster, int* active) {
   return 0;
 }
 
-// g: (m, r, r) f32 scratch for the Gram; ws: (m, ns_tile_floats(r)) f32
-// workspace when r > rt::kNsSmemMaxR, else unused (may be null).
-int rt_batched_gram_polar(int device, const void* vs, const void* ref, void* g,
-                          void* out, void* ws, int m, int d, int r, int rows,
-                          int cluster, int ns_iters, void* stream) {
+// *blocks: the co-resident blocks of B3's pass-2 kernel at edge r, the
+// most its cooperative launch may have.
+int rt_batched_gram_polar_coresident(int device, int r, int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (r > rt::kNsSmemMaxR && !ws) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  int code = group_kernel_smem(r, &smem);
+  if (code) return code;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ns_group_kernel,
+                                                      kNsThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+// g: (m, r, r) f32 scratch for the Gram (and the second iterate buffer);
+// nsn: (m, group) f32; ctr: (m) 32-bit words; grid and group from the
+// wrapper's plan (grid a multiple of group, at most the co-resident
+// blocks).  form_out (may be null) receives the Newton-Schulz form: group,
+// negated past rt::kNsSmemMaxR (the streamed iterate).
+int rt_batched_gram_polar(int device, const void* vs, const void* ref, void* g,
+                          void* out, void* nsn, void* ctr, int m, int d, int r,
+                          int rows, int cluster, int ns_iters, int grid,
+                          int group, int* form_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (group < 1 || grid < group || grid % group) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int code = launch_gram(static_cast<const float*>(vs),
                          static_cast<const float*>(ref), static_cast<float*>(g),
                          m, d, r, rows, cluster, s);
   if (code) return code;
-  const size_t smem = rt::ns_smem_bytes(r);
-  err = cudaFuncSetAttribute(ns_polar_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  size_t smem = 0;
+  code = group_kernel_smem(r, &smem);
+  if (code) return code;
+  if (form_out) *form_out = r > rt::kNsSmemMaxR ? -group : group;
+  float* gp = static_cast<float*>(g);
+  float* op = static_cast<float*>(out);
+  float* np = static_cast<float*>(nsn);
+  unsigned* cp = static_cast<unsigned*>(ctr);
+  void* args[] = {&gp, &op, &np, &cp, &m, &r, &ns_iters, &group};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ns_group_kernel),
+                                    dim3(grid), dim3(kNsThreads), args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ns_polar_kernel<<<m, kNsThreads, smem, s>>>(
-      static_cast<const float*>(g), static_cast<float*>(out),
-      static_cast<float*>(ws), r, ns_iters);
   return static_cast<int>(cudaGetLastError());
 }
 

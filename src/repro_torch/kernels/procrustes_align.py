@@ -15,16 +15,19 @@ d across the blocks of a thread-block cluster, one cluster per (machine,
 output tile), which sum their partial Grams through distributed shared
 memory in one launch (``_gram_plan`` picks the rows a split and the
 cluster size from the card's cluster occupancy).  The polar variant runs
-B2 into an (m, r, r) Gram and then the Newton-Schulz steps on one block
-per machine (in shared memory; past ``NS_SMEM_MAX_R`` in a global
-workspace allocated here, one slot per machine, ``_ns_workspace``).  See
+B2 into an (m, r, r) Gram and then one cooperative launch in which each
+machine's Newton-Schulz steps run on a group of blocks (``_polar_plan``:
+the iterate staged in shared memory up to ``NS_SMEM_MAX_R``, streamed
+from L2 past it, up to ``NS_GROUP_MAX_R``).  See
 ``csrc/procrustes_align.cu`` for the design notes.  The two round kernels
 are one cooperative launch each (``csrc/fused_round.cu``) of the grid
 ``_round_plan`` gives: phases that reduce over d meet at grid-wide
 barriers and hand over through scratch this module allocates once per
 call, before the first launch; the Newton-Schulz phase spreads each
-machine over a group of blocks, and ``<wrapper>.last_form`` says which
-form ran.
+machine over a group of blocks (up to ``NS_SMEM_MAX_R``; one block a
+machine on a global workspace past it, ``_ns_workspace``).
+``<wrapper>.last_form`` says which Newton-Schulz form ran (B3, B5, B6,
+B7).
 
 Each wrapper sends a CUDA tensor to its kernel (or raises) and a CPU
 tensor to the plain version in ``repro_torch.kernels.ref``; each counts
@@ -38,9 +41,14 @@ the ranks of a process group: each rank exports one exchange buffer of its
 own (``cudaMalloc``, two (d, r) f32 slots and two sequence words), the
 64-byte IPC handles are all-gathered once per (group, d, r, device), and
 each rank maps its two neighbours' buffers (``_Exchange``, cached until
-``close_remote``).  The kernel writes each hop's basis into the right
-neighbour's slot and signals it there; every wait is bounded by
-``REMOTE_WAIT_S`` and one that runs out raises here.
+``close_remote``).  A round is one cooperative launch a hop
+(``_hop_plan``), and the hop kernel writes its basis into the right
+neighbour's slot and signals it there.  The waits for the neighbours'
+words sit between the launches as stream memory operations, so a waiting
+rank keeps no block on the card.  The wrapper watches the hops from the
+host (``_watch``): a hop that waits ``REMOTE_WAIT_S`` releases the
+round's stream and raises here.  ``fused_ring_round_remote.last_hops``
+holds each hop's (wait, compute) ms of the last round, by CUDA events.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -73,11 +82,19 @@ _GRAM_SLICE = 32  # rows a slice of the Gram tile (csrc gram::kBK)
 _AVG_ROWS = 64  # rows of d per align_average block (csrc apply::kBM)
 _MAX_CLUSTER = 16  # B2's largest cluster (a non-portable size on Hopper)
 _NS_GROUP_COLS = 8  # fewest iterate columns a block of a Newton-Schulz group owns
+# Past NS_SMEM_MAX_R: the columns of M a block computes a pass of the
+# streamed grouped form (csrc/ns_polar.cuh kWideCols), the fewest it owns.
+_NS_WIDE_COLS = 16
 # Largest r whose Newton-Schulz working set (3 padded r x r f32 tiles)
 # fits the 227 KB of shared memory a block may use on Hopper
-# (csrc/ns_polar.cuh kNsSmemMaxR); past it the tiles live in a global
+# (csrc/ns_polar.cuh kNsSmemMaxR): up to it a block of a Newton-Schulz
+# group stages the whole iterate, past it the grouped form streams the
+# iterate from L2 (B3, B7) and B5/B6 take one block a machine on a global
 # workspace.
 NS_SMEM_MAX_R = 136
+# Largest r of the streamed grouped form: its 4-row slices, a block's M
+# columns and partial sums in 227 KB (csrc/ns_polar.cuh kNsGroupMaxR).
+NS_GROUP_MAX_R = 2248
 _MAX_GRID_YZ = 65535
 # Most d-splits of a round's Gram phase over a wire stack: ring chunks are
 # grouped into splits of whole chunks beyond this (bounds the scratch).
@@ -122,6 +139,35 @@ def _gram_plan(d: int, m: int, r: int, active) -> tuple[int, int]:
     return best[1], best[2]
 
 
+def _ns_cols(r: int, group: int) -> int:
+    """Iterate columns a block of a Newton-Schulz group of ``group``
+    blocks owns, as the device computes them (``csrc/ns_polar.cuh``):
+    ceil(r / group), rounded up to 4 past NS_SMEM_MAX_R (aligned float4
+    reads of the streamed slices)."""
+    cols = math.ceil(r / group)
+    return cols if r <= NS_SMEM_MAX_R else (cols + 3) // 4 * 4
+
+
+def _ns_group(m: int, r: int, blocks: int) -> int:
+    """Blocks a machine of the grouped Newton-Schulz form when ``m``
+    machines share ``blocks`` blocks: as many as the grid gives each
+    machine, each owning at least ``_NS_GROUP_COLS`` columns
+    (``_NS_WIDE_COLS`` past NS_SMEM_MAX_R, where every block streams the
+    whole iterate twice a step), and no block without columns."""
+    fewest = _NS_GROUP_COLS if r <= NS_SMEM_MAX_R else _NS_WIDE_COLS
+    want = max(1, min(blocks // m, math.ceil(r / fewest)))
+    return math.ceil(r / _ns_cols(r, want))
+
+
+def _polar_plan(m: int, r: int, coresident: int) -> tuple[int, int]:
+    """(grid, group) of B3's Newton-Schulz launch on at most
+    ``coresident`` blocks: ``_ns_group``'s blocks a machine, and as many
+    whole groups as there are machines or the grid holds (the groups take
+    the machines in turn when m exceeds them)."""
+    group = _ns_group(m, r, coresident)
+    return min(m, coresident // group) * group, group
+
+
 def _round_plan(m: int, d: int, r: int, coresident: int,
                 rows1: int | None = None) -> tuple[int, int, int, int, int, int]:
     """(grid, rows1, splits1, rows2, splits2, group) of one round launch on
@@ -142,13 +188,18 @@ def _round_plan(m: int, d: int, r: int, coresident: int,
         rows1 //= parts
         splits1 = math.ceil(d / rows1)
     rows2, splits2 = _split_rows(d, 1, r, coresident)
-    group = 1
-    if r <= NS_SMEM_MAX_R:
-        want = max(1, min(coresident // m, math.ceil(r / _NS_GROUP_COLS)))
-        group = math.ceil(r / math.ceil(r / want))  # no block without columns
+    group = _ns_group(m, r, coresident) if r <= NS_SMEM_MAX_R else 1
     units = max(m * tiles * splits1, tiles * splits2, m * group,
                 math.ceil(d / _AVG_ROWS) * math.ceil(r / _GRAM_TILE))
     return min(coresident, units), rows1, splits1, rows2, splits2, group
+
+
+def _hop_plan(d: int, r: int, coresident: int) -> tuple[int, int, int, int, int, int]:
+    """(grid, rows1, splits1, rows2, splits2, group) of one B7 hop launch:
+    the round's plan for one machine, with the hop's polar step on
+    ``_ns_group`` blocks at every r."""
+    grid, rows1, splits1, rows2, splits2, _ = _round_plan(1, d, r, coresident)
+    return grid, rows1, splits1, rows2, splits2, _ns_group(1, r, grid)
 
 
 def _check_stack(name: str, vs: torch.Tensor, other: torch.Tensor,
@@ -177,7 +228,8 @@ def _check_stack(name: str, vs: torch.Tensor, other: torch.Tensor,
 
 
 def _ns_workspace(slots: int, r: int, device: torch.device) -> torch.Tensor | None:
-    """Global-memory Newton-Schulz / Cholesky tiles past NS_SMEM_MAX_R:
+    """Global-memory Newton-Schulz / Cholesky tiles of the round kernels
+    (B5/B6; B7's tail) past NS_SMEM_MAX_R:
     ``slots`` slots of 3 rp (rp + 1) f32 (rp = r rounded up to 4;
     csrc/ns_polar.cuh ns_tile_floats), else None (shared memory)."""
     if r <= NS_SMEM_MAX_R:
@@ -216,6 +268,22 @@ def _round_coresident(device_index: int, dtype: torch.dtype, r: int) -> int:
     return blocks.value
 
 
+@functools.cache
+def _polar_coresident(device_index: int, r: int) -> int:
+    """Blocks of B3's Newton-Schulz kernel at edge r that fit on the card
+    at once: the most its cooperative launch may have."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load().rt_batched_gram_polar_coresident(
+        device_index, r, ctypes.byref(blocks)), "batched_gram_polar: occupancy")
+    return blocks.value
+
+
+def _check_group_r(name: str, r: int) -> None:
+    if r > NS_GROUP_MAX_R:
+        raise ValueError(f"{name}: r={r} past the grouped Newton-Schulz form's "
+                         f"{NS_GROUP_MAX_R} (its slices no longer fit shared memory)")
+
+
 def _gram_stage(name: str, vs: torch.Tensor, ref: torch.Tensor,
                 ns_iters: int | None) -> torch.Tensor:
     m, d, r = _check_stack(name, vs, ref, lambda m, d, r: (d, r))
@@ -227,12 +295,21 @@ def _gram_stage(name: str, vs: torch.Tensor, ref: torch.Tensor,
         code = lib.rt_batched_gram(vs.device.index, vs.data_ptr(), ref.data_ptr(),
                                    out.data_ptr(), m, d, r, rows, cluster, stream)
     else:
-        g = torch.empty((m, r, r), dtype=torch.float32, device=vs.device)
-        ws = _ns_workspace(m, r, vs.device)
+        _check_group_r(name, r)
+        grid, group = _polar_plan(m, r, _polar_coresident(vs.device.index, r))
+        f32 = dict(dtype=torch.float32, device=vs.device)
+        g = torch.empty((m, r, r), **f32)
+        nsn = torch.empty((m, group), **f32)
+        ctr = torch.empty((m,), dtype=torch.int32, device=vs.device)
+        form = ctypes.c_int(0)
         code = lib.rt_batched_gram_polar(
             vs.device.index, vs.data_ptr(), ref.data_ptr(), g.data_ptr(),
-            out.data_ptr(), _ptr(ws), m, d, r, rows, cluster, ns_iters, stream)
+            out.data_ptr(), nsn.data_ptr(), ctr.data_ptr(), m, d, r, rows, cluster,
+            ns_iters, grid, group, ctypes.byref(form), stream)
     _build.check(code, name)
+    if ns_iters is not None:
+        batched_gram_polar.grid = grid
+        batched_gram_polar.last_form = _ns_form(form.value)
     return out
 
 
@@ -276,11 +353,17 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
 
 
 def _ns_form(group: int) -> str:
-    """The Newton-Schulz form a round kernel reports it ran."""
+    """The Newton-Schulz form a kernel reports it ran: g blocks a machine
+    with the iterate in shared memory, -g with it streamed from L2, or 0
+    for one block a machine on a workspace slot."""
     if group == 0:
         return "one block a machine, workspace tiles"
     if group == 1:
         return "one block a machine, shared-memory tiles"
+    if group == -1:
+        return "one block a machine, iterate streamed from L2"
+    if group < 0:
+        return f"grouped, {-group} blocks a machine, iterate streamed from L2"
     return f"grouped, {group} blocks a machine"
 
 
@@ -413,10 +496,11 @@ def ring_split_rows(d: int, ring_chunk: int | None) -> int:
     return chunk * math.ceil(len(chunk_spans(d, chunk)) / _MAX_RING_SPLITS)
 
 
-# Wall-clock bound of each wait inside B7 (a neighbour's push, or its
-# release of the slot a push fills); a wait that runs out raises.  Read at
-# every call, so a caller (or a test) may set it.
+# Wall-clock bound of each of B7's hops, its waits (a neighbour's push,
+# or its release of the slot a push fills) included; a hop that runs out
+# raises.  Read at every call, so a caller (or a test) may set it.
 REMOTE_WAIT_S = 60.0
+_WATCH_PAUSE_S = 1e-4  # the host's pause between polls of a hop's event
 _IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 _TIMED_OUT = {1: "the left neighbour's push", 2: "the right neighbour's release of a slot"}
 
@@ -507,6 +591,33 @@ def plain_remote(v_local, ref, *, group, ns_iters=DEFAULT_NS_ITERS):
     )
 
 
+@functools.cache
+def _hop_coresident(device_index: int, r: int) -> int:
+    """Blocks of B7's hop kernel at edge r that fit on the card at once."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load().rt_fused_ring_remote_coresident(
+        device_index, r, ctypes.byref(blocks)), "fused_ring_round_remote: occupancy")
+    return blocks.value
+
+
+def _watch(done, wait_s: float, clock=time.monotonic, pause: float = _WATCH_PAUSE_S):
+    """Wait on the host for the hops' completion events ``done`` (in stream
+    order), polling them with ``query()`` (never a blocking call): hop k
+    may take ``wait_s`` from the moment hop k - 1 was seen done (hop 0:
+    from the call).  Returns the index of the first hop that ran out, or
+    None once every hop is done."""
+    k, deadline = 0, clock() + wait_s
+    while k < len(done):
+        if done[k].query():
+            k += 1
+            deadline = clock() + wait_s
+        elif clock() > deadline:
+            return k
+        else:
+            time.sleep(pause)
+    return None
+
+
 def fused_ring_round_remote(
     v_local: torch.Tensor,
     ref: torch.Tensor,
@@ -519,9 +630,9 @@ def fused_ring_round_remote(
     (me - i) mod m (the right neighbour gets each basis by a peer write),
     Gram against ``ref``, Newton-Schulz polar and V-bar += x Z, then
     CholeskyQR2(V-bar / m).  32-bit wire only.  Every rank of the group
-    calls it with the same (d, r) and ``ref``; returns (d, r) f32.  CPU
-    tensors take the plain version (``plain_remote``); a world of one
-    rank makes no IPC call."""
+    calls it with the same (d, r) and ``ref``; returns (d, r) f32 once the
+    round is done.  CPU tensors take the plain version (``plain_remote``);
+    a world of one rank makes no IPC call."""
     name = "fused_ring_round_remote"
     _check_basis(name, v_local, ref)
     if v_local.device.type == "cpu":
@@ -529,46 +640,75 @@ def fused_ring_round_remote(
     from repro_torch.core.orthonorm import cholqr_guard_coeffs
 
     d, r = v_local.shape
+    _check_group_r(name, r)
     _build.require_sm90(v_local)
     dev = v_local.device
     m = dist.get_world_size(group)
     ex = None
+    key = (id(group), d, r, dev.index)
     if m > 1:
-        key = (id(group), d, r, dev.index)
         ex = _EXCHANGES.get(key)
         if ex is None:
             ex = _EXCHANGES[key] = _Exchange(group, d, r, dev)
-    rows, splits = _split_rows(
-        d, 1, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    grid, rows1, splits1, rows2, splits2, ngroup = _hop_plan(
+        d, r, _hop_coresident(dev.index, r))
     pivot_c, shift_c = cholqr_guard_coeffs(d, r, torch.finfo(torch.float32).eps)
     f32 = dict(dtype=torch.float32, device=dev)
     out, vbar, q1 = (torch.empty((d, r), **f32) for _ in range(3))
-    part = torch.empty((splits, r, r), **f32)
+    part = torch.empty((max(splits1, splits2), r, r), **f32)
     z = torch.empty((r, r), **f32)
     w = torch.empty((2, r, r), **f32)
     ws = _ns_workspace(1, r, dev)
+    nsn = torch.empty((ngroup,), **f32)
+    ctr = torch.empty((1,), dtype=torch.int32, device=dev)
     status = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev)
     seq0 = 0 if ex is None else ex.calls * m
-    grid = ctypes.c_int(0)
-    code = _build.load().rt_fused_ring_remote(
-        dev.index, v_local.data_ptr(), ref.data_ptr(), out.data_ptr(),
-        part.data_ptr(), z.data_ptr(), vbar.data_ptr(), q1.data_ptr(),
-        w.data_ptr(), _ptr(ws), ex and ex.mine, ex and ex.right, ex and ex.left,
-        status.data_ptr(), seq0, int(REMOTE_WAIT_S * 1e9), m, d, r, rows,
-        splits, rows, splits, ns_iters, pivot_c, shift_c,
-        ctypes.addressof(grid), _build.stream_of(v_local),
-    )
-    _build.check(code, name)
+    mine, right, left = (None, None, None) if ex is None else (ex.mine, ex.right, ex.left)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    hops = []
+    for i in range(m):
+        g = seq0 + i
+        if ex is not None:
+            _build.check(lib.rt_remote_wait(
+                dev.index, mine, g + 1 if i > 0 else 0, g if i < m - 1 else 0,
+                stream.cuda_stream), f"{name}: wait")
+        ready, done = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ready.record(stream)
+        _build.check(lib.rt_remote_hop(
+            dev.index, v_local.data_ptr(), ref.data_ptr(), out.data_ptr(),
+            part.data_ptr(), z.data_ptr(), vbar.data_ptr(), q1.data_ptr(),
+            w.data_ptr(), _ptr(ws), nsn.data_ptr(), ctr.data_ptr(), mine, right,
+            left, status.data_ptr(), seq0, m, d, r, rows1, splits1, rows2, splits2,
+            ns_iters, grid, ngroup, i, pivot_c, shift_c, stream.cuda_stream), name)
+        done.record(stream)
+        hops.append((ready, done))
     fused_ring_round_remote.launches += 1
-    fused_ring_round_remote.grid = grid.value
+    fused_ring_round_remote.grid = grid
+    fused_ring_round_remote.last_form = _ns_form(-ngroup if r > NS_SMEM_MAX_R else ngroup)
     if ex is not None:
         ex.calls += 1
-    timed_out = int(status.item())  # waits for the round
-    if timed_out:
+    if ex is None:  # one rank: nothing to wait for
+        hops[-1][1].synchronize()
+        stuck = None
+    else:
+        stuck = _watch([done for _, done in hops], REMOTE_WAIT_S)
+    if stuck is not None:
+        code = ctypes.c_int(0)
+        _build.check(lib.rt_remote_release(
+            dev.index, mine, status.data_ptr(), seq0 + stuck + 1 if stuck > 0 else 0,
+            ctypes.byref(code)), f"{name}: release")
+        _EXCHANGES.pop(key).close()
         raise RuntimeError(
             f"{name}: rank {dist.get_rank(group)} waited {REMOTE_WAIT_S} s for "
-            f"{_TIMED_OUT[timed_out]}; the ring of {m} ranks is stuck"
+            f"{_TIMED_OUT[code.value]}; the ring of {m} ranks is stuck"
         )
+    before = [start] + [done for _, done in hops[:-1]]
+    fused_ring_round_remote.last_hops = [
+        (prev.elapsed_time(ready), ready.elapsed_time(done))
+        for prev, (ready, done) in zip(before, hops)]
     return out
 
 
@@ -581,5 +721,9 @@ fused_ring_round_remote.launches = 0
 fused_round.grid = 0
 fused_ring_round.grid = 0
 fused_ring_round_remote.grid = 0
+batched_gram_polar.grid = 0
 fused_round.last_form = None
 fused_ring_round.last_form = None
+batched_gram_polar.last_form = None
+fused_ring_round_remote.last_form = None
+fused_ring_round_remote.last_hops = []

@@ -13,15 +13,18 @@ them: ``gram(x)`` and ``gram(x, symmetric=True)`` (the reference's option,
 which changes nothing here) give the same bits and an exactly symmetric
 result, and ptxas must report its kernels within 128 registers and
 without spills (B8's wide kernel: without spills).  B3, B5, B6 and B7 also run at
-r = 137, 192 and 256, where their Newton-Schulz and Cholesky tiles live
-in a global workspace; B8 at head_dim 136, 192 and 256 (its wide form);
+r = 137, 192 and 256, where B5/B6's Newton-Schulz and Cholesky tiles live
+in a global workspace and B3's and B7's grouped Newton-Schulz form streams
+its iterate from L2; B8 at head_dim 136, 192 and 256 (its wide form);
 and a subprocess makes one of B8's bounded waits run out and sees the
 launch failure, then the wrapper's error.  B2 runs at the edges of its
 128-wide tile and its clusters (m 1, 8, 17; d 1 .. 8192; r 1 .. 256); B2,
 B3, B5 and B6 give the same bits on a second call; B5 and B6 run in each
 Newton-Schulz form (grouped, one block a machine, workspace) and report
-the one they ran; ptxas must report no spills in B2 and the round
-kernels.  Tolerance: 4 eps sqrt(k) times the largest
+the one they ran; B3 runs its grouped form at ragged shapes, r up to 256
+and m past the groups the grid holds, and reports its form; ptxas must
+report no spills in B2, the round kernels, B3's Newton-Schulz kernel and
+B7's hop kernel.  Tolerance: 4 eps sqrt(k) times the largest
 plain entry for an f32 sum of k products in two orders; 1e-4 for the 24
 Newton-Schulz steps and for the whole fused rounds (B5, B6), which are
 also held at 1e-5 f64 subspace distance.  B4 also at the edges of its
@@ -240,6 +243,54 @@ def test_batched_gram_kernel_has_no_spills(dev):
             assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
 
 
+@pytest.mark.parametrize("m,d,r,form", [
+    (8, 8192, 128, "grouped, 16 blocks a machine"),
+    (3, 205, 5, "one block a machine, shared-memory tiles"),
+    (33, 1000, 130, "grouped, 4 blocks a machine"),
+    (200, 300, 16, "one block a machine, shared-memory tiles"),
+    (3, 300, 137, "grouped, 9 blocks a machine, iterate streamed from L2"),
+    (8, 1000, 192, "grouped, 12 blocks a machine, iterate streamed from L2"),
+    (8, 333, 256, "grouped, 16 blocks a machine, iterate streamed from L2"),
+    (40, 257, 255, "grouped, 3 blocks a machine, iterate streamed from L2"),
+    (200, 300, 141, "one block a machine, iterate streamed from L2"),
+])
+def test_batched_gram_polar_grouped_forms(dev, m, d, r, form):
+    """B3's Newton-Schulz pass on a group of blocks a machine at every r:
+    the iterate staged in shared memory up to r = 136 and streamed from L2
+    past it; r % 4 != 0 (plain loads), m beyond the groups the grid holds
+    (the groups take the machines in turn), d off every tile.  Held to its
+    plain version at 1e-4, the same bits on a second call, one launch a
+    call, and the form it reports (for a 132-SM card)."""
+    vs = _stack(dev, m, d, r)
+    ref = vs[0].contiguous()
+    before = tpa.batched_gram_polar.launches
+    got = tpa.batched_gram_polar(vs, ref)
+    again = tpa.batched_gram_polar(vs, ref)
+    torch.cuda.synchronize()
+    assert tpa.batched_gram_polar.launches == before + 2
+    assert got.shape == (m, r, r) and bool(torch.isfinite(got).all())
+    assert (got - tref.batched_gram_polar(vs, ref)).abs().max().item() <= 1e-4
+    assert torch.equal(got, again)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert tpa.batched_gram_polar.last_form == form
+    else:
+        assert tpa.batched_gram_polar.last_form.endswith(
+            "iterate streamed from L2" if r > tpa.NS_SMEM_MAX_R else "a machine")
+
+
+def test_newton_schulz_group_kernels_have_no_spills(dev):
+    """ptxas: B3's Newton-Schulz kernel (both grouped forms in one
+    instance) and both instances of B7's hop kernel spill nothing."""
+    from repro_torch.kernels import _build
+
+    for source, kernel, count in (("procrustes_align.cu", "ns_group_kernel", 1),
+                                  ("fused_ring_remote.cu", "remote_hop_kernel", 2)):
+        usage = {k: u for k, u in _build.ptxas_usage(source).items() if kernel in k}
+        assert len(usage) == count, usage
+        for name, u in usage.items():
+            assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
+
+
 def test_round_kernels_give_the_same_bits_twice(dev):
     """B2, B3, B5 and B6 (every wire) sum in a fixed order: a second call
     gives the same bits."""
@@ -302,6 +353,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tpa.batched_gram(vs, vs[0].T.contiguous())  # wrong shape
     with pytest.raises(ValueError):
         tpa.align_average(vs, torch.zeros(2, 4, 4, device=dev).mT)
+    wide = torch.zeros(1, 8, tpa.NS_GROUP_MAX_R + 1, device=dev)
+    with pytest.raises(ValueError):  # past the grouped Newton-Schulz form
+        tpa.batched_gram_polar(wide, wide[0])
 
 
 def _hold_round(got, want):
@@ -799,15 +853,17 @@ def test_fused_ring_round_remote_kernel_one_card(dev, tmp_path, world):
     """B7 in a world of rank processes sharing one card (gloo for the
     plain version's hops, CUDA IPC for the kernel's): each rank's round
     against its plain version and against B6's plain version on the stack
-    in its hop order, three rounds reusing the mapped buffers."""
-    shapes = [(205, 5), (1000, 7)]
+    in its hop order, three rounds reusing the mapped buffers; at r = 128
+    the hops' polar step runs on a group of blocks."""
+    shapes = [(205, 5), (1000, 7), (1000, 128)]
     res = _remote_world(tmp_path, world, {"mode": "check", "shapes": shapes, "rounds": 3})
     _hold_remote(res, shapes, 3)
 
 
 def test_fused_ring_round_remote_kernel_past_shared_memory(dev, tmp_path):
-    """B7 at r = 137, 192 and 256 (Newton-Schulz and Cholesky tiles in the
-    global workspace), 2 ranks sharing the card, two rounds each."""
+    """B7 at r = 137, 192 and 256 (the hops' polar step streams its
+    iterate from L2, the Cholesky tiles live in the global workspace), 2
+    ranks sharing the card, two rounds each."""
     shapes = [(300, 137), (300, 192), (300, 256)]
     res = _remote_world(tmp_path, 2, {"mode": "check", "shapes": shapes, "rounds": 2})
     _hold_remote(res, shapes, 2)

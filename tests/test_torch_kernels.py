@@ -249,6 +249,112 @@ def test_round_plan_groups_cover_r(m, d, r, coresident):
     assert tpa._round_plan(8, 8192, 128, 132, rows1=2048)[1:3] == (512, 16)
 
 
+def _blocks_of(r, group):
+    """Each block's [first, last) iterate columns, as the device cuts them."""
+    cols = tpa._ns_cols(r, group)
+    return [(min(r, q * cols), min(r, (q + 1) * cols)) for q in range(group)]
+
+
+@pytest.mark.parametrize("m,r", [
+    (8, 128), (8, 192), (8, 256), (3, 5), (3, 137), (1, 7), (33, 128), (33, 137),
+    (200, 16), (200, 256), (4, 136), (8, 255), (1, 2248), (17, 130),
+])
+@pytest.mark.parametrize("coresident", [132, 264, 114, 8, 1])
+def test_polar_plan_groups_cover_r(m, r, coresident):
+    """B3's Newton-Schulz launch: a grid of whole groups no larger than the
+    card holds at once; every machine's group has at least one block, each
+    block has columns, together they cover r (a multiple of 4 each past
+    NS_SMEM_MAX_R, the streamed form's aligned reads), at least
+    _NS_GROUP_COLS (_NS_WIDE_COLS streamed) each unless the group is one
+    block; and when the groups are fewer than the machines they take the
+    machines in turn, each machine once."""
+    grid, group = tpa._polar_plan(m, r, coresident)
+    assert 1 <= group <= grid <= coresident and grid % group == 0
+    spans = _blocks_of(r, group)
+    assert spans[0][0] == 0 and spans[-1][1] == r
+    assert all(a < b for a, b in spans) and all(
+        b == c for (_, b), (c, _) in zip(spans, spans[1:]))
+    wide = r > tpa.NS_SMEM_MAX_R
+    if wide:
+        assert tpa._ns_cols(r, group) % 4 == 0
+    if group > 1:
+        fewest = tpa._NS_WIDE_COLS if wide else tpa._NS_GROUP_COLS
+        assert tpa._ns_cols(r, group) >= min(fewest, r)
+    groups = grid // group
+    taken = sorted(z for j in range(groups) for z in range(j, m, groups))
+    assert taken == list(range(m))
+    assert groups == min(m, coresident // group)
+    if (m, r, coresident) in ((8, 128, 132), (8, 256, 132)):
+        assert (grid, group) == (128, 16)
+
+
+@pytest.mark.parametrize("d,r", [(8192, 128), (1000, 7), (205, 5), (300, 137),
+                                 (300, 192), (300, 256), (96, 4), (1, 1)])
+@pytest.mark.parametrize("coresident", [132, 114, 8])
+def test_hop_plan_covers_d_and_r(d, r, coresident):
+    """B7's hop launch: the round's plan for one machine (both d-splits
+    cover d, a grid the card holds), and the polar step on a group of the
+    grid's blocks, each with columns, together covering r."""
+    grid, rows1, splits1, rows2, splits2, group = tpa._hop_plan(d, r, coresident)
+    assert 1 <= group <= grid <= coresident
+    for rows, splits in ((rows1, splits1), (rows2, splits2)):
+        assert (splits - 1) * rows < d <= splits * rows
+    spans = _blocks_of(r, group)
+    assert spans[-1][1] == r and all(a < b for a, b in spans)
+    assert (grid, rows1, splits1) == tpa._round_plan(1, d, r, coresident)[:3]
+    if (d, r, coresident) == (8192, 128, 132):
+        assert group == 16
+
+
+def test_round_plan_keeps_its_groups():
+    """B5/B6 keep their plan: the grouped rule up to NS_SMEM_MAX_R (shared
+    with B3's and B7's plans), one block a machine past it."""
+    for m, r, blocks in ((8, 128, 132), (33, 128, 132), (3, 5, 132), (200, 16, 132),
+                         (4, 136, 114)):
+        want = max(1, min(blocks // m, -(-r // tpa._NS_GROUP_COLS)))
+        assert tpa._round_plan(m, 8192, r, blocks)[5] == -(-r // -(-r // want))
+    assert tpa._round_plan(8, 8192, 256, 132)[5] == 1
+
+
+def test_watch_bounds_each_hop():
+    """The host's watch over B7's hop events: it returns None once every
+    hop is done, and the index of the first hop that stays pending past
+    ``wait_s`` after the previous hop was seen done."""
+
+    class Clock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    class Hop:
+        def __init__(self, clock, at):
+            self.clock, self.at = clock, at
+
+        def query(self):
+            self.clock.t += 1.0  # one second passes at every poll
+            return self.at is not None and self.clock.t >= self.at
+
+    clock = Clock()
+    assert tpa._watch([Hop(clock, 3), Hop(clock, 9), Hop(clock, 14)], 10.0,
+                      clock=clock, pause=0.0) is None
+    clock = Clock()
+    assert tpa._watch([Hop(clock, 3), Hop(clock, None), Hop(clock, 5)], 10.0,
+                      clock=clock, pause=0.0) == 1
+    clock = Clock()
+    assert tpa._watch([Hop(clock, 30)], 10.0, clock=clock, pause=0.0) == 0
+    assert tpa._watch([], 1.0) is None
+
+
+def test_ns_form_names_every_form():
+    assert tpa._ns_form(0) == "one block a machine, workspace tiles"
+    assert tpa._ns_form(1) == "one block a machine, shared-memory tiles"
+    assert tpa._ns_form(16) == "grouped, 16 blocks a machine"
+    assert tpa._ns_form(-1) == "one block a machine, iterate streamed from L2"
+    assert tpa._ns_form(-16) == "grouped, 16 blocks a machine, iterate streamed from L2"
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError):

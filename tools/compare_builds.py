@@ -1,7 +1,7 @@
 """Compare the port's kernels of two checkouts bit for bit on the card.
 
     PYTHONPATH=<checkout>/src python3 tools/compare_builds.py save OUT.pt
-    PYTHONPATH=<checkout>/src python3 tools/compare_builds.py diff A.pt B.pt
+    PYTHONPATH=<checkout>/src python3 tools/compare_builds.py diff A.pt B.pt [NAME ...]
 
 ``save`` runs B1-B8 of the checkout whose ``src`` is on the path (built
 into that checkout's own build directory) on inputs drawn from seed 0:
@@ -15,7 +15,11 @@ bf16 and f32, causal; and the three stacked main-path lanes of
 it draws them): the local bases and each lane's estimate.  ``diff`` also
 prints the f64 subspace distance of each lane's two estimates.  ``diff`` prints for
 each output whether the two sets hold the same bits and the largest
-difference, and exits 1 if any output differs.  Needs a Hopper card.
+difference, and exits 1 if any output differs, except those whose label
+contains one of the NAMEs (a change that moves those bits on purpose,
+e.g. ``B3 B7 "lane newton-schulz/qr"``): they are reported, and a lane
+among them must stay within 1e-4 f64 subspace distance.  Needs a Hopper
+card.
 """
 
 from __future__ import annotations
@@ -103,30 +107,32 @@ def stacked_lanes(dev) -> dict:
     return res
 
 
-def diff(a_path: str, b_path: str) -> int:
+def diff(a_path: str, b_path: str, may_differ=()) -> int:
     from repro_torch.core.metrics import subspace_dist64
 
     a, b = torch.load(a_path), torch.load(b_path)
     if a.keys() != b.keys():
         print(f"the two sets hold different outputs: {sorted(a.keys() ^ b.keys())}")
         return 1
-    differ = 0
+    bad = 0
     for k in a:
         same = torch.equal(a[k], b[k])
-        differ += not same
-        sd = (f"  subspace_dist64 {subspace_dist64(a[k], b[k]):.3e}"
-              if k.startswith("lane ") else "")
+        allowed = any(name in k for name in may_differ)
+        sd = subspace_dist64(a[k], b[k]) if k.startswith("lane ") else None
+        bad += not same and (not allowed or (sd is not None and sd > 1e-4))
+        note = "" if same or not allowed else "  (may differ)"
         print(f"[compare] {k:<24} same bits {same}  "
-              f"max|diff| {(a[k] - b[k]).abs().max().item():.3e}{sd}")
-    return int(differ > 0)
+              f"max|diff| {(a[k] - b[k]).abs().max().item():.3e}"
+              f"{'' if sd is None else f'  subspace_dist64 {sd:.3e}'}{note}")
+    return int(bad > 0)
 
 
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "save":
         save(argv[1])
         return 0
-    if len(argv) == 3 and argv[0] == "diff":
-        return diff(argv[1], argv[2])
+    if len(argv) >= 3 and argv[0] == "diff":
+        return diff(argv[1], argv[2], argv[3:])
     print(__doc__, file=sys.stderr)
     return 2
 
