@@ -54,7 +54,7 @@ __all__ = [
 
 COMM_BITS = (32, 16, 8)
 
-# Knob spellings; "auto" needs the planner (ROADMAP A7) and is refused.
+# Knob spellings; "auto" is resolved by the planner (``repro_torch.plan``).
 COMM_BITS_CHOICES = ("32", "16", "8", "auto")
 
 # f64 subspace distance to the serial f32 oracle, by wire tier.
@@ -65,14 +65,16 @@ _SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant mixing the seed parts
 
 
 def resolve_comm_bits(comm_bits) -> int:
-    """Normalise a ``comm_bits`` knob (None -> 32, int or digit string)."""
+    """Normalise a ``comm_bits`` knob (None -> 32, int or digit string).
+    ``"auto"`` is a planner request: ``resolve_plan`` consumes it before
+    the codecs see it."""
     if comm_bits is None:
         return 32
     if isinstance(comm_bits, str):
         if comm_bits == "auto":
-            raise NotImplementedError(
-                "comm_bits='auto' needs the cost-model planner, not ported "
-                "yet (ROADMAP A7); pass 32, 16 or 8"
+            raise ValueError(
+                "comm_bits='auto' must be resolved by the planner "
+                "(resolve_plan / plan_aggregation), not by the codec layer"
             )
         if not comm_bits.isdigit():
             raise ValueError(

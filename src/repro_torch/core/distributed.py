@@ -7,7 +7,9 @@ Two forms of the same estimator:
     leading axis of an (m, d, r) stack on one device; each shard forms its
     covariance and local basis and the stacked rounds follow
     (``refinement_rounds``).  This is the reference's gather topology after
-    its all-gather, so "gather" (and "auto") is its only schedule.
+    its all-gather, so "gather" (and "auto") is its only schedule; with
+    ``comm_bits`` each basis passes the gather wire's codec, and
+    ``membership`` drops dead shards, as the collective gather does.
   * ``distributed_pca_collective`` (one shard per rank, e.g. under
     ``torchrun``): each rank passes its own (n_local, d) shard, forms its
     basis, and ``procrustes_average_collective`` aggregates over the
@@ -34,6 +36,11 @@ local group as ``group`` and the pod group as ``pod_group``
 ``distributed_pca_from_covs`` starts from each rank's pre-formed local
 matrix instead of its samples (the paper's abstract setting), with an
 optional ``ref``.
+
+Every entry point takes ``plan=None|"auto"|Plan`` and resolves the knobs
+once through ``repro_torch.plan.resolve_plan`` (``None``: the per-knob
+defaults above; ``"auto"``: the cost-model planner decides the free
+knobs, priced at the survivor count of ``membership``).
 """
 
 from __future__ import annotations
@@ -45,13 +52,12 @@ from repro_torch.comm import transport
 from repro_torch.comm.membership import Membership, resolve_membership
 from repro_torch.comm.quantize import (
     get_codec,
-    resolve_comm_bits,
     shard_generator,
     wire_broadcast,
     wire_psum_mean,
 )
 from repro_torch.comm.hier import hier_rounds
-from repro_torch.comm.ring import DEFAULT_RING_CHUNK, fused_ring_rounds, ring_rounds
+from repro_torch.comm.ring import fused_ring_rounds, ring_rounds
 from repro_torch.comm.topology import (
     TOPOLOGY_CHOICES,
     broadcast_from,
@@ -94,6 +100,21 @@ def resolve_stacked_topology(topology: str | None) -> str:
     raise ValueError(f"topology must be one of {TOPOLOGY_CHOICES}, got {topology!r}")
 
 
+def _machines(group, pod_group, topology) -> tuple[int, int | None]:
+    """(machines, pods) of an aggregation over ``group`` and, under the
+    hier topology, ``pod_group`` (pods x local ranks)."""
+    if topology == "hier" and pod_group is None:
+        raise ValueError(
+            "topology='hier' and pod_group= go together: the two-level "
+            "schedule needs the (pod, local) groups (got pod_group=None)"
+        )
+    local = dist.get_world_size(group)
+    if pod_group is None:
+        return local, None
+    pods = dist.get_world_size(pod_group)
+    return pods * local, pods
+
+
 def procrustes_average_collective(
     v_local: torch.Tensor,
     *,
@@ -117,24 +138,32 @@ def procrustes_average_collective(
     (default "torch"), ``polar`` (default "svd"), ``orth`` (default
     "qr"), ``topology`` "psum" | "gather" | "ring" | "hier" | "auto",
     ``ring_chunk`` rows per ring message (default ``DEFAULT_RING_CHUNK``),
-    ``comm_bits`` 32 | 16 | 8 (default 32), ``membership`` the active-rank
-    mask (``None``: all alive).  ``topology="hier"`` and ``pod_group`` go
-    together: ``group`` is then this rank's pod-local group and
-    ``pod_group`` its slot's group across pods, the machines are all
-    pods x local ranks (pod-major), and ``membership`` is over them.
-    ``plan`` takes only ``None``: the planner is ROADMAP A7.  Returns the
-    (d, r) estimate, the same on every rank.
+    ``comm_bits`` 32 | 16 | 8 | "auto" (default 32), ``membership`` the
+    active-rank mask (``None``: all alive).  ``topology="hier"`` and
+    ``pod_group`` go together: ``group`` is then this rank's pod-local
+    group and ``pod_group`` its slot's group across pods, the machines are
+    all pods x local ranks (pod-major), and ``membership`` is over them.
+    ``plan`` ``None`` | ``"auto"`` | a ``repro_torch.plan.Plan`` resolves
+    the knobs (``repro_torch.plan.resolve_plan``; "auto" plans the free
+    ones, concrete knobs are pins, priced at the survivor count).  Returns
+    the (d, r) estimate, the same on every rank.
     """
     from repro_torch.kernels import ops as kops
+    from repro_torch.plan.planner import resolve_plan  # the planner sits above
 
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= needs the cost-model planner, not ported yet (ROADMAP A7)"
-        )
-    backend = kops.resolve_backend(backend or "torch", v_local.device)
-    polar = procrustes.resolve_polar(polar or "svd")
-    orth = resolve_orth(orth or "qr")
-    topo = resolve_topology(topology, backend)
+    d, r = v_local.shape
+    m, pods = _machines(group, pod_group, topology)
+    mem = resolve_membership(membership, m)
+    pl = resolve_plan(
+        plan, m=m, d=d, r=r, n_iter=n_iter, backend=backend, topology=topology,
+        polar=polar, orth=orth, ring_chunk=ring_chunk, comm_bits=comm_bits,
+        ref_broadcast=ref is None, membership=mem, pods=pods,
+        tensor_device=v_local.device,
+    )
+    backend = pl.backend
+    polar = procrustes.resolve_polar(pl.polar)
+    orth = resolve_orth(pl.orth)
+    topo = resolve_topology(pl.topology, backend)
     if (topo == "hier") != (pod_group is not None):
         raise ValueError(
             "topology='hier' and pod_group= go together: the two-level "
@@ -142,16 +171,14 @@ def procrustes_average_collective(
             f"spans two (got topology={topo!r}, pod_group="
             f"{'set' if pod_group is not None else None})"
         )
-    chunk = DEFAULT_RING_CHUNK if ring_chunk is None else ring_chunk
-    bits = resolve_comm_bits(comm_bits)
+    chunk, bits = pl.ring_chunk, pl.comm_bits
     if topo == "hier":
         return hier_rounds(
             v_local, ref, local_group=group, pod_group=pod_group,
             n_iter=n_iter, backend=backend, polar=polar, orth=orth,
-            chunk=chunk, comm_bits=bits, membership=membership,
+            chunk=chunk, comm_bits=bits, membership=mem,
         )
     rank = dist.get_rank(group)
-    mem = resolve_membership(membership, dist.get_world_size(group))
     codec = get_codec(bits)
     dev = v_local.device
     if topo == "gather":
@@ -224,6 +251,18 @@ def _local_basis(x, r, *, backend, solver, iters):
     )[0]
 
 
+def _gather_codec(v: torch.Tensor, codec, shard: int) -> torch.Tensor:
+    """Shard ``shard``'s basis as the gather topology's wire delivers it:
+    encoded with the collective gather's generator (``_GATHER_SALT``, the
+    shard, round 0), decoded, in ``v``'s dtype."""
+    if not codec.lossy:
+        return v
+    gen = (shard_generator(_GATHER_SALT, shard, 0, v.device)
+           if codec.stochastic else None)
+    data, scale = codec.encode(v.to(torch.float32), gen)
+    return codec.decode(data, scale).to(v.dtype)
+
+
 def distributed_pca(
     samples: torch.Tensor,
     r: int,
@@ -237,38 +276,52 @@ def distributed_pca(
     polar: str | None = None,
     orth: str | None = None,
     topology: str | None = None,
+    comm_bits=None,
+    plan=None,
+    membership: Membership | None = None,
 ) -> torch.Tensor:
     """One-process (stacked) distributed PCA.
 
     ``samples`` (N, d) split into ``shards`` equal row blocks (the
-    machines); each forms its covariance and top-r basis (``solver``
-    "eigh" or "subspace" with ``iters`` steps), then ``n_iter`` rounds
-    align, average and orthonormalize the (shards, d, r) stack.
-    ``backend`` ("torch" | "cuda" | "auto", default "torch") routes both
-    the covariance and the rounds; ``polar``/``orth`` as in
-    ``refinement_rounds``; ``topology`` "gather"/"auto" only.  Runs on
-    ``device`` (default the card; raises if there is none).  Returns the
-    (d, r) estimate.
+    machines); each live one forms its covariance and top-r basis
+    (``solver`` "eigh" or "subspace" with ``iters`` steps), then ``n_iter``
+    rounds align, average and orthonormalize the stack.  ``backend``
+    ("torch" | "cuda" | "auto", default "torch") routes both the
+    covariance and the rounds; ``polar``/``orth`` as in
+    ``refinement_rounds``; ``topology`` "gather"/"auto" only.
+    ``comm_bits`` (32 | 16 | 8) passes each basis through the gather
+    topology's wire codec, with the collective gather's generators, so
+    the stack is the one ``distributed_pca_collective`` gathers;
+    ``membership`` drops the dead shards from the stack (the first
+    survivor's basis is the reference).  ``plan`` (``None`` | ``"auto"`` |
+    a ``Plan``) resolves the knobs once here, in the stacked context, and
+    routes the covariance stage too.  Runs on ``device`` (default the
+    card; raises if there is none).  Returns the (d, r) estimate.
     """
-    from repro_torch.kernels import ops as kops
+    from repro_torch.plan.planner import resolve_plan
 
     dev = resolve_device(device)
     strict_fp32()
-    resolve_stacked_topology(topology)
     n_total, d = samples.shape
     if shards < 1 or n_total % shards:
         raise ValueError(
             f"{n_total} samples do not split into {shards} equal shards"
         )
-    backend = kops.resolve_backend(backend or "torch", dev)
+    resolve_stacked_topology(getattr(plan, "topology", topology))
+    mem = resolve_membership(membership, shards)
+    pl = resolve_plan(
+        plan, m=shards, d=d, r=r, n_iter=n_iter, backend=backend, polar=polar,
+        orth=orth, comm_bits=comm_bits, context="stacked", membership=mem,
+        tensor_device=dev,
+    )
+    codec = get_codec(pl.comm_bits)
     xs = samples.to(dev).reshape(shards, n_total // shards, d)
     vs = torch.stack([
-        _local_basis(x, r, backend=backend, solver=solver, iters=iters)
-        for x in xs
+        _gather_codec(_local_basis(xs[i], r, backend=pl.backend, solver=solver,
+                                   iters=iters), codec, i)
+        for i in mem.indices
     ])
-    return refinement_rounds(
-        vs, n_iter=n_iter, backend=backend, polar=polar, orth=orth
-    )
+    return refinement_rounds(vs, n_iter=n_iter, plan=pl)
 
 
 def distributed_pca_collective(
@@ -286,25 +339,32 @@ def distributed_pca_collective(
     topology: str | None = None,
     ring_chunk: int | None = None,
     comm_bits=None,
+    plan=None,
     membership: Membership | None = None,
     pod_group=None,
 ) -> torch.Tensor:
     """Distributed PCA with one shard per rank of ``group``: this rank's
     (n_local, d) ``x_local`` gives its covariance and top-r basis on
     ``device``, and ``procrustes_average_collective`` aggregates (knobs,
-    and ``pod_group`` with ``topology="hier"``, as there).  Returns the
-    (d, r) estimate on every rank."""
-    from repro_torch.kernels import ops as kops
+    and ``pod_group`` with ``topology="hier"``, as there).  ``plan`` is
+    resolved once here, so a planned backend also routes the covariance.
+    Returns the (d, r) estimate on every rank."""
+    from repro_torch.plan.planner import resolve_plan
 
     dev = resolve_device(device)
     strict_fp32()
-    backend = kops.resolve_backend(backend or "torch", dev)
-    v = _local_basis(x_local.to(dev), r, backend=backend, solver=solver,
+    m, pods = _machines(group, pod_group, topology)
+    mem = resolve_membership(membership, m)
+    pl = resolve_plan(
+        plan, m=m, d=x_local.shape[-1], r=r, n_iter=n_iter, backend=backend,
+        topology=topology, polar=polar, orth=orth, ring_chunk=ring_chunk,
+        comm_bits=comm_bits, membership=mem, pods=pods, tensor_device=dev,
+    )
+    v = _local_basis(x_local.to(dev), r, backend=pl.backend, solver=solver,
                      iters=iters)
     return procrustes_average_collective(
-        v, group=group, n_iter=n_iter, backend=backend, polar=polar, orth=orth,
-        topology=topology, ring_chunk=ring_chunk, comm_bits=comm_bits,
-        membership=membership, pod_group=pod_group,
+        v, group=group, n_iter=n_iter, plan=pl, membership=mem,
+        pod_group=pod_group,
     )
 
 
@@ -323,6 +383,7 @@ def distributed_pca_from_covs(
     topology: str | None = None,
     ring_chunk: int | None = None,
     comm_bits=None,
+    plan=None,
     membership: Membership | None = None,
     pod_group=None,
     ref: torch.Tensor | None = None,
@@ -332,19 +393,28 @@ def distributed_pca_from_covs(
     with one machine per rank of ``group``: ``cov_local`` is this rank's
     (d, d) matrix, or a (k, d, d) block whose mean it takes.  Its top-r
     basis on ``device`` goes to ``procrustes_average_collective`` (knobs,
-    and ``pod_group`` with ``topology="hier"``, as there).  ``ref``
-    optionally supplies the (d, r) alignment reference, the same on every
-    rank, in place of the first live rank's basis (no reference broadcast
-    then).  Returns the (d, r) estimate on every rank."""
+    ``plan`` and ``pod_group`` with ``topology="hier"``, as there; the
+    plan is resolved once here).  ``ref`` optionally supplies the (d, r)
+    alignment reference, the same on every rank, in place of the first
+    live rank's basis (no reference broadcast then).  Returns the (d, r)
+    estimate on every rank."""
+    from repro_torch.plan.planner import resolve_plan
+
     dev = resolve_device(device)
     strict_fp32()
     cov = cov_local.to(dev)
     if cov.dim() == 3:
         cov = cov.mean(dim=0)
+    m, pods = _machines(group, pod_group, topology)
+    mem = resolve_membership(membership, m)
+    pl = resolve_plan(
+        plan, m=m, d=cov.shape[-1], r=r, n_iter=n_iter, backend=backend,
+        topology=topology, polar=polar, orth=orth, ring_chunk=ring_chunk,
+        comm_bits=comm_bits, ref_broadcast=ref is None, membership=mem,
+        pods=pods, tensor_device=dev,
+    )
     v, _ = local_eigenbasis(cov, r, method=solver, iters=iters)
     return procrustes_average_collective(
         v, group=group, n_iter=n_iter, ref=None if ref is None else ref.to(dev),
-        backend=backend, polar=polar, orth=orth, topology=topology,
-        ring_chunk=ring_chunk, comm_bits=comm_bits, membership=membership,
-        pod_group=pod_group,
+        plan=pl, membership=mem, pod_group=pod_group,
     )

@@ -15,8 +15,10 @@ by ``backend=`` ("torch" | "cuda" | "auto"), ``polar=`` ("svd" |
     launch of the fused round kernel (``kops.fused_round``, B5): Gram,
     polar, aligned average and both CholeskyQR passes in one kernel, with
     no torch op between rounds.
-  * ``plan=`` takes only ``None`` (the legacy defaults "torch", "svd",
-    "qr"); the cost-model planner is ROADMAP A7.
+  * ``plan=None`` keeps the defaults ("torch", "svd", "qr");
+    ``plan="auto"`` lets the cost-model planner (``repro_torch.plan``)
+    score the (backend x polar x orth) cube for this (m, d, r), concrete
+    knobs as pins; a ``repro_torch.plan.Plan`` is used verbatim.
 """
 
 from __future__ import annotations
@@ -102,19 +104,19 @@ def refinement_rounds(
 ) -> torch.Tensor:
     """Run the Algorithm-1 body (align to ``ref``, average, orthonormalize)
     ``n_iter`` times over a stacked (m, d, r) ``vs``, each output the next
-    reference (Algorithm 2).  ``ref`` defaults to ``vs[0]``."""
-    from repro_torch.kernels import ops as kops
+    reference (Algorithm 2).  ``ref`` defaults to ``vs[0]``.  ``plan``
+    resolves the knobs through ``repro_torch.plan.resolve_plan`` in the
+    stacked context (see the module docstring)."""
+    from repro_torch.plan.planner import resolve_plan
 
-    if plan == "auto":
-        raise NotImplementedError(
-            "plan='auto' needs the cost-model planner, not ported yet "
-            "(ROADMAP A7); pass the knobs explicitly"
-        )
-    if plan is not None:
-        raise ValueError(f"plan must be None (or 'auto', ROADMAP A7), got {plan!r}")
-    backend = kops.resolve_backend(backend or "torch", vs.device)
-    polar = procrustes.resolve_polar(polar or "svd")
-    orth = resolve_orth(orth or "qr")
+    m, d, r = vs.shape
+    pl = resolve_plan(
+        plan, m=m, d=d, r=r, n_iter=n_iter, backend=backend, polar=polar,
+        orth=orth, context="stacked", tensor_device=vs.device,
+    )
+    backend = pl.backend
+    polar = procrustes.resolve_polar(pl.polar)
+    orth = resolve_orth(pl.orth)
     if ref is None:
         ref = vs[0]
     rounds = _rounds_cuda if backend == "cuda" else _rounds_torch

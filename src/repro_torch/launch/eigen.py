@@ -16,9 +16,21 @@ One shard per rank, any topology, under ``torchrun``::
 (the two go together) splits the ranks into p pods, pod-major.
 
 Draws (M1) Gaussian data from a seed, runs Procrustes-fixed distributed
-PCA, and prints the reference's keys: the resolved knobs and the subspace
-distances of the distributed, centralized, naive and first-local
-estimates to the truth, plus the wall time of the distributed estimate.
+PCA, and prints the reference's keys: the resolved plan (knobs, its
+source and its predicted words and bits) and the subspace distances of
+the distributed, centralized, naive and first-local estimates to the
+truth, plus the wall time of the distributed estimate.
+
+``--plan auto`` hands the free knobs to the cost-model planner
+(``repro_torch.plan``; flags passed explicitly are pins, and the wire
+precision is planned only under ``--comm-bits auto``), in the stacked
+context in one process and the collective context under ``torchrun``;
+``--explain`` prints the scored table first; ``--calibrate FILE``
+refines the planner's constants from a recorded ``bench_aggregate``
+sweep.  ``--fail-at "k:t[,k:t]"`` kills shard k before round t and runs
+the elastic runtime (``repro_torch.runtime.elastic``), which re-plans at
+the survivor count and adds ``replans``, ``final_m_active`` and
+``events`` to the report.
 Shard k's rows come from a generator seeded from (seed, k)
 (``synthetic.sample_shard``), so both forms estimate from the same data.
 Under ``torchrun`` rank 0 prints, adding the rank count, the transport
@@ -26,8 +38,8 @@ rule (``launch.mesh.transport_rule``) and the bytes staged through host
 memory.  ``--device`` defaults to the card; ``--backend auto`` runs the
 CUDA kernels there.
 
-Flags of later slices of the port are refused and name their ROADMAP
-item (the planner, the elastic runtime, streaming).
+``--stream`` and ``--cadence`` (streaming, a later slice of the port) are
+refused and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,8 +51,6 @@ import time
 import torch
 
 from repro_torch.comm import transport
-from repro_torch.comm.quantize import resolve_comm_bits
-from repro_torch.comm.topology import TOPOLOGY_CHOICES, resolve_topology
 from repro_torch.core import (
     central_estimate,
     dist_2,
@@ -51,18 +61,22 @@ from repro_torch.core import (
     naive_average,
 )
 from repro_torch.core.distributed import resolve_stacked_topology
-from repro_torch.core.orthonorm import ORTH_METHODS
-from repro_torch.core.procrustes import POLAR_METHODS
 from repro_torch.data import synthetic as syn
 from repro_torch.interop import resolve_device, strict_fp32
-from repro_torch.kernels.ops import BACKENDS, resolve_backend
+from repro_torch.plan import (
+    BACKEND_CHOICES,
+    COMM_BITS_CHOICES,
+    ORTH_CHOICES,
+    PLAN_CHOICES,
+    POLAR_CHOICES,
+    TOPOLOGY_CHOICES,
+    explain as explain_plan,
+    load_calibration,
+    resolve_plan,
+)
 
-# Reference flags that belong to later slices, with their ROADMAP item.
+# Reference flags that belong to a later slice, with their ROADMAP item.
 _LATER_FLAGS = {
-    "--plan": ("A7", 1),
-    "--explain": ("A7", 0),
-    "--calibrate": ("A7", 1),
-    "--fail-at": ("A8", 1),
     "--stream": ("A9", 1),
     "--cadence": ("A9", 1),
 }
@@ -85,6 +99,10 @@ def run(
     orth: str | None = None,
     topology: str | None = None,
     comm_bits=None,
+    plan=None,
+    explain: bool = False,
+    calibration=None,
+    fail_at: str | None = None,
     agg=None,
 ):
     """Draw the data, run the estimate, and return (v_dist, stats).
@@ -92,9 +110,14 @@ def run(
     ``agg`` (a ``launch.mesh.AggregationGroup``) runs the collective form,
     this rank on shard ``agg.rank`` of ``agg.world``; without it the
     ``shards`` shards are stacked in this process.  ``topology="hier"``
-    and an ``agg`` made with ``pods=`` go together.  Under ``agg`` only
+    and an ``agg`` made with ``pods=`` go together.  The plan is resolved
+    once here (``plan``, ``calibration``; ``explain`` prints its table on
+    rank 0), and ``fail_at`` runs the elastic runtime.  Under ``agg`` only
     rank 0 returns stats (None elsewhere): it regenerates every shard
     from the data rule for the centralized, naive and local baselines."""
+    from repro_torch.runtime.elastic import elastic_pca, elastic_pca_collective
+    from repro_torch.runtime.fault import FailureInjector
+
     pods = None if agg is None else agg.pods
     if (topology == "hier") != (pods is not None):
         raise ValueError(
@@ -102,48 +125,65 @@ def run(
             f"needs the (pod, local) groups; got topology={topology!r}, "
             f"pods={pods!r})"
         )
+    if fail_at and pods is not None:
+        raise ValueError(
+            "--fail-at composes with the flat topologies only (the elastic "
+            "runtime re-plans at the survivor count, which need not tile "
+            "into pods)"
+        )
     dev = agg.device if agg is not None else resolve_device(device)
     strict_fp32()
+    shards = shards if agg is None else agg.world
+    knobs = dict(backend=backend, polar=polar, orth=orth, comm_bits=comm_bits)
+    if agg is None:
+        resolve_stacked_topology(topology)
+        where = dict(context="stacked")
+    else:
+        where = dict(topology=topology, pods=pods)
+    pl = resolve_plan(plan, m=shards, d=d, r=r, n_iter=n_iter, calibration=calibration,
+                      tensor_device=dev, **knobs, **where)
+    kind = pl.device_kind  # the kind planned for: where the tensors live
+    if explain and (agg is None or agg.rank == 0):
+        print(explain_plan(m=shards, d=d, r=r, n_iter=n_iter, device_kind=kind,
+                           calibration=calibration, plan=pl, **knobs, **where)[1])
+    injector = (FailureInjector(fail_at=FailureInjector.parse_fail_spec(fail_at))
+                if fail_at else None)
     gen = torch.Generator(device=dev).manual_seed(seed)
     tau = syn.spectrum_m1(d, r, delta=delta, device=dev)
     _, u, factor = syn.covariance_from_spectrum(tau, generator=gen)
     v1 = u[:, :r]
-    backend = resolve_backend(backend or "torch", dev)
-    bits = resolve_comm_bits(comm_bits)
+    est = dict(n_iter=n_iter, solver=solver, iters=iters, plan=pl)
+    elastic = dict(injector=injector, calibration=calibration, device_kind=kind)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    report = None
     if agg is None:
-        topo = resolve_stacked_topology(topology)
-        if bits != 32:
-            raise ValueError(
-                "comm_bits below 32 quantizes a wire, and the stacked form has "
-                "none: run the launcher under torchrun"
-            )
         samples = syn.sample_shards(factor, n_per_shard, seed=seed, shards=shards)
         t0 = time.perf_counter()
-        v_dist = distributed_pca(
-            samples, r, shards=shards, device=dev, n_iter=n_iter,
-            solver=solver, iters=iters, backend=backend, polar=polar,
-            orth=orth, topology=topo,
-        )
+        if injector is not None:
+            report = elastic_pca(samples, r, shards=shards, device=dev, **est,
+                                 **elastic)
+            v_dist = report.basis
+        else:
+            v_dist = distributed_pca(samples, r, shards=shards, device=dev, **est)
         sync()
         t_dist = time.perf_counter() - t0
     else:
-        topo = resolve_topology(topology, backend)
-        shards = agg.world
         x = syn.sample_shard(factor, n_per_shard, seed=seed, shard=agg.rank)
         transport.reset_staged_bytes()
         sync()
         t0 = time.perf_counter()
-        v_dist = distributed_pca_collective(
-            x, r, group=agg.local_group if pods else agg.group, device=dev,
-            n_iter=n_iter, solver=solver, iters=iters, backend=backend,
-            polar=polar, orth=orth, topology=topo, comm_bits=bits,
-            pod_group=agg.pod_group,
-        )
+        if injector is not None:
+            report = elastic_pca_collective(x, r, group=agg.group, device=dev,
+                                            **est, **elastic)
+            v_dist = report.basis
+        else:
+            v_dist = distributed_pca_collective(
+                x, r, group=agg.local_group if pods else agg.group, device=dev,
+                pod_group=agg.pod_group, **est)
         sync()
         t_dist = time.perf_counter() - t0
         if agg.rank != 0:
@@ -159,12 +199,17 @@ def run(
         "n": n_per_shard,
         "d": d,
         "r": r,
-        "backend": backend,
-        "polar": polar or "svd",
-        "orth": orth or "qr",
-        "topology": topo,
-        "pods": pods or 0,
-        "comm_bits": bits,
+        # The resolved plan (what ran).
+        "backend": pl.backend,
+        "polar": pl.polar,
+        "orth": pl.orth,
+        "topology": pl.topology,
+        "pods": pl.pods,
+        "ring_chunk": pl.ring_chunk,
+        "comm_bits": pl.comm_bits,
+        "plan_source": pl.source,
+        "predicted_words": pl.words,
+        "predicted_bits": pl.bits,
         "dist_aligned": float(dist_2(v_dist, v1)),
         "dist_central": float(dist_2(v_cent, v1)),
         "dist_naive": float(dist_2(naive_average(vs), v1)),
@@ -175,6 +220,16 @@ def run(
         stats["ranks"] = agg.world
         stats["transport"] = agg.rule
         stats["staged_bytes"] = transport.staged_bytes()
+    if report is not None:
+        stats["replans"] = report.replans
+        stats["final_m_active"] = report.final_membership.m_active
+        stats["events"] = [
+            f"round {e.round_index}: {e.reason} "
+            f"(m'={e.membership.m_active}, dead={list(e.membership.dead)}, "
+            f"plan={e.plan.backend}/{e.plan.topology}/{e.plan.polar}/"
+            f"{e.plan.orth}/{e.plan.comm_bits})"
+            for e in report.events
+        ]
     return v_dist, stats
 
 
@@ -204,24 +259,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-per-shard", type=int, default=1024)
     ap.add_argument("--n-iter", type=int, default=2)
     ap.add_argument("--solver", default="subspace", choices=["subspace", "eigh"])
-    ap.add_argument("--backend", default="auto", choices=BACKENDS,
+    ap.add_argument("--backend", default="auto", choices=BACKEND_CHOICES,
                     help="plain PyTorch, the hand-written CUDA kernels, or "
-                         "auto (the kernels on a CUDA device)")
-    ap.add_argument("--polar", default=None, choices=POLAR_METHODS,
+                         "auto (the kernels on a CUDA device; planned under "
+                         "--plan auto)")
+    ap.add_argument("--polar", default=None, choices=POLAR_CHOICES,
                     help="r x r polar factor: SVD (default) or Newton-Schulz "
-                         "(fused into the Gram kernel under cuda)")
-    ap.add_argument("--orth", default=None, choices=ORTH_METHODS,
+                         "(fused into the Gram kernel under cuda); auto: "
+                         "the planner's")
+    ap.add_argument("--orth", default=None, choices=ORTH_CHOICES,
                     help="per-round orthonormalization (default qr); with "
                          "cuda and newton-schulz, cholesky-qr2 runs each "
-                         "round as one fused kernel launch")
+                         "round as one fused kernel launch; auto: the "
+                         "planner's")
     ap.add_argument("--topology", default="auto", choices=TOPOLOGY_CHOICES,
                     help="psum, gather, ring or hier (with --pods) across "
                          "the ranks (under torchrun); one process stacks the "
-                         "shards (gather); auto: gather under cuda, else psum")
-    ap.add_argument("--comm-bits", default=None, choices=("32", "16", "8", "auto"),
-                    help="wire precision of the collectives under torchrun: "
-                         "32 exact, 16 bf16, 8 stochastic int8 with error "
-                         "feedback (auto needs the planner, ROADMAP A7)")
+                         "shards (gather); auto: gather under cuda, else psum "
+                         "(planned under --plan auto)")
+    ap.add_argument("--comm-bits", default=None, choices=COMM_BITS_CHOICES,
+                    help="wire precision: 32 exact, 16 bf16, 8 stochastic "
+                         "int8 (with error feedback across ranks; in one "
+                         "process each basis passes the gather wire's "
+                         "codec); auto: the planner trades it")
     ap.add_argument("--shards", type=int, default=None,
                     help="machines m in one process (default 8); under "
                          "torchrun the world size")
@@ -230,6 +290,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "tile the ranks; goes with --topology hier)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
+    ap.add_argument("--plan", default="none", choices=PLAN_CHOICES,
+                    help="auto: the cost-model planner (repro_torch.plan) "
+                         "picks every knob not passed (comm bits stay 32 "
+                         "unless --comm-bits auto); none: the per-knob "
+                         "defaults")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the planner's scored table (predicted words, "
+                         "bits, flops and roofline terms per cell, the chosen "
+                         "cell marked) before running")
+    ap.add_argument("--calibrate", default=None, metavar="BENCH_JSON",
+                    help="refine the planner's constants from a recorded "
+                         "bench_aggregate sweep of this device kind")
+    ap.add_argument("--fail-at", default=None, metavar="SHARD:ROUND[,..]",
+                    help="kill shard k before refinement round t ('2:1', "
+                         "'2:1,5:3'): the elastic runtime finishes over the "
+                         "survivors and re-plans at their count")
     for flag, (_, nargs) in _LATER_FLAGS.items():
         ap.add_argument(flag, nargs=nargs, action=_Later, help=argparse.SUPPRESS)
     return ap
@@ -238,10 +314,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    try:
-        resolve_comm_bits(args.comm_bits)
-    except NotImplementedError as exc:
-        ap.error(str(exc))
     if (args.topology == "hier") != (args.pods is not None):
         ap.error("--topology hier and --pods go together")
     agg = None
@@ -257,16 +329,18 @@ def main(argv=None):
     elif args.topology in ("psum", "ring", "hier"):
         ap.error(f"--topology {args.topology} runs across ranks: start the "
                  "launcher under torchrun")
-    elif args.comm_bits not in (None, "32"):
-        ap.error("--comm-bits below 32 quantizes a wire: start the launcher "
-                 "under torchrun")
+    calibration = load_calibration(args.calibrate) if args.calibrate else None
     try:
         _, stats = run(
             args.d, args.r, args.n_per_shard, shards=args.shards or 8,
             n_iter=args.n_iter, solver=args.solver, device=args.device,
             backend=args.backend, polar=args.polar, orth=args.orth,
-            topology=args.topology, comm_bits=args.comm_bits, agg=agg,
+            topology=args.topology, comm_bits=args.comm_bits,
+            plan="auto" if args.plan == "auto" else None, explain=args.explain,
+            calibration=calibration, fail_at=args.fail_at, agg=agg,
         )
+    except ValueError as exc:
+        ap.error(str(exc))
     finally:
         if agg is not None:
             import torch.distributed as dist

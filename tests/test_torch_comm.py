@@ -37,8 +37,11 @@ def test_registry_and_resolution():
     assert tq.COMM_BITS == jq.COMM_BITS and tq.PARITY_TOL == jq.PARITY_TOL
     assert tq.COMM_BITS_CHOICES == jq.COMM_BITS_CHOICES
     assert tq.resolve_comm_bits(None) == 32 and tq.resolve_comm_bits("16") == 16
-    with pytest.raises(NotImplementedError, match="A7"):
+    # "auto" is a planner request, consumed by resolve_plan before any codec.
+    with pytest.raises(ValueError, match="planner"):
         tq.resolve_comm_bits("auto")
+    with pytest.raises(ValueError, match="planner"):
+        jq.resolve_comm_bits("auto")
     for bad in (12, "12", "fast"):
         with pytest.raises(ValueError):
             tq.resolve_comm_bits(bad)

@@ -898,3 +898,28 @@ def test_fused_ring_round_remote_refusals(dev):
         tpa.fused_ring_round_remote(v.T, v.T, group=None)  # not contiguous
     with pytest.raises(ValueError):
         tpa.fused_ring_round_remote(v, v.cpu(), group=None)
+
+
+@pytest.mark.parametrize("r", [128, 256])
+def test_plan_auto_on_sm90_picks_a_cuda_cell_then_no_b5(dev, r):
+    """On sm_90 the stacked plan at the paper-pca width is the B5 cell at
+    r = 128 and no B5 cell at r = 256, where B5 runs one block a machine;
+    the planned rounds run the picked cell's kernels and equal its run."""
+    from repro_torch.core.eigenspace import refinement_rounds
+    from repro_torch.plan import resolve_plan
+
+    vs = _stack(dev, 8, 8192, r)
+    pl = resolve_plan("auto", m=8, d=8192, r=r, n_iter=2, context="stacked",
+                      tensor_device=dev)
+    assert pl.device_kind == "h100" and pl.source == "planner"
+    b5 = (pl.backend, pl.polar, pl.orth) == ("cuda", "newton-schulz", "cholesky-qr2")
+    assert b5 == (r == 128)
+    kernels.reset_launch_counts()
+    got = refinement_rounds(vs, n_iter=2, plan="auto")
+    counts = kernels.launch_counts()
+    assert counts["fused_round"] == (2 if b5 else 0)
+    want = refinement_rounds(vs, n_iter=2, backend=pl.backend, polar=pl.polar, orth=pl.orth)
+    assert torch.equal(got, want)
+    # A CPU-pinned call on this card still plans for the CPU.
+    assert resolve_plan("auto", m=8, d=8192, r=r, n_iter=2, context="stacked",
+                        tensor_device="cpu").device_kind == "cpu"

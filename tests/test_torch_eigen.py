@@ -11,10 +11,15 @@
   passes through an eigensolve, amplified by 1/gap (gap 0.2).
 * The fused (cuda, newton-schulz, cholesky-qr2) cell routes to the fused
   round (B5), not to the per-stage kernels.
-* The refusals: ``plan="auto"`` (A7), psum, ring and hier in the stacked
-  one-process form (they run across ranks), ``device="cuda"`` with no
-  card, and the launcher's later-slice flags.
+* ``plan="auto"`` runs the planner's cell; the refusals: psum, ring and
+  hier in the stacked one-process form (they run across ranks),
+  ``device="cuda"`` with no card, and the launcher's later-slice flags
+  (``--stream``, ``--cadence``: A9).  The launcher's planner and elastic
+  flags (``--plan``, ``--explain``, ``--calibrate``, ``--fail-at``,
+  ``--comm-bits auto`` and 8 in one process) run.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import REPO
 from repro.core import eigenspace as jeig
 from repro.core.covariance import empirical_covariance as j_empirical_covariance
 from repro.data import synthetic as jsyn
@@ -40,7 +46,8 @@ CELLS = [
     for orth in ("qr", "cholesky-qr2")
 ]
 CLI_KEYS = [
-    "m", "n", "d", "r", "backend", "polar", "orth", "topology", "pods", "comm_bits",
+    "m", "n", "d", "r", "backend", "polar", "orth", "topology", "pods", "ring_chunk",
+    "comm_bits", "plan_source", "predicted_words", "predicted_bits",
     "dist_aligned", "dist_central", "dist_naive", "dist_local0", "wall_s",
 ]
 
@@ -178,9 +185,15 @@ def test_fused_cell_is_refused_not_rerouted(monkeypatch):
 
 
 def test_plan_auto_is_refused():
+    """plan="auto" runs the planner's cell (on the CPU model: the plain
+    backend's svd/qr, the reference's pick) and equals that cell's legacy
+    run; an unknown plan is still refused."""
     vs = _tvs(_orthonormal_stack(0, 2, 16, 2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        teig.procrustes_fix_average(vs, plan="auto")
+    got = teig.procrustes_fix_average(vs, plan="auto")
+    want = jeig.procrustes_fix_average(_orthonormal_stack(0, 2, 16, 2), plan="auto")
+    assert torch.equal(got, teig.procrustes_fix_average(vs, backend="torch", polar="svd",
+                                                        orth="qr"))
+    assert subspace_dist64(got, np.asarray(want)) <= CUBE_TOL
     with pytest.raises(ValueError):
         teig.iterative_refinement(vs, plan="fast")
 
@@ -226,11 +239,8 @@ def test_launcher_main_prints_keys(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--plan", "auto"], "A7"),
-    (["--explain"], "A7"),
-    (["--calibrate", "BENCH_aggregate.json"], "A7"),
-    (["--fail-at", "2:1"], "A8"),
     (["--stream", "4"], "A9"),
+    (["--cadence", "2"], "A9"),
 ])
 def test_launcher_refuses_later_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -264,19 +274,49 @@ def test_launcher_width_flags_pass_through_torchrun():
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--comm-bits", "auto"], "ROADMAP A7"),
     (["--topology", "ring"], "torchrun"),
     (["--topology", "psum"], "torchrun"),
-    (["--comm-bits", "8"], "torchrun"),
     (["--topology", "hier", "--pods", "2"], "torchrun"),
     (["--topology", "hier"], "go together"),
     (["--pods", "2"], "go together"),
 ])
 def test_launcher_refuses_what_one_process_cannot_run(argv, says, capsys):
     """Outside torchrun the launcher stacks the shards in one process:
-    the cross-rank schedules and lossy wires need ranks; --topology hier
-    and --pods go together."""
+    the cross-rank schedules need ranks; --topology hier and --pods go
+    together."""
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
     assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--plan", "auto"],
+    ["--explain"],
+    ["--calibrate", os.path.join(REPO, "BENCH_aggregate.json"), "--plan", "auto"],
+    ["--fail-at", "2:1"],
+    ["--comm-bits", "auto"],
+    ["--comm-bits", "8"],
+], ids=lambda a: " ".join(a).replace(REPO + os.sep, ""))
+def test_launcher_runs_planner_and_elastic_flags(argv, capsys):
+    """The flags the planner and the elastic runtime brought run in one
+    process: the stacked form plans in the stacked context, --explain
+    prints the table first, --fail-at reports the re-plan, and a lossy
+    wire passes each basis through the gather wire's codec."""
+    tlaunch.main(["--device", "cpu", "--d", "48", "--r", "3", "--n-per-shard", "256",
+                  "--shards", "4", "--solver", "eigh", *argv])
+    lines = capsys.readouterr().out.strip().splitlines()
+    stats = dict(line.split(": ", 1) for line in lines if ": " in line
+                 and line.split(": ", 1)[0] in CLI_KEYS + ["replans", "final_m_active", "events"])
+    assert list(stats)[:len(CLI_KEYS)] == CLI_KEYS
+    assert stats["topology"] == "gather" and float(stats["dist_aligned"]) < 0.5
+    if "--plan" in argv:
+        assert stats["plan_source"] == "planner" and stats["backend"] == "torch"
+    if "--explain" in argv:
+        assert lines[0].startswith("# plan[legacy]: m=4 d=48 r=3 n_iter=2 device=cpu")
+        assert any(line.startswith("chosen: torch/gather/svd/qr ") for line in lines)
+    if "--fail-at" in argv:
+        assert (stats["replans"], stats["final_m_active"]) == ("1", "3")
+        assert "round 1: failure (m'=3, dead=[2]" in stats["events"]
+    if "--comm-bits" in argv:
+        assert stats["comm_bits"] == ("32" if "auto" in argv else "8")

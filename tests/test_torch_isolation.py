@@ -68,6 +68,7 @@ def test_port_imports_with_jax_and_reference_poisoned():
         import repro_torch.kernels.procrustes_align
         import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
         import repro_torch.kernels.flash_attention
+        import repro_torch.plan, repro_torch.runtime, repro_torch.runtime.elastic
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr
