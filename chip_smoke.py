@@ -67,6 +67,28 @@ of JAX or of the reference package.  Phases, each ending in
    under ``torchrun`` with 8 ranks at d = 8192, r = 128 and 16384 samples
    per shard: on the ring, on hier with 2 pods, and with ``--plan auto
    --fail-at 3:1`` (the elastic runtime).
+   The streaming lanes (``repro_torch.stream.SubspaceService``, plan
+   "auto", the subspace solver): the stacked service fed the main data,
+   16 steps of 4096 rows a shard, a refresh every 4 steps (B1 a live shard
+   a step, the planned rounds at every refresh; the launch counts exact):
+   each shard's state against the plain ingest over the same chunks and
+   against one B1 call over its rows (``sum_tol``), refreshes after steps
+   1, 5, 9, 13 and 16, every refresh-over-refresh jump under JUMP_BAR, a
+   re-refresh on the same state within the local bases' spread squared,
+   the final basis closer (f64) to the one-shot B5 lane than that lane is
+   to the central estimate, and the queries (``project``) equal to the
+   plain product with no ``torch.distributed`` call; the same lane with
+   shard 3 dead from step 8 (one re-plan, m' = 7, within STACK_TOL of the
+   serial oracle over the survivors' full-stream local bases); in the
+   rank world each rank streams its 16384 rows in 8 steps, cadence 2,
+   shard 3 dead at step 4, held at STACK_TOL to the stacked service fed
+   the same rows and schedule, with the same stats.  Then ``serve
+   --subspace`` at d = 8192, r = 128 in its own process (4096 queries in
+   batches of 256), the launcher's ``--stream 8 --cadence 2 --fail-at
+   3:4`` under ``torchrun`` on 8 ranks, and the quadratic-sensing spectral
+   initialization
+   (``repro_torch.optim``; d = 1024, r = 8, 8 machines, n = r d .. 8 r d
+   rows a machine), whose error must fall as n grows.
    Then the serving lane, with the PCA data freed first: B8
    (``flash_attention``) against its plain version at the serving shape
    (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
@@ -89,7 +111,9 @@ of JAX or of the reference package.  Phases, each ending in
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
-   B8); B8 also the TFLOP/s
+   B8); B1 also at the stream lanes' ingest chunk (4096, 8192), and one
+   local solve of an (8192, 8192) covariance (subspace iteration and
+   eigh); B8 also the TFLOP/s
    it reaches on its MMA work (S, and PV for p_hi and p_lo).  B1 beside
    the bound of the work the function needs (n d (d + 1) FLOP), the full
    product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
@@ -168,6 +192,29 @@ B7_REPS, B7_PLAIN_REPS = 10, 3
 # dies before round ELASTIC_ROUND, plan "auto"; its estimate is held to the
 # composed stacked oracle from the same local bases at ELASTIC_TOL.
 ELASTIC_DEAD, ELASTIC_ROUND, ELASTIC_TOL = 3, 1, 1e-4
+# The streaming lanes (A9, phase 3): the stacked service at the main width
+# fed each shard's N_PER_SHARD rows in STREAM_STEPS chunks, refreshing every
+# STREAM_CADENCE steps under plan "auto", then again with shard STREAM_DEAD
+# dead from step STREAM_DEAD_AT; in the rank world each rank streams its
+# N_PSUM rows in RANK_STREAM_STEPS chunks, cadence RANK_STREAM_CADENCE,
+# shard STREAM_DEAD dead from step RANK_STREAM_DEAD_AT, held to the stacked
+# service fed the same rows and schedule at STACK_TOL.  A refresh-over-
+# refresh jump above JUMP_BAR is a flip or a broken reference chain (the
+# reference test's bar).  A re-refresh on the same state moves the served
+# basis only through the rounds' reference dependence, which is second
+# order in the local bases' spread: its bar is
+# eps^2 = mean_i ||(I - v v^T) V_i||_F^2 over the local bases V_i and the
+# served v, measured in the lane (a flip moves the basis by >= 2).
+STREAM_STEPS, STREAM_CADENCE = 16, 4
+STREAM_CHUNK = N_PER_SHARD // STREAM_STEPS
+STREAM_DEAD, STREAM_DEAD_AT = 3, 8
+RANK_STREAM_STEPS, RANK_STREAM_CADENCE, RANK_STREAM_DEAD_AT = 8, 2, 4
+JUMP_BAR = 0.5
+# The serve --subspace lane's queries and batch; the spectral-init lane
+# (quadratic sensing, SPECTRAL_M machines, n = i r d rows a machine).
+SERVE_QUERIES, SERVE_QBATCH = 4096, 256
+SPECTRAL_D, SPECTRAL_R, SPECTRAL_M, SPECTRAL_ITER = 1024, 8, 8, 10
+SPECTRAL_SCALES = (1, 2, 4, 8)
 # The planner held to the card (phase 4): the stacked rounds at these r
 # (tools/h100_model.py's CELL_RS), every cell, 2 rounds; the planner's
 # pick must be within PLAN_SLACK of the fastest measured cell.
@@ -325,6 +372,101 @@ def count_handed(dist) -> dict:
     return handed
 
 
+def round_kernels(plan) -> dict:
+    """The kernels one stacked (gather) round of ``plan``'s cell launches."""
+    if plan.backend != "cuda":
+        return {}
+    if plan.polar == "newton-schulz" and plan.orth == "cholesky-qr2":
+        return {"fused_round": 1}
+    return {"batched_gram_polar" if plan.polar == "newton-schulz" else "batched_gram": 1,
+            "align_average": 1}
+
+
+def stream_refresh_steps(steps: int, cadence: int, dead_at=None) -> list:
+    """The steps after which a cadence-driven service refreshes: the
+    bootstrap after step 1, every ``cadence`` steps after the last, at once
+    on a failure before step ``dead_at``, and a final one if stale."""
+    out, last = [], None
+    for t in range(steps):
+        if t == dead_at and last is not None:
+            out.append(t)
+            last = t
+        if last is None or t + 1 - last >= cadence:
+            out.append(t + 1)
+            last = t + 1
+    if last != steps:
+        out.append(steps)
+    return out
+
+
+def feed_stream(torch, svc, chunk_of, steps: int, *, dead=None, dead_at=None) -> dict:
+    """Drive ``svc`` for ``steps`` steps (``chunk_of(t)`` the step's rows;
+    shard ``dead`` dies before step ``dead_at``), then serve the full-data
+    basis if stale.  Records each refresh's step, jump and plan, each
+    step's host time (synchronised) and the lane's wall."""
+    from repro_torch.comm import Membership
+
+    def sync():
+        if svc.dev.type == "cuda":
+            torch.cuda.synchronize(svc.dev)
+
+    rec = {"refresh_steps": [], "jumps": [], "plans": [], "step_ms": [], "refreshed": []}
+
+    def note() -> bool:
+        st = svc.stats
+        if st["refreshes"] == len(rec["refresh_steps"]):
+            return False
+        rec["refresh_steps"].append(st["step"])
+        rec["jumps"].append(st["last_jump"])
+        rec["plans"].append(svc.plan)
+        return True
+
+    sync()
+    t_lane = time.perf_counter()
+    for t in range(steps):
+        t0 = time.perf_counter()
+        hit = False
+        if t == dead_at:
+            svc.set_membership(Membership.from_dead(svc.m, [dead]))
+            hit = note()
+        svc.observe(chunk_of(t))
+        sync()
+        hit = note() or hit
+        rec["refreshed"].append(hit)
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+    if svc.stats["staleness"]:
+        t0 = time.perf_counter()
+        svc.refresh()
+        sync()
+        note()
+        rec["final_ms"] = 1e3 * (time.perf_counter() - t0)
+    sync()
+    rec["wall"] = time.perf_counter() - t_lane
+    ingest = sorted(ms for ms, hit in zip(rec["step_ms"], rec["refreshed"]) if not hit)
+    rec["ingest_step_ms"] = ingest[len(ingest) // 2] if ingest else float("nan")
+    rec["refresh_ms"] = ([ms - rec["ingest_step_ms"] for ms, hit in
+                          zip(rec["step_ms"], rec["refreshed"]) if hit]
+                         + ([rec["final_ms"]] if "final_ms" in rec else []))
+    return rec
+
+
+def dist_calls(dist, fn):
+    """Run ``fn`` with every public function of ``torch.distributed``
+    replaced by a recorder; returns (fn's result, the names called)."""
+    calls = []
+    saved = {n: getattr(dist, n) for n in dir(dist)
+             if not n.startswith("_") and callable(getattr(dist, n))
+             and not isinstance(getattr(dist, n), type)}
+    try:
+        for n in saved:
+            setattr(dist, n, lambda *a, _n=n, **k: calls.append(_n))
+        out = fn()
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    return out, calls
+
+
 def rank_worker(rank: int, init: str, out: str) -> int:
     """One rank of the cross-rank lanes.  Phase 2: B7 against its plain
     version (main and ragged shapes).  Phase 3: each lane of CROSS_LANES on
@@ -354,6 +496,8 @@ def rank_worker(rank: int, init: str, out: str) -> int:
     from repro_torch.launch.mesh import make_aggregation_mesh
     from repro_torch.runtime.elastic import elastic_pca_collective
     from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.comm import Membership
+    from repro_torch.stream import SubspaceService
 
     strict_fp32()
     agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=WORLD,
@@ -463,7 +607,33 @@ def rank_worker(rank: int, init: str, out: str) -> int:
     v = local_eigenbasis(empirical_covariance(shards[N_PSUM], backend=rep.events[0].plan.backend),
                          R, method="subspace", iters=ITERS)[0]
     torch.save(v.cpu(), os.path.join(out, f"elastic-basis-{rank}.pt"))
-    del shards
+
+    # The collective stream lane: this rank streams its N_PSUM rows, shard
+    # STREAM_DEAD dies at step RANK_STREAM_DEAD_AT, plan "auto".
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc = SubspaceService(D, R, group=world, device=dev, n_iter=N_ITER,
+                          cadence=RANK_STREAM_CADENCE, solver="subspace", iters=ITERS,
+                          plan="auto")
+    chunk = N_PSUM // RANK_STREAM_STEPS
+    for t in range(RANK_STREAM_STEPS):
+        if t == RANK_STREAM_DEAD_AT:
+            svc.set_membership(Membership.from_dead(WORLD, [STREAM_DEAD]))
+        svc.observe(shards[N_PSUM][t * chunk:(t + 1) * chunk])
+    if svc.stats["staleness"]:
+        svc.refresh()
+    torch.cuda.synchronize()
+    st = svc.stats
+    report["lanes"]["stream"] = {
+        "wall": time.perf_counter() - t0, "launches": kernels.launch_counts(),
+        **{k: st[k] for k in ("step", "rows_seen", "refreshes", "staleness", "m_active",
+                              "replans", "events", "last_jump")},
+        "plan": [svc.plan.backend, svc.plan.topology, svc.plan.polar, svc.plan.orth,
+                 svc.plan.comm_bits]}
+    torch.save(svc.basis.cpu(), os.path.join(out, f"stream-{rank}.pt"))
+    del svc, shards
 
     # Phase 4: B7 per round at the main shape, CUDA events around B7_REPS
     # rounds on every rank (each call returns once its round is done), and
@@ -663,6 +833,8 @@ def main(argv=None) -> int:
     )
     from repro_torch.plan.planner import WIDE_ROUND_NS_FLOPS_S
     from repro_torch.runtime.elastic import replan
+    from repro_torch.core.subspace import local_eigenbasis
+    from repro_torch.stream import SubspaceService, basis_jump
     from repro_torch.data import synthetic as syn
     from repro_torch.interop import strict_fp32
     from repro_torch.kernels import _build, ref
@@ -915,6 +1087,144 @@ def main(argv=None) -> int:
     require(same, f"plan=auto: the estimate differs from the {cell} lane's")
     require(counts == lane_counts[cell],
             f"plan=auto: launches {counts}, the {cell} lane's {lane_counts[cell]}")
+
+    # The streaming lanes (A9): the stacked service fed the main data in
+    # STREAM_STEPS chunks a shard, plan "auto" (B1 ingest, the planned
+    # rounds at every refresh), then again with shard STREAM_DEAD dead.
+    def stacked_service(m, cadence):
+        return SubspaceService(D, R, shards=m, device=dev, n_iter=N_ITER, cadence=cadence,
+                               solver="subspace", iters=ITERS, plan="auto")
+
+    def stream_counts(rec, grams):
+        want = {"gram": grams}
+        for pl_r in rec["plans"]:
+            for k, c in round_kernels(pl_r).items():
+                want[k] = want.get(k, 0) + c * N_ITER
+        return expected_counts(want)
+
+    def print_stream(label, rec, counts, extra):
+        print(f"[stream] {label}: wall {rec['wall']:.2f} s, ingest step (median, no "
+              f"refresh) {rec['ingest_step_ms']:.2f} ms, refreshes after steps "
+              f"{rec['refresh_steps']} taking "
+              + ", ".join(f"{ms:.1f}" for ms in rec["refresh_ms"])
+              + f" ms beyond ingest, plans "
+              + "; ".join(sorted({f"{p.backend}/{p.topology}/{p.polar}/{p.orth}"
+                                  for p in rec["plans"]}))
+              + f", launches { {k: c for k, c in counts.items() if c} }, jumps "
+              + ", ".join("-" if j is None else f"{j:.4e}" for j in rec["jumps"])
+              + f"{extra}")
+
+    chunk_of = lambda t: xs[:, t * STREAM_CHUNK:(t + 1) * STREAM_CHUNK]  # noqa: E731
+    kernels.reset_launch_counts()
+    svc = stacked_service(SHARDS, STREAM_CADENCE)
+    rec = feed_stream(torch, svc, chunk_of, STREAM_STEPS)
+    counts = kernels.launch_counts()
+    for k in KERNELS:
+        launches[k] += counts[k]
+    v_stream = svc.basis.clone()
+    st = svc.stats
+    lane = "stream lane"
+    expected = stream_counts(rec, STREAM_STEPS * SHARDS)
+    require(counts == expected, f"{lane}: launches {counts}, expected {expected}")
+    require(rec["refresh_steps"] == stream_refresh_steps(STREAM_STEPS, STREAM_CADENCE)
+            and st["staleness"] == 0 and st["rows_seen"] == SHARDS * N_PER_SHARD,
+            f"{lane}: refreshes after {rec['refresh_steps']}, stats {st}")
+    jumps = [j for j in rec["jumps"] if j is not None]
+    require(len(jumps) == len(rec["jumps"]) - 1 and max(jumps) < JUMP_BAR,
+            f"{lane}: refresh jumps {rec['jumps']} (bar {JUMP_BAR})")
+    # Ingest: each shard's state against the plain ingest over the same
+    # chunks and against one B1 call over its rows (comparison launches).
+    from repro_torch.core.covariance import gram_increment
+
+    oneshot, worst = [], (0.0, 0.0, 0.0)
+    for i in range(SHARDS):
+        state_g = svc.state["gram"][i]
+        plain = torch.zeros_like(state_g)
+        for t in range(STREAM_STEPS):
+            plain += gram_increment(chunk_of(t)[i])
+        one = gram(xs[i])
+        tol = sum_tol(N_PER_SHARD, plain.abs().max().item())
+        e_plain = (state_g - plain).abs().max().item()
+        e_one = (state_g - one).abs().max().item()
+        worst = max(worst, (e_plain, e_one, tol))
+        require(e_plain <= tol and e_one <= tol
+                and int(svc.state["count"][i]) == N_PER_SHARD,
+                f"{lane} shard {i}: state vs plain ingest {e_plain}, vs one B1 call "
+                f"{e_one} (tol {tol})")
+        oneshot.append(one)
+        del plain
+    # The local bases of the full-stream covariances (one B1 call each,
+    # above): their spread around the served basis bounds a re-refresh on
+    # the same state; the survivors' make the dead-shard lane's oracle.
+    local = [local_eigenbasis(g / N_PER_SHARD, R, method="subspace", iters=ITERS)[0]
+             for g in oneshot]
+    eps2 = sum(torch.linalg.norm(v - v_stream @ (v_stream.T @ v)).item() ** 2
+               for v in local) / SHARDS
+    del oneshot
+    # A re-refresh on the same state, against the one-shot B5 lane and the
+    # central estimate, and the queries.
+    svc.refresh()
+    torch.cuda.synchronize()
+    again = basis_jump(v_stream, svc.basis)
+    sd_b5 = subspace_dist64(v_stream, v_b5)
+    d_b5 = dist_2(v_b5, v_cent).item()
+    d_stream = dist_2(v_stream, v_cent).item()
+    qs = syn.sample_gaussian(factor, SERVE_QUERIES, generator=gen)
+    proj, calls = dist_calls(torch.distributed, lambda: torch.cat(
+        [svc.project(qs[lo:lo + SERVE_QBATCH]) for lo in range(0, SERVE_QUERIES, SERVE_QBATCH)]))
+    torch.cuda.synchronize()
+    print_stream(
+        f"stacked m={SHARDS} d={D} r={R} {STREAM_STEPS} steps of {STREAM_CHUNK} rows, "
+        f"cadence {STREAM_CADENCE}, plan auto", rec, counts,
+        f" (bar {JUMP_BAR}); state vs plain ingest max_abs_err {worst[0]:.3e}, vs one "
+        f"B1 call {worst[1]:.3e} (tol {worst[2]:.3e}); re-refresh on the same state "
+        f"jumps {again:.4e} (bar: the local bases' spread mean ||(I - v v^T) V_i||_F^2 "
+        f"= {eps2:.4e}); "
+        f"subspace_dist64(v, one-shot B5 lane) {sd_b5:.4e} (bar: that lane's dist_2 to "
+        f"central {d_b5:.4e}), dist_2(v, central) {d_stream:.4e}; {SERVE_QUERIES} "
+        f"queries in batches of {SERVE_QBATCH}: torch.distributed calls {calls}")
+    require(again <= eps2, f"{lane}: re-refresh jumped {again} (bar {eps2})")
+    require(sd_b5 < d_b5 and d_stream < DIST_BAR,
+            f"{lane}: {sd_b5} from the one-shot lane (bar {d_b5}), {d_stream} from central")
+    want = torch.cat([qs[lo:lo + SERVE_QBATCH] @ svc.basis
+                      for lo in range(0, SERVE_QUERIES, SERVE_QBATCH)])
+    require(calls == [] and torch.equal(proj, want),
+            f"{lane}: queries called {calls} or differ from the batches' qs @ basis")
+    stream_walls = {"stacked": rec["wall"]}
+    del svc, proj, qs, want
+
+    kernels.reset_launch_counts()
+    svc = stacked_service(SHARDS, STREAM_CADENCE)
+    rec = feed_stream(torch, svc, chunk_of, STREAM_STEPS, dead=STREAM_DEAD,
+                      dead_at=STREAM_DEAD_AT)
+    counts = kernels.launch_counts()
+    for k in KERNELS:
+        launches[k] += counts[k]
+    st = svc.stats
+    lane = "stream lane, shard dead"
+    expected = stream_counts(rec, STREAM_DEAD_AT * SHARDS
+                             + (STREAM_STEPS - STREAM_DEAD_AT) * (SHARDS - 1))
+    require(counts == expected, f"{lane}: launches {counts}, expected {expected}")
+    require(rec["refresh_steps"] == stream_refresh_steps(STREAM_STEPS, STREAM_CADENCE,
+                                                         STREAM_DEAD_AT)
+            and (st["replans"], st["m_active"], st["events"], st["staleness"])
+            == (1, SHARDS - 1, ["failure"], 0)
+            and int(svc.state["count"][STREAM_DEAD]) == STREAM_DEAD_AT * STREAM_CHUNK,
+            f"{lane}: refreshes after {rec['refresh_steps']}, stats {st}")
+    # The serial oracle: the survivors' local bases of their full-stream
+    # covariances (above), the rounds in the re-planned cell.
+    mem = Membership.from_dead(SHARDS, [STREAM_DEAD])
+    oracle = refinement_rounds(torch.stack([local[i] for i in mem.indices]).contiguous(),
+                               n_iter=N_ITER, plan=svc.plan)
+    sd = subspace_dist64(svc.basis, oracle)
+    print_stream(f"stacked, shard {STREAM_DEAD} dead from step {STREAM_DEAD_AT}", rec,
+                 counts, f"; replans {st['replans']}, m_active {st['m_active']}, events "
+                 f"{st['events']}; subspace_dist64(v, serial oracle over the survivors) "
+                 f"{sd:.3e} (tol {STACK_TOL:.0e}), dist_2(v, central) "
+                 f"{dist_2(svc.basis, v_cent).item():.4e}")
+    require(sd <= STACK_TOL, f"{lane}: {sd} from the serial oracle")
+    stream_walls["stacked, shard dead"] = rec["wall"]
+    del svc, local, oracle
     del samples, xs, x0
 
     # The psum and hier lanes' data (N_PSUM samples per shard): its
@@ -944,6 +1254,30 @@ def main(argv=None) -> int:
           f"dist_2(v, central) {d_cent:.4e}")
     require(counts == expected, f"stacked N_PSUM lane: launches {counts}, expected {expected}")
     require(d_cent < DIST_BAR, f"stacked N_PSUM lane: dist_2(v, central) {d_cent}")
+    # The stacked service the rank world's stream lane is held to: the same
+    # rows and schedule.
+    xs_p = samples.reshape(WORLD, N_PSUM, D)
+    p_chunk = N_PSUM // RANK_STREAM_STEPS
+    kernels.reset_launch_counts()
+    svc = stacked_service(WORLD, RANK_STREAM_CADENCE)
+    rec = feed_stream(torch, svc, lambda t: xs_p[:, t * p_chunk:(t + 1) * p_chunk],
+                      RANK_STREAM_STEPS, dead=STREAM_DEAD, dead_at=RANK_STREAM_DEAD_AT)
+    counts = kernels.launch_counts()
+    for k in KERNELS:
+        launches[k] += counts[k]
+    expected = stream_counts(rec, RANK_STREAM_DEAD_AT * WORLD
+                             + (RANK_STREAM_STEPS - RANK_STREAM_DEAD_AT) * (WORLD - 1))
+    print_stream(f"stacked m={WORLD} n={N_PSUM} in {RANK_STREAM_STEPS} steps, cadence "
+                 f"{RANK_STREAM_CADENCE}, shard {STREAM_DEAD} dead from step "
+                 f"{RANK_STREAM_DEAD_AT} (the rank world's stream lane's oracle)", rec,
+                 counts, "")
+    require(counts == expected, f"stacked N_PSUM stream lane: launches {counts}, "
+                                f"expected {expected}")
+    v_stream_psum = svc.basis.clone()
+    stream_psum_stats = {k: svc.stats[k] for k in (
+        "step", "rows_seen", "refreshes", "staleness", "m_active", "replans", "events")}
+    stream_walls["stacked N_PSUM"] = rec["wall"]
+    del svc, xs_p
     del samples
     torch.cuda.empty_cache()
 
@@ -966,6 +1300,8 @@ def main(argv=None) -> int:
                    for k in range(WORLD)]
         el_bases = torch.stack([torch.load(os.path.join(out, f"elastic-basis-{k}.pt"))
                                 for k in range(WORLD)]).to(dev)
+        ests_stream = [torch.load(os.path.join(out, f"stream-{k}.pt")).to(dev)
+                       for k in range(WORLD)]
     print(f"[ranks] transport: {reports[0]['backend']} ({reports[0]['rule']})")
 
     # Phase 2's B7 checks, made in the rank world.
@@ -1107,6 +1443,37 @@ def main(argv=None) -> int:
     require(sd <= ELASTIC_TOL, f"elastic: {sd} from the composed oracle")
     require(spread <= ROUND_SD_TOL, f"elastic: ranks disagree by {spread}")
     del el_ests, el_bases, survivors
+    # The collective stream lane: each rank its own N_PSUM rows, the same
+    # schedule as the stacked service above; held to it at STACK_TOL.
+    sl = [rep["lanes"]["stream"] for rep in reports]
+    st_ests = ests_stream
+    sd = subspace_dist64(st_ests[0], v_stream_psum)
+    spread = max(subspace_dist64(e, st_ests[0]) for e in st_ests[1:])
+    grams = [RANK_STREAM_STEPS if k != STREAM_DEAD else RANK_STREAM_DEAD_AT
+             for k in range(WORLD)]
+    for rep in sl:
+        for kern, c in rep["launches"].items():
+            launches[kern] += c
+    print(f"[ranks] stream, {WORLD} ranks each streaming {N_PSUM} rows in "
+          f"{RANK_STREAM_STEPS} steps, cadence {RANK_STREAM_CADENCE}, shard {STREAM_DEAD} "
+          f"dead from step {RANK_STREAM_DEAD_AT}, plan {'/'.join(map(str, sl[0]['plan']))}: "
+          f"wall {max(r['wall'] for r in sl):.2f} s (slowest rank), launches rank 0 "
+          f"{ {k: c for k, c in sl[0]['launches'].items() if c} }, rank {STREAM_DEAD} "
+          f"{ {k: c for k, c in sl[STREAM_DEAD]['launches'].items() if c} }, refreshes "
+          f"{sl[0]['refreshes']}, replans {sl[0]['replans']}, m_active {sl[0]['m_active']}, "
+          f"events {sl[0]['events']}, subspace_dist64(v, the stacked service) {sd:.3e} "
+          f"(tol {STACK_TOL:.0e}), rank spread {spread:.1e}, dist_2(v, central) "
+          f"{dist_2(st_ests[0], v_cent_psum).item():.4e}")
+    require(all({k: r[k] for k in stream_psum_stats} == stream_psum_stats for r in sl),
+            f"rank stream lane: stats {[{k: r[k] for k in stream_psum_stats} for r in sl]}, "
+            f"the stacked service's {stream_psum_stats}")
+    require(all(r["launches"]["gram"] == g for r, g in zip(sl, grams)),
+            f"rank stream lane: B1 launches {[r['launches']['gram'] for r in sl]}, "
+            f"expected {grams}")
+    require(sd <= STACK_TOL and spread <= ROUND_SD_TOL,
+            f"rank stream lane: {sd} from the stacked service, spread {spread}")
+    stream_walls["ranks"] = max(r["wall"] for r in sl)
+    del st_ests
     b7_time = [rep["b7_time"] for rep in reports]
     b7_split = [rep["b7_split"] for rep in reports]
     b7_form = reports[0]["b7"][f"main ({WORLD} ranks, {D}, {R})"]["form"]
@@ -1251,6 +1618,97 @@ def main(argv=None) -> int:
             "torchrun --fail-at launcher: wrong events")
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun --fail-at launcher: estimate not within the bar or no better than naive")
+
+    # Once more under torchrun: the streaming lane of the launcher, each
+    # rank streaming its shard, shard STREAM_DEAD dying at step
+    # RANK_STREAM_DEAD_AT.
+    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
+               "--device", "cuda", "--plan", "auto", "--stream", str(RANK_STREAM_STEPS),
+               "--cadence", str(RANK_STREAM_CADENCE), "--fail-at",
+               f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT}", "--dim", str(D), "--subspace-rank",
+               str(R), "--n-per-shard", str(N_PSUM)]
+    t0 = time.monotonic()
+    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    require(cli.returncode == 0, f"torchrun --stream launcher failed:\n{cli.stderr[-4000:]}")
+    stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
+                 if ": " in line)
+    print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen --plan auto "
+          f"--stream {RANK_STREAM_STEPS} --cadence {RANK_STREAM_CADENCE} --fail-at "
+          f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT} --dim {D} --subspace-rank {R} --n-per-shard "
+          f"{N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("ranks", "backend", "topology", "stream_steps", "stream_rows_seen",
+                       "stream_refreshes", "stream_staleness", "stream_last_jump",
+                       "stream_drift", "replans", "events", "dist_aligned", "dist_central",
+                       "wall_s")))
+    require(stats["ranks"] == str(WORLD) and stats["backend"] == "cuda"
+            and stats["stream_refreshes"] == str(len(stream_refresh_steps(
+                RANK_STREAM_STEPS, RANK_STREAM_CADENCE, RANK_STREAM_DEAD_AT)))
+            and stats["stream_staleness"] == "0" and stats["replans"] == "1"
+            and stats["events"] == "['failure']",
+            "torchrun --stream launcher: wrong lane, refreshes or events")
+    require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
+            "torchrun --stream launcher: estimate not within the bar or no better than naive")
+    torch.cuda.synchronize()
+
+    # serve --subspace at the main width, in its own process.
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--subspace", "--device", "cuda",
+         "--dim", str(D), "--subspace-rank", str(R), "--queries", str(SERVE_QUERIES),
+         "--batch", str(SERVE_QBATCH), "--plan", "auto"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": SRC},
+    )
+    require(cli.returncode == 0, f"serve --subspace failed:\n{cli.stderr[-4000:]}")
+    stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
+                 if ": " in line)
+    print(f"[cli] repro_torch.launch.serve --subspace --dim {D} --subspace-rank {R} "
+          f"--queries {SERVE_QUERIES} --batch {SERVE_QBATCH} --plan auto "
+          f"({time.monotonic() - t0:.1f} s): "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("device", "step", "rows_seen", "refreshes", "staleness", "m_active",
+                       "last_jump", "ingest_s", "query_s", "queries_per_s",
+                       "projection_shape")))
+    require(stats["device"] == name and stats["refreshes"] == "4"
+            and stats["projection_shape"] == f"({SERVE_QBATCH}, {R})"
+            and "backend='cuda'" in stats["plan"] and float(stats["queries_per_s"]) > 0,
+            "serve --subspace: wrong device, refreshes, plan or projection")
+
+    # Spectral initialization (quadratic sensing), stacked over
+    # SPECTRAL_M machines, plan "auto": the error falls as n grows.
+    from repro_torch.optim import distributed_spectral_init
+
+    x_sharp = torch.linalg.qr(torch.randn(SPECTRAL_D, SPECTRAL_R, generator=gen,
+                                          device=dev))[0]
+    errs, sp_counts = [], {}
+    for scale in SPECTRAL_SCALES:
+        n = scale * SPECTRAL_R * SPECTRAL_D
+        a, y = syn.quadratic_sensing_measurements(x_sharp, SPECTRAL_M * n, generator=gen)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0 = distributed_spectral_init(a, y, SPECTRAL_R, shards=SPECTRAL_M, device=dev,
+                                       n_iter=SPECTRAL_ITER, plan="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+            sp_counts[k] = sp_counts.get(k, 0) + counts[k]
+        err = torch.linalg.matrix_norm(x0 - x_sharp @ (x_sharp.T @ x0), ord=2).item()
+        errs.append(err)
+        require(bool(torch.isfinite(x0).all()) and tuple(x0.shape) == (SPECTRAL_D, SPECTRAL_R),
+                "spectral init: non-finite or misshapen estimate")
+        print(f"[spectral] quadratic sensing m={SPECTRAL_M} d={SPECTRAL_D} r={SPECTRAL_R} "
+              f"n = {scale} r d = {n} a machine ({SPECTRAL_M * n * SPECTRAL_D * 4 / 1e9:.2f} "
+              f"GB of designs), n_iter {SPECTRAL_ITER}, plan auto: wall {wall:.3f} s, "
+              f"launches { {k: c for k, c in counts.items() if c} }, "
+              f"||(I - X X^T) X0||_2 {err:.4f}")
+        del a, y, x0
+    require(errs[-1] < errs[0], f"spectral init: the error did not fall with n: {errs}")
     torch.cuda.synchronize()
 
     # -- the serving lane (B8): the PCA data is gone, free its cache --------
@@ -1505,6 +1963,29 @@ def main(argv=None) -> int:
     # B3 and B5 past r = 136 (B3's grouped form streams its iterate from
     # L2; B5's tiles live in the global workspace).
     by_name = {row["name"]: row for row in rows}
+    # B1 at the streaming ingest's chunk shape (STREAM_CHUNK, D): what each
+    # live shard launches every step of the stream lanes.
+    xc = x[:STREAM_CHUNK]
+    c_ms, c_plain, c_lib = (time_ms(lambda: gram(xc), 20), time_ms(lambda: ref.gram(xc), 20),
+                            time_ms(lambda: xc.T @ xc, 20))
+    c_bound, c_by = bound(1.0 * STREAM_CHUNK * D * (D + 1), 4 * (STREAM_CHUNK * D + D * D))
+    print(f"[time] gram ingest chunk ({STREAM_CHUNK}, {D}) f32 kernel_ms {c_ms:.4f} "
+          f"bound_ms {c_bound:.4f} ({c_by}) plain_ms {c_plain:.4f} library_ms {c_lib:.4f} "
+          f"(x.T @ x); {STREAM_CHUNK * D * (D + 1) / (c_ms * 1e9):.2f} TFLOP/s")
+    by_name["gram"]["ingest_chunk"] = {
+        "shape": [STREAM_CHUNK, D], "ms": c_ms, "plain_ms": c_plain, "library_ms": c_lib,
+        "bound_ms": c_bound, "bound_by": c_by}
+    by_name["gram"]["stream_lane_walls_s"] = stream_walls
+    # A refresh's local solve on one shard's (D, D) covariance: the
+    # subspace iteration the stream lanes run (ITERS steps) and the exact
+    # eigh, the service's default solver, which serve --subspace keeps.
+    cov = gram(xc) / STREAM_CHUNK
+    solve_ms = {method: time_ms(lambda: local_eigenbasis(cov, R, method=method, iters=ITERS), 2)
+                for method in ("subspace", "eigh")}
+    print(f"[time] local solve of one ({D}, {D}) covariance, r={R}: subspace iteration "
+          f"({ITERS} steps) {solve_ms['subspace']:.2f} ms, eigh {solve_ms['eigh']:.2f} ms")
+    by_name["gram"]["local_solve_ms"] = solve_ms
+    del xc, cov
     for r_w in WIDE_RS:
         vs_w = wide_stacks[r_w]
         rf_w = vs_w[0].contiguous()

@@ -1,8 +1,9 @@
-"""Synthetic covariance models of the paper's Section 3 (port of the
-Gaussian part of ``repro/data/synthetic.py``).
+"""Synthetic workloads of the paper's Section 3 (port of
+``repro/data/synthetic.py``).
 
-(M1)/(M2) spectra, Haar-rotated covariances (eq. (34)) and Gaussian
-samples.  Randomness comes from an explicit ``torch.Generator`` on the
+(M1)/(M2) spectra, Haar-rotated covariances (eq. (34)), Gaussian
+samples, the (D_k) atoms of eq. (35), and quadratic sensing (eq. (38))
+with its truncated second moment D_N (eq. (39)).  Randomness comes from an explicit ``torch.Generator`` on the
 output's device; torch and ``jax.random`` give different numbers from one
 seed, so cross-package tests make their inputs in numpy instead.
 
@@ -28,6 +29,10 @@ __all__ = [
     "sample_gaussian",
     "sample_shard",
     "sample_shards",
+    "make_dk_atoms",
+    "sample_dk",
+    "quadratic_sensing_measurements",
+    "truncated_second_moment",
 ]
 
 # Rows drawn per matmul in ``sample_gaussian``: bounds the Gaussian
@@ -143,3 +148,55 @@ def sample_shards(
     for k in range(shards):
         out[k * n:(k + 1) * n] = sample_shard(factor, n, seed=seed, shard=k)
     return out
+
+
+def make_dk_atoms(
+    d: int,
+    k: int,
+    *,
+    generator: torch.Generator | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """k atoms y_i uniform on sqrt(d) * S^{d-1} (paper eq. (35)): (k, d)."""
+    g = torch.randn((k, d), generator=generator, device=resolve_device(device))
+    return g / torch.linalg.norm(g, dim=1, keepdim=True) * d ** 0.5
+
+
+def sample_dk(
+    atoms: torch.Tensor, n: int, *, generator: torch.Generator | None = None
+) -> torch.Tensor:
+    """n draws from Unif{y_1..y_k}: (n, d) on the atoms' device."""
+    idx = torch.randint(0, atoms.shape[0], (n,), generator=generator,
+                        device=atoms.device)
+    return atoms[idx]
+
+
+def quadratic_sensing_measurements(
+    x_sharp: torch.Tensor,
+    n: int,
+    *,
+    noise: float = 0.0,
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quadratic sensing (eq. 38): y_i = ||X#^T a_i||^2 + noise, a_i ~ N(0, I),
+    on x_sharp's device.  Returns (a (n, d), y (n,))."""
+    d = x_sharp.shape[0]
+    a = torch.randn((n, d), generator=generator, dtype=x_sharp.dtype,
+                    device=x_sharp.device)
+    y = ((a @ x_sharp) ** 2).sum(dim=1)
+    if noise > 0:
+        y = y + noise * torch.randn((n,), generator=generator, dtype=y.dtype,
+                                    device=y.device)
+    return a, y
+
+
+def truncated_second_moment(
+    a: torch.Tensor, y: torch.Tensor, *, tau: float | None = None
+) -> torch.Tensor:
+    """Spectral-init matrix D_N (eq. 39) with truncation T(y) = y 1{y <= tau}:
+    (1/n) sum_i T(y_i) a_i a_i^T, a plain weighted product.  Default
+    threshold tau = 3 mean(y) (standard truncated spectral init)."""
+    if tau is None:
+        tau = 3.0 * y.mean()
+    ty = torch.where(y <= tau, y, torch.zeros_like(y))
+    return (a.mT * ty[None, :]) @ a / a.shape[0]

@@ -38,14 +38,20 @@ rule (``launch.mesh.transport_rule``) and the bytes staged through host
 memory.  ``--device`` defaults to the card; ``--backend auto`` runs the
 CUDA kernels there.
 
-``--stream`` and ``--cadence`` (streaming, a later slice of the port) are
-refused and name their ROADMAP item.
+``--stream STEPS`` runs the same estimation as a streaming job
+(``repro_torch.stream.SubspaceService``): each shard's rows arrive in
+STEPS chunks (STEPS must divide ``--n-per-shard``), the service refreshes
+every ``--cadence`` steps (default STEPS // 4) with the previously served
+basis as the Procrustes reference, serves the full-data basis at the end,
+and the report gains the ``stream_*`` stats.  One process stacks the
+shards; under ``torchrun`` each rank streams its own.  With
+``--fail-at k:t`` the service adopts the injector's membership before
+each step t (a failure re-plans and refreshes at once).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import torch
@@ -63,6 +69,7 @@ from repro_torch.core import (
 from repro_torch.core.distributed import resolve_stacked_topology
 from repro_torch.data import synthetic as syn
 from repro_torch.interop import resolve_device, strict_fp32
+from repro_torch.launch.mesh import under_torchrun
 from repro_torch.plan import (
     BACKEND_CHOICES,
     COMM_BITS_CHOICES,
@@ -74,13 +81,6 @@ from repro_torch.plan import (
     load_calibration,
     resolve_plan,
 )
-
-# Reference flags that belong to a later slice, with their ROADMAP item.
-_LATER_FLAGS = {
-    "--stream": ("A9", 1),
-    "--cadence": ("A9", 1),
-}
-
 
 def run(
     d: int = 256,
@@ -103,6 +103,8 @@ def run(
     explain: bool = False,
     calibration=None,
     fail_at: str | None = None,
+    stream: int | None = None,
+    cadence: int | None = None,
     agg=None,
 ):
     """Draw the data, run the estimate, and return (v_dist, stats).
@@ -112,7 +114,8 @@ def run(
     ``shards`` shards are stacked in this process.  ``topology="hier"``
     and an ``agg`` made with ``pods=`` go together.  The plan is resolved
     once here (``plan``, ``calibration``; ``explain`` prints its table on
-    rank 0), and ``fail_at`` runs the elastic runtime.  Under ``agg`` only
+    rank 0), ``fail_at`` runs the elastic runtime, and ``stream`` (with
+``cadence``) the streaming service over the same rows.  Under ``agg`` only
     rank 0 returns stats (None elsewhere): it regenerates every shard
     from the data rule for the centralized, naive and local baselines."""
     from repro_torch.runtime.elastic import elastic_pca, elastic_pca_collective
@@ -130,6 +133,11 @@ def run(
             "--fail-at composes with the flat topologies only (the elastic "
             "runtime re-plans at the survivor count, which need not tile "
             "into pods)"
+        )
+    if stream and n_per_shard % stream:
+        raise ValueError(
+            f"--stream {stream} must divide --n-per-shard {n_per_shard} (every "
+            "step feeds each shard the same number of rows)"
         )
     dev = agg.device if agg is not None else resolve_device(device)
     strict_fp32()
@@ -159,8 +167,50 @@ def run(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    report = None
-    if agg is None:
+    report = svc = None
+    if stream:
+        from repro_torch.stream import SubspaceService
+
+        place = (dict(shards=shards) if agg is None else
+                 dict(group=agg.local_group if pods else agg.group,
+                      pod_group=agg.pod_group))
+        svc = SubspaceService(d, r, device=dev, cadence=cadence or max(stream // 4, 1),
+                              calibration=calibration, device_kind=kind, **est, **place)
+        if agg is None:
+            samples = syn.sample_shards(factor, n_per_shard, seed=seed, shards=shards)
+            rows = samples.reshape(shards, n_per_shard, d)
+        else:
+            rows = syn.sample_shard(factor, n_per_shard, seed=seed, shard=agg.rank)
+        chunk = n_per_shard // stream
+        sync()
+        t0 = time.perf_counter()
+        for t in range(stream):
+            if injector is not None:
+                svc.set_membership(injector.membership_at(t, shards))
+            svc.observe(rows[..., t * chunk:(t + 1) * chunk, :])
+        if svc.stats["staleness"]:
+            svc.refresh()  # serve the full-data basis before reporting
+        v_dist = svc.basis
+        sync()
+        t_dist = time.perf_counter() - t0
+        s = svc.stats
+        stream_stats = {
+            "stream_steps": s["step"],
+            "stream_rows_seen": s["rows_seen"],
+            "stream_refreshes": s["refreshes"],
+            "stream_cadence": s["cadence"],
+            "stream_staleness": s["staleness"],
+            "stream_last_jump": s["last_jump"],
+            "stream_drift": svc.drift(),
+            "replans": s["replans"],
+        }
+        if s["events"]:
+            stream_stats["events"] = s["events"]
+        if agg is not None:
+            if agg.rank != 0:
+                return v_dist, None
+            samples = syn.sample_shards(factor, n_per_shard, seed=seed, shards=shards)
+    elif agg is None:
         samples = syn.sample_shards(factor, n_per_shard, seed=seed, shards=shards)
         t0 = time.perf_counter()
         if injector is not None:
@@ -220,6 +270,8 @@ def run(
         stats["ranks"] = agg.world
         stats["transport"] = agg.rule
         stats["staged_bytes"] = transport.staged_bytes()
+    if svc is not None:
+        stats.update(stream_stats)
     if report is not None:
         stats["replans"] = report.replans
         stats["final_m_active"] = report.final_membership.m_active
@@ -231,18 +283,6 @@ def run(
             for e in report.events
         ]
     return v_dist, stats
-
-
-class _Later(argparse.Action):
-    """Refuse a flag that belongs to a later slice of the port."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        item = _LATER_FLAGS[option_string][0]
-        parser.error(f"{option_string} is not ported yet (ROADMAP {item})")
-
-
-def _under_torchrun() -> bool:
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -306,8 +346,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="kill shard k before refinement round t ('2:1', "
                          "'2:1,5:3'): the elastic runtime finishes over the "
                          "survivors and re-plans at their count")
-    for flag, (_, nargs) in _LATER_FLAGS.items():
-        ap.add_argument(flag, nargs=nargs, action=_Later, help=argparse.SUPPRESS)
+    ap.add_argument("--stream", type=int, default=None, metavar="STEPS",
+                    help="streaming lane (repro_torch.stream): feed the same "
+                         "rows in STEPS per-shard chunks through a "
+                         "SubspaceService, refreshing on the cadence with the "
+                         "previous basis as reference; with --fail-at, t "
+                         "counts steps")
+    ap.add_argument("--cadence", type=int, default=None,
+                    help="refresh every CADENCE steps of the --stream lane "
+                         "(default: STEPS // 4)")
     return ap
 
 
@@ -316,8 +363,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if (args.topology == "hier") != (args.pods is not None):
         ap.error("--topology hier and --pods go together")
+    if args.cadence is not None and not args.stream:
+        ap.error("--cadence goes with --stream")
     agg = None
-    if _under_torchrun():
+    if under_torchrun():
         from repro_torch.launch.mesh import make_aggregation_mesh
 
         try:
@@ -337,7 +386,8 @@ def main(argv=None):
             backend=args.backend, polar=args.polar, orth=args.orth,
             topology=args.topology, comm_bits=args.comm_bits,
             plan="auto" if args.plan == "auto" else None, explain=args.explain,
-            calibration=calibration, fail_at=args.fail_at, agg=agg,
+            calibration=calibration, fail_at=args.fail_at, stream=args.stream,
+            cadence=args.cadence, agg=agg,
         )
     except ValueError as exc:
         ap.error(str(exc))

@@ -29,7 +29,7 @@ import os
 import torch
 import torch.distributed as dist
 
-__all__ = ["AggregationGroup", "transport_rule", "make_aggregation_mesh"]
+__all__ = ["AggregationGroup", "transport_rule", "make_aggregation_mesh", "under_torchrun"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,13 @@ class AggregationGroup:
     @property
     def pod_group(self):
         return self.pod_groups[self.rank % (self.world // self.pods)] if self.pods else None
+
+
+def under_torchrun() -> bool:
+    """True in a process that ``torchrun`` started (its RANK and
+    WORLD_SIZE are in the environment): the launchers then run the
+    collective form, one shard a rank."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
 def transport_rule(device_type: str, local_world: int, cards: int) -> tuple[str, str]:

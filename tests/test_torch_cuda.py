@@ -123,6 +123,50 @@ def test_gram_symmetric_is_bit_identical(dev, shape, dtype):
     assert torch.equal(sym, sym.mT)
 
 
+@pytest.mark.parametrize("sizes", [(1, 127, 129, 4096), (0, 300, 0, 77), (2, 3)],
+                         ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_ingest_through_gram_kernel(dev, sizes, dtype):
+    """The streaming accumulator's ingest under the cuda backend: one B1
+    launch a non-empty chunk, none for an empty one (the state keeps its
+    bits), an f32 state for a bf16 chunk, and the chunked state against
+    the plain ingest (``gram_increment``) over the same chunks."""
+    from repro_torch.core.covariance import gram_increment
+    from repro_torch.stream import Accumulator
+
+    d = 205
+    acc = Accumulator(d, device=dev, backend="cuda")
+    want = torch.zeros((d, d), device=dev)
+    kernels.reset_launch_counts()
+    for n in sizes:
+        x = torch.randn(n, d, device=dev).to(dtype)
+        before = acc.state["gram"].clone()
+        acc.update(x)
+        torch.cuda.synchronize()
+        if n == 0:
+            assert torch.equal(acc.state["gram"], before)
+        want += gram_increment(x)
+    assert kernels.launch_counts()["gram"] == sum(1 for n in sizes if n)
+    assert acc.dtype == torch.float32 and int(acc.count) == sum(sizes)
+    _hold(acc.state["gram"], want, max(sum(sizes), 1))
+
+
+def test_stream_service_ingest_launches_gram_per_live_shard(dev):
+    """The stacked service on the card: B1 once a live shard a step, none
+    for a dead one, the bootstrap refresh through the plan's kernels."""
+    from repro_torch.comm import Membership
+    from repro_torch.stream import SubspaceService
+
+    svc = SubspaceService(256, 4, shards=3, device=dev, cadence=10, backend="cuda",
+                          membership=Membership.from_dead(3, [1]))
+    kernels.reset_launch_counts()
+    svc.observe(torch.randn(3, 300, 256, device=dev))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["gram"] == 2 and counts["batched_gram"] == 1
+    assert int(svc.state["count"][1]) == 0 and svc.stats["refreshes"] == 1
+
+
 def test_gram_kernel_has_no_spills(dev):
     """ptxas: every instance of the B1 kernel (f32 / bf16, 16-byte copies
     or plain loads) fits 128 registers, two blocks an SM, with no spills."""

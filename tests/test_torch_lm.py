@@ -307,7 +307,7 @@ def test_cli_serves_on_cpu():
 
 
 @pytest.mark.parametrize("args,needle", [
-    (("--subspace",), "ROADMAP A9"),
+    (("--arch", "recurrentgemma-2b", "--device", "cpu"), "ROADMAP A11-hybrid"),
     (("--arch", "mamba2-370m", "--device", "cpu"), "ROADMAP A11-ssm"),
     (("--arch", "kimi-k2-1t-a32b", "--device", "cpu"), "ROADMAP A11-moe"),
     (("--arch", "whisper-tiny", "--device", "cpu"), "ROADMAP A11-whisper"),
