@@ -108,6 +108,24 @@ of JAX or of the reference package.  Phases, each ending in
    last-position logits within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``; and
    the serve launcher once in its own process at the full config with a
    short prompt.
+   Then the training lanes (``train_lanes``; constants T1_* .. T4_*):
+   T1 trains ``llama3.2-3b`` at its full config (3.61 B parameters, f32
+   master weights, bf16 compute, remat per block) with AdamW on 8 x 512
+   tokens a step from the seeded pipeline for 8 steps (finite losses, no
+   skipped step, the loss falling; parameters, peak memory, ms a step,
+   tokens/s); T1c takes 3 AdamW steps on the card and on the CPU from the
+   same parameters and batches; B2 and B4 are held against their plain
+   versions at the eigen refresh's shapes; T2 runs the eigen-compressed
+   trainer over 4 stacked shards at 16 of the 28 layers (one B2 and one
+   B4 launch a compressed leaf a refresh, exactly; the all-reduce words
+   a step, compressed and not; the error feedback's bytes); T3 runs it
+   on 4 rank processes of this card (``--train-rank K``) at 2 layers in
+   f32, each shard its own rows, held to its stacked run (losses, each
+   refresh's bases but the embedding's, the error feedback and moments
+   after the last step, the bytes handed to ``torch.distributed`` a
+   step); T4 runs the train launcher
+   in its own process, preempted at step 5 and resumed from its
+   checkpoint, against the straight run, both deterministic.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
@@ -140,10 +158,10 @@ of JAX or of the reference package.  Phases, each ending in
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
-decode steps) after a warm-up prefill: it prints each run's wall time,
-the device's busy share and the kernels that took the most device
-time.  ``--rank K`` is the
-cross-rank lanes' worker, started by phase 3.
+decode steps) after a warm-up prefill, then one T1 train step after a
+warm-up step: it prints each run's wall time, the device's busy share
+and the kernels that took the most device time.  ``--rank K`` and
+``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
 
 TF32 is off throughout: the reference computes in float32.
 """
@@ -782,11 +800,551 @@ def profile_serving(torch, dev) -> None:
     print_profile(f"{SERVE_ARCH} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us)
 
 
+# -- the training lanes (phase 3) ---------------------------------------------
+# T1: the AdamW trainer at llama3.2-3b's full config (28 layers, d_model
+# 3072, untied embeddings): f32 master weights, bf16 compute, remat per
+# block, T1_BATCH x T1_SEQ tokens a step from the seeded TokenPipeline.
+# Peak lr 5e-5: at the trainer's default 3e-4 with a 2-step warmup the
+# first full-lr AdamW step moves every weight by ~lr with one sign, and
+# the loss spiked (12.1 -> 14.1, grad norm 96; PERF.md §6).
+TRAIN_ARCH = "llama3.2-3b"
+T1_BATCH, T1_SEQ, T1_STEPS, T1_WARMUP, T1_LR = 8, 512, 8, 2, 5e-5
+# T1c: 3 AdamW steps on the card and on the CPU from the same parameters and
+# batches (granite-3-2b reduced, f32, f32 probabilities): losses within
+# T1C_LOSS relative, each parameter leaf within T1C_PARAM relative L2 (the
+# two devices' gradients differ by f32 rounding, which AdamW's first
+# normalised steps carry into the parameters).
+T1C_STEPS, T1C_LR, T1C_LOSS, T1C_PARAM = 3, 1e-3, 1e-5, 1e-4
+# T2: the eigen trainer stacked on T2_SHARDS shards at T2_LAYERS of the
+# full config's layers, full width; rank / min_dim as repro.launch.train.
+T2_LAYERS, T2_SHARDS, T2_RANK, T2_REFRESH, T2_STEPS = 16, 4, 32, 4, 8
+# T3: the eigen trainer in a rank world (T3_RANKS processes on this card
+# over gloo) at T3_LAYERS full-width layers in f32, each shard its own rows
+# of the pipeline's batches, held to the same trainer stacked, which runs
+# first.  Each step's loss within T3_LOSS.  At each refresh every
+# compressed leaf's basis but the embedding's within max(floor, 4 x the
+# stacked refresh's own f32 error against the same refresh carried out in
+# f64), the floor T3_FIRST_SD at the first refresh (the same parameters)
+# and T3_LATER_SD after (two AdamW updates whose f32 rounding the 4-step
+# local solve amplifies).  After the last step each rank's error feedback
+# (sketched: err @ a seeded (n, T3_SKETCH) Gaussian), the low-rank and the
+# full moments within T3_STATE of the stacked run's largest magnitude.
+# The embedding's refresh is not defined on distinct rows: its shards'
+# gradients sit on the rows of their own tokens, their local bases can be
+# orthogonal, and two summation orders give different bases
+# (tests/test_torch_train.py shows it on the reference).  So each rank
+# takes the stacked run's refreshed embedding basis and moments, as the
+# CPU tests take the reference's, and the steps after hold that leaf too.
+T3_LAYERS, T3_RANKS, T3_STEPS, T3_REFRESH = 2, 4, 4, 2
+T3_LOSS, T3_FIRST_SD, T3_LATER_SD, T3_STATE, T3_SKETCH = 1e-4, 1e-5, 1e-4, 1e-4, 16
+ILL_POSED = "embed"
+# T4: the launcher preempted at step 5 and resumed from its step-4
+# checkpoint against the straight run, both deterministic
+# (torch.use_deterministic_algorithms): final losses within 1e-5, the
+# reference's own bar (tests/test_fault_tolerance.py:208).
+T4_ARCH, T4_STEPS, T4_FAIL, T4_BAR = "granite-3-2b", 8, 5, 1e-5
+T4_DETERMINISTIC = (
+    "import runpy, sys, torch; torch.use_deterministic_algorithms(True); "
+    "sys.argv[0] = 'repro_torch.launch.train'; "
+    "runpy.run_module('repro_torch.launch.train', run_name='__main__')")
+
+
+def train_cfg(layers=None, **kw):
+    """llama3.2-3b's full config, at ``layers`` layers if given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    return dataclasses.replace(cfg, **({"num_layers": layers} if layers else {}), **kw)
+
+
+def refresh_exact(torch, model, opt, batch, starts, m):
+    """The refresh of ``opt``'s compressed leaves (but the embedding) at
+    this state, carried out in f64 in plain torch: every shard's gradient
+    of its rows, its local solve from ``starts`` and the Procrustes
+    average.  Returns {leaf: (d, r) f64 basis}."""
+    from repro_torch.core.eigenspace import refinement_rounds
+    from repro_torch.launch.steps import shard_rows
+    from repro_torch.models.lm import loss_fn
+    from repro_torch.optim import EigenCompressConfig
+
+    iters = EigenCompressConfig().power_iters
+    params = dict(model.named_parameters())
+    names = [n for n in sorted(opt["eigen"]) if n != ILL_POSED]
+    local = {n: [] for n in names}
+    for i in range(m):
+        loss, _ = loss_fn(model, shard_rows(batch, i, m))
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                q, g64 = torch.linalg.qr(starts[n].double())[0], g.double()
+                for _ in range(iters):
+                    q = torch.linalg.qr(g64 @ (g64.T @ q))[0]
+                local[n].append(q)
+        del grads
+    out = {}
+    with torch.no_grad():
+        for n in names:
+            st = opt["eigen"][n]
+            prev = st["basis"].double() if bool(st["initialized"]) else None
+            out[n] = refinement_rounds(torch.stack(local.pop(n)), prev, n_iter=1,
+                                       backend="torch")
+    return out
+
+
+def recording_refreshes(torch, train_mod, seen: list, *, probes=None, force=None):
+    """Make ``train_mod``'s trainer record, after each refresh, every
+    compressed leaf's basis, m and v (CPU copies) into ``seen``.  With
+    ``probes`` (a list) it also records each leaf's distance to the same
+    refresh in f64 (``refresh_exact``, which draws no kernel); with
+    ``force`` (a dict leaf -> fields a refresh) it first overwrites those
+    fields of the refreshed state.  Returns the step factory to put
+    back."""
+    from repro_torch.core.metrics import subspace_dist64
+
+    make = train_mod.make_eigen_refresh_step
+
+    def recording(model, **kw):
+        step = make(model, **kw)
+
+        def run(opt, batch, starts):
+            exact = (refresh_exact(torch, model, opt, batch, starts, kw["shards"])
+                     if probes is not None else {})
+            out = step(opt, batch, starts)
+            with torch.no_grad():
+                for n, fields in (force[len(seen)] if force else {}).items():
+                    for f, t in fields.items():
+                        opt["eigen"][n][f].copy_(t)
+            seen.append({n: {f: st[f].cpu() for f in ("basis", "m", "v")}
+                         for n, st in opt["eigen"].items()})
+            if probes is not None:
+                probes.append({n: subspace_dist64(seen[-1][n]["basis"], b.cpu())
+                               for n, b in exact.items()})
+            return out
+        return run
+
+    train_mod.make_eigen_refresh_step = recording
+    return make
+
+
+def t3_run(torch, dev, *, group=None, probes=None, force=None):
+    """T3's trainer: T3_LAYERS full-width layers in f32, eigen rank T2_RANK,
+    the pipeline's own batches, stacked on T3_RANKS shards or one shard a
+    rank of ``group`` (``probes`` and ``force``: ``recording_refreshes``).
+    Returns (losses, refreshed states, optimizer state, model)."""
+    from repro_torch.launch import train as train_mod
+
+    seen = []
+    make = recording_refreshes(torch, train_mod, seen, probes=probes, force=force)
+    try:
+        model, opt, losses = train_mod.train(
+            train_cfg(T3_LAYERS, dtype="float32", attn_probs_bf16=False),
+            steps=T3_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR, warmup=T1_WARMUP,
+            eigen=True, eigen_rank=T2_RANK, eigen_refresh=T3_REFRESH, device=dev,
+            shards=None if group is not None else T3_RANKS, group=group, seed=SEED,
+            log_every=10 ** 9)
+    finally:
+        train_mod.make_eigen_refresh_step = make
+    return losses, seen, opt, model
+
+
+def t3_state(torch, opt, shard=None) -> dict:
+    """The optimizer state T3 holds, on the CPU: every compressed leaf's m,
+    v and error feedback (the stacked form's ``shard``; sketched as err @
+    a seeded (n, T3_SKETCH) Gaussian), and every full moment."""
+    out = {}
+    with torch.no_grad():
+        for n, st in opt["eigen"].items():
+            err = st["err"] if shard is None else st["err"][shard]
+            gen = torch.Generator(device=err.device).manual_seed(SEED + 3)
+            sketch = torch.randn(err.shape[-1], T3_SKETCH, generator=gen, device=err.device)
+            out[f"err/{n}"] = (err @ sketch).cpu()
+            out[f"m/{n}"], out[f"v/{n}"] = st["m"].cpu(), st["v"].cpu()
+        for f in ("full_m", "full_v"):
+            for n, t in opt[f].items():
+                out[f"{f}/{n}"] = t.cpu()
+    return out
+
+
+def train_rank_worker(rank: int, init: str, out: str) -> int:
+    """One rank of T3: its shard of the eigen trainer, taking the stacked
+    run's embedding refreshes (``t3-force.pt``), then one more train step
+    with the bytes handed to torch.distributed counted."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.interop import strict_fp32
+    from repro_torch.launch.mesh import make_aggregation_mesh
+    from repro_torch.launch.steps import make_eigen_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import constant
+
+    strict_fp32()
+    agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=T3_RANKS,
+                                local_rank=rank, local_world=T3_RANKS, init_method=init)
+    force = [{n: {f: t.to(agg.device) for f, t in fields.items()} for n, fields in k.items()}
+             for k in torch.load(os.path.join(out, "t3-force.pt"))]
+    handed = count_handed(dist)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, seen, opt, model = t3_run(torch, agg.device, group=agg.group, force=force)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    torch.save({"bases": [{n: st["basis"] for n, st in k.items()} for k in seen],
+                "state": t3_state(torch, opt)}, os.path.join(out, f"t3-rank{rank}.pt"))
+    step = make_eigen_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1_LR),
+                                 group=agg.group)
+    batch = {k: torch.from_numpy(v).to(agg.device, torch.long) for k, v in TokenPipeline(
+        model.cfg.vocab_size, T1_SEQ, T1_BATCH, seed=SEED).batch(T3_STEPS).items()}
+    handed.clear()
+    step(opt, batch)
+    torch.cuda.synchronize()
+    with open(os.path.join(out, f"t3-rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "wall": wall, "launches": launches,
+                   "handed_step": sum(handed.values()), "rule": agg.rule,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_train_ranks(out: str) -> None:
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-rank", str(k),
+         "--init", init, "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(T3_RANKS)]
+    logs = []
+    try:
+        deadline = time.monotonic() + 600
+        for p in procs:
+            log, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            logs.append(log)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(k, p.returncode, logs[k][-3000:]) for k, p in enumerate(procs) if p.returncode]
+    require(not bad, f"train rank workers failed: {bad}")
+
+
+def hold_refresh_shapes(torch, dev) -> None:
+    """B2 and B4 at the shapes T2's refreshes give them (4 shards, rank
+    32: d = 128256 for the embedding, 8192 and 3072 for the layers'
+    matrices) against their plain versions, with the f32 sum bar; these
+    launches are comparisons and count for no lane."""
+    from repro_torch.kernels import procrustes_align as pa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for d in (128256, 8192, 3072):
+        vs = noisy_stack(torch, gen, T2_SHARDS, d, T2_RANK, dev)
+        rf = vs[0].contiguous()
+        g_want = ref.batched_gram(vs, rf)
+        g_err = (pa.batched_gram(vs, rf) - g_want).abs().max().item()
+        g_tol = sum_tol(d, g_want.abs().max().item())
+        zs = ref.batched_gram_polar(vs, rf)
+        a_want = ref.align_average(vs, zs)
+        a_err = (pa.align_average(vs, zs) - a_want).abs().max().item()
+        a_tol = sum_tol(T2_SHARDS * T2_RANK, a_want.abs().max().item())
+        print(f"[check] refresh shape ({T2_SHARDS}, {d}, {T2_RANK}): batched_gram max_abs_err "
+              f"{g_err:.3e} tol {g_tol:.3e}, align_average max_abs_err {a_err:.3e} tol "
+              f"{a_tol:.3e}")
+        require(g_err <= g_tol and a_err <= a_tol,
+                f"B2/B4 disagree with their plain versions at ({T2_SHARDS}, {d}, {T2_RANK})")
+
+
+def train_lanes(torch, dev, launches: dict) -> dict:
+    """T1-T4 (see the constants above).  Adds the lanes' kernel launches to
+    ``launches``; returns the numbers PERF.md reports."""
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.metrics import subspace_dist64
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import compressed_paths, make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import EigenCompressConfig
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedule import constant, warmup_cosine
+
+    out = {}
+
+    def batch_at(pipe, step, where):
+        return {k: torch.from_numpy(v).to(where, torch.long)
+                for k, v in pipe.batch(step).items()}
+
+    def free() -> int:
+        """Release this lane's tensors and restart the peak count; returns
+        the bytes still allocated (the earlier phases' tensors), which a
+        lane's own peak leaves out."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    # T1: AdamW at the full config.
+    held = free()
+    cfg = train_cfg()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, param_dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, adamw_cfg=AdamWConfig(),
+                              schedule=warmup_cosine(T1_LR, T1_WARMUP, T1_STEPS))
+    pipe = TokenPipeline(cfg.vocab_size, T1_SEQ, T1_BATCH, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    losses, step_ms, metrics = [], [], []
+    for s in range(T1_STEPS):
+        b = batch_at(pipe, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    toks = T1_BATCH * T1_SEQ / (ms / 1e3)
+    print(f"[train] T1 {cfg.name} full config (layers {cfg.num_layers}, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, remat {cfg.remat}, compute "
+          f"{cfg.dtype}, f32 master weights): {n_params} parameters, batch {T1_BATCH} x "
+          f"{T1_SEQ} tokens, AdamW, {T1_STEPS} steps, warmup {T1_WARMUP}: init "
+          f"{init_s:.2f} s, step 0 {step_ms[0]:.1f} ms, ms/step after step 0 {ms:.2f} "
+          f"(each {[round(x, 1) for x in step_ms[1:]]}), {toks:.0f} tokens/s, peak "
+          f"memory {peak / 1e9:.2f} GB (max_memory_allocated less the {held / 1e9:.2f} GB "
+          f"the earlier phases hold), launches "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    print(f"[train] T1 losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x['grad_norm'], 3) for x in metrics]}, skipped "
+          f"{sum(x['step_skipped'] for x in metrics)}")
+    require(all(math.isfinite(x) for x in losses), "T1: a loss is not finite")
+    require(not any(x["step_skipped"] for x in metrics), "T1: a step was skipped")
+    require(sum(losses[-2:]) / 2 < losses[0], f"T1: the loss did not fall: {losses}")
+    out["t1"] = {"params": n_params, "peak_gb": peak / 1e9, "ms": ms, "tokens_s": toks,
+                 "losses": losses}
+    del model, params, opt, step_fn, metrics, m, b
+    free()
+
+    # T1c: the same AdamW steps on the card and on the CPU.
+    import dataclasses
+
+    small = dataclasses.replace(get_reduced_config("granite-3-2b"), dtype="float32",
+                                attn_probs_bf16=False)
+    runs = {}
+    for where in ("cpu", dev):
+        model = build(small, device="cpu", param_dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(SEED)).to(where)
+        params = dict(model.named_parameters())
+        opt = adamw_init(params)
+        step_fn = make_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1C_LR))
+        pipe = TokenPipeline(small.vocab_size, 32, 4, seed=SEED)
+        ls = [float(step_fn(opt, batch_at(pipe, s, where))["loss"]) for s in range(T1C_STEPS)]
+        runs[str(where)] = (ls, {k: p.detach().cpu() for k, p in params.items()})
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    par_err = max(((pc[k] - pg[k]).norm() / pc[k].norm()).item() for k in pc)
+    print(f"[train] T1c {small.name} reduced f32, {T1C_STEPS} AdamW steps, card vs CPU: "
+          f"losses {[round(x, 6) for x in lg]} vs {[round(x, 6) for x in lc]}, worst "
+          f"relative loss gap {loss_err:.2e} (bar {T1C_LOSS}), worst parameter rel L2 "
+          f"{par_err:.2e} (bar {T1C_PARAM})")
+    require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM, "T1c: card and CPU disagree")
+    del runs, model, params, opt, step_fn
+    free()
+
+    # T2: the eigen trainer stacked, 16 layers at full width; first B2 and
+    # B4 at its refresh shapes against their plain versions.
+    hold_refresh_shapes(torch, dev)
+    held = free()
+    cfg2 = train_cfg(T2_LAYERS)
+    ecfg = EigenCompressConfig(rank=T2_RANK, min_dim=64)
+    comp = compressed_paths(cfg2, ecfg)
+    refreshes = len(range(0, T2_STEPS, T2_REFRESH))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, losses = train_mod.train(
+        cfg2, steps=T2_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR, warmup=T1_WARMUP,
+        eigen=True, eigen_rank=T2_RANK, eigen_refresh=T2_REFRESH, device=dev,
+        shards=T2_SHARDS, seed=SEED, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    n_params = sum(p.numel() for p in model.parameters())
+    low = sum(min(T2_RANK, d, n) * n for d, n in comp.values())
+    full = sum(d * n for d, n in comp.values())
+    other = sum(p.numel() for k, p in model.named_parameters() if k not in comp)
+    err_bytes = sum(st["err"].numel() * 4 for st in opt["eigen"].values())
+    want = expected_counts({"batched_gram": len(comp) * refreshes,
+                            "align_average": len(comp) * refreshes})
+    print(f"[train] T2 eigen stacked, {cfg2.name} at {T2_LAYERS} of 28 layers, full width "
+          f"({n_params} parameters), {T2_SHARDS} shards of {T1_BATCH // T2_SHARDS} x "
+          f"{T1_SEQ} tokens, rank {T2_RANK}, min_dim 64, refresh every {T2_REFRESH}, "
+          f"{T2_STEPS} steps: wall {wall:.2f} s, {len(comp)} compressed leaves, "
+          f"launches { {k: c for k, c in counts.items() if c} } (expected one B2 and one "
+          f"B4 a compressed leaf a refresh: {len(comp)} x {refreshes}), all-reduce words "
+          f"a step: compressed {low} (sum r n) against {full} (sum d n, {full / low:.1f}x), "
+          f"plus {other} uncompressed and 1 loss; err {err_bytes / 1e9:.2f} GB; peak memory "
+          f"{peak / 1e9:.2f} GB (less the earlier phases' {held / 1e9:.2f} GB); losses "
+          f"{[round(x, 4) for x in losses]}")
+    require(all(math.isfinite(x) for x in losses), "T2: a loss is not finite")
+    require(counts == want, f"T2: launches {counts}, expected {want}")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    out["t2"] = {"wall": wall, "peak_gb": peak / 1e9, "low": low, "full": full,
+                 "other": other, "err_gb": err_bytes / 1e9, "leaves": len(comp),
+                 "launches": counts}
+    del model, opt
+    free()
+
+    # T3: the eigen trainer in a rank world against itself stacked, each
+    # shard its own rows: the stacked run first, then the ranks, which take
+    # its embedding refreshes.
+    free()
+    kernels.reset_launch_counts()
+    probes = []
+    losses, seen, opt, model = t3_run(torch, dev, probes=probes)
+    counts = kernels.launch_counts()
+    comp3 = compressed_paths(model.cfg, ecfg)
+    low3 = sum(min(T2_RANK, d, n) * n for d, n in comp3.values())
+    other3 = sum(p.numel() for k, p in model.named_parameters() if k not in comp3)
+    stacked_state = [t3_state(torch, opt, shard=k) for k in range(T3_RANKS)]
+    del model, opt
+    free()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save([{ILL_POSED: {f: k[ILL_POSED][f] for f in ("basis", "m", "v")}}
+                    for k in seen], os.path.join(tmp, "t3-force.pt"))
+        t0 = time.perf_counter()
+        run_train_ranks(tmp)
+        ranks_wall = time.perf_counter() - t0
+        reps = []
+        for k in range(T3_RANKS):
+            with open(os.path.join(tmp, f"t3-rank{k}.json")) as f:
+                reps.append({**json.load(f), **torch.load(os.path.join(tmp, f"t3-rank{k}.pt"))})
+    want_bytes = 4 * (low3 + other3 + 1)
+    loss_gap = max(abs(a - b) for r in reps for a, b in zip(r["losses"], losses))
+    sds, ratios = [], []
+    for j, refreshed in enumerate(seen):
+        floor = T3_FIRST_SD if j == 0 else T3_LATER_SD
+        gaps = {n: max(subspace_dist64(r["bases"][j][n], st["basis"]) for r in reps)
+                for n, st in refreshed.items() if n != ILL_POSED}
+        sds.append(max(gaps.values()))
+        ratios.append(max(g / max(floor, 4 * probes[j][n]) for n, g in gaps.items()))
+    state_gap = {}
+    for k, r in enumerate(reps):
+        for key, want in stacked_state[k].items():
+            kind = key.split("/")[0]
+            err = ((r["state"][key] - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+            state_gap[kind] = max(state_gap.get(kind, 0.0), err)
+    r_counts = {k: sum(r["launches"][k] for r in reps) for k in KERNELS}
+    print(f"[train] T3 eigen, {T3_RANKS} ranks on the card ({reps[0]['rule']}), "
+          f"{TRAIN_ARCH} at {T3_LAYERS} layers full width in f32, each shard its own rows, "
+          f"rank {T2_RANK}, refresh every {T3_REFRESH}, {T3_STEPS} steps: wall "
+          f"{max(r['wall'] for r in reps):.2f} s (processes {ranks_wall:.1f} s), peak memory "
+          f"a rank {max(r['peak_gb'] for r in reps):.2f} GB, launches summed over ranks "
+          f"{ {k: c for k, c in r_counts.items() if c} }, stacked "
+          f"{ {k: c for k, c in counts.items() if c} }; worst loss gap to the stacked run "
+          f"{loss_gap:.2e} (bar {T3_LOSS}); bases per refresh but the embedding's (f64 "
+          f"subspace distance) {[f'{x:.2e}' for x in sds]}, worst over their bars "
+          f"(max({T3_FIRST_SD} then {T3_LATER_SD}, 4 x the f32 refresh's own error against "
+          f"f64; those errors up to "
+          f"{[f'{max(p.values()):.2e}' for p in probes]})) {[f'{x:.2f}' for x in ratios]}; "
+          f"state after the last step, worst gap over the largest magnitude "
+          f"{ {k: f'{v:.2e}' for k, v in state_gap.items()} } (bar {T3_STATE}); bytes "
+          f"handed to torch.distributed in one step {[r['handed_step'] for r in reps]} "
+          f"(expected 4 x ({low3} compressed + {other3} uncompressed + 1 loss) = "
+          f"{want_bytes})")
+    require(all(math.isfinite(x) for r in reps for x in r["losses"]), "T3: a loss is not finite")
+    require(loss_gap <= T3_LOSS, f"T3: losses {[r['losses'] for r in reps]} vs {losses}")
+    require(all(x <= 1.0 for x in ratios), f"T3: bases {sds}, over their bars {ratios}")
+    require(all(v <= T3_STATE for v in state_gap.values()), f"T3: state {state_gap}")
+    require(all(r["handed_step"] == want_bytes for r in reps), "T3: bytes handed")
+    n_ref = len(seen)
+    want3 = {"batched_gram": len(comp3) * n_ref, "align_average": len(comp3) * n_ref}
+    require(counts == expected_counts(want3), f"T3 stacked: launches {counts}")
+    require(r_counts == expected_counts({k: c * T3_RANKS for k, c in want3.items()}),
+            f"T3 ranks: launches {r_counts}")
+    for k in KERNELS:
+        launches[k] += counts[k] + r_counts[k]
+    out["t3"] = {"loss_gap": loss_gap, "sds": sds, "ratios": ratios, "state": state_gap,
+                 "handed": want_bytes}
+    del seen, reps, stacked_state
+    free()
+
+    # T4: the launcher, preempted and resumed, against the straight run.
+    finals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("straight", []), ("preempted", ["--fail-at", str(T4_FAIL)])):
+            t0 = time.monotonic()
+            cli = subprocess.run(
+                [sys.executable, "-c", T4_DETERMINISTIC, "--arch", T4_ARCH,
+                 "--device", dev.type, "--steps", str(T4_STEPS), "--eigen", "--checkpoint-dir",
+                 os.path.join(tmp, label), "--checkpoint-every", "2", *extra],
+                capture_output=True, text=True, timeout=600,
+                env={**os.environ, "PYTHONPATH": SRC, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+            require(cli.returncode == 0, f"train launcher ({label}) failed:\n"
+                                         f"{cli.stderr[-4000:]}")
+            stats = dict(line.split(": ", 1) for line in cli.stdout.splitlines()
+                         if ": " in line)
+            finals[label] = float(stats["final_loss_exact"])
+            print(f"[cli] repro_torch.launch.train --arch {T4_ARCH} --steps {T4_STEPS} "
+                  f"--eigen --checkpoint-every 2 {' '.join(extra)}, deterministic "
+                  f"({time.monotonic() - t0:.1f} s): device={stats['device']}, "
+                  f"losses={stats['losses']}, final_loss_exact={stats['final_loss_exact']}, "
+                  f"preempted {'preempted at step' in cli.stderr}")
+            require(stats["device"] == torch.cuda.get_device_name(0), "T4: not on the card")
+    gap = abs(finals["straight"] - finals["preempted"])
+    print(f"[train] T4 resume after preemption at step {T4_FAIL}: final loss gap {gap:.2e} "
+          f"(bar {T4_BAR})")
+    require(gap <= T4_BAR, f"T4: final losses {finals}")
+    out["t4"] = {"gap": gap}
+    return out
+
+
+def profile_training(torch, dev) -> None:
+    """T1's train step under torch.profiler, after a warm-up step."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedule import constant
+
+    cfg = train_cfg()
+    model = build(cfg, device=dev, param_dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    opt = adamw_init(dict(model.named_parameters()))
+    step_fn = make_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1_LR))
+    pipe = TokenPipeline(cfg.vocab_size, T1_SEQ, T1_BATCH, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch(s).items()}
+               for s in range(2)]
+    step_fn(opt, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    prof, wall_us = profiled(torch, lambda: step_fn(opt, batches[1]))
+    print_profile(f"{cfg.name} train step {T1_BATCH} x {T1_SEQ} (AdamW, remat)", prof,
+                  wall_us, top=20)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the stacked main-path lanes instead of the checks")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--train-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -805,6 +1363,8 @@ def main(argv=None) -> int:
         return 2
     if args.rank is not None:
         return rank_worker(args.rank, args.init, args.out)
+    if args.train_rank is not None:
+        return train_rank_worker(args.train_rank, args.init, args.out)
     sys.path.insert(0, SRC)
 
     from repro_torch import kernels
@@ -886,6 +1446,8 @@ def main(argv=None) -> int:
         del samples, xs
         torch.cuda.empty_cache()
         profile_serving(torch, dev)
+        torch.cuda.empty_cache()
+        profile_training(torch, dev)
         return 0
 
     # -- phase 2: each kernel against its plain version --------------------
@@ -1828,6 +2390,11 @@ def main(argv=None) -> int:
             and stats["flash_launches_prefill"] == str(layers)
             and stats["flash_launches_decode"] == "0",
             "serve launcher: wrong token matrix or flash launches")
+    torch.cuda.synchronize()
+
+    # The training lanes (T1-T4).  The card still holds the earlier phases'
+    # tensors that phase 4 times (a few GB); each lane's peak leaves them out.
+    train_lanes(torch, dev, launches)
     torch.cuda.synchronize()
 
     # -- phase 4: times at the main path's shapes ---------------------------

@@ -9,9 +9,11 @@ and are built with ``nvcc`` on first use.
 Ported so far: distributed PCA, stacked and across the ranks of a
 process group (covariance -> local eigenbasis -> Procrustes-fixing
 rounds; ``repro_torch.core.distributed``, the launcher ``python -m
-repro_torch.launch.eigen``), and dense-LM serving
-(``repro_torch.models``, ``repro_torch.configs``, ``python -m
-repro_torch.launch.serve``).  Entry points run on ``device="cuda"``
+repro_torch.launch.eigen``), dense-LM serving (``repro_torch.models``,
+``repro_torch.configs``, ``python -m repro_torch.launch.serve``) and
+training, with the paper's eigen-compressed data-parallel gradients
+(``repro_torch.optim``, ``repro_torch.checkpoint``, ``python -m
+repro_torch.launch.train``).  Entry points run on ``device="cuda"``
 unless the caller passes ``device="cpu"``; with no card present they
 raise rather than fall back.
 """

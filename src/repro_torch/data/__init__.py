@@ -1,1 +1,2 @@
-"""Synthetic workloads of the paper's experiments (mirrors ``repro.data``)."""
+"""Synthetic workloads of the paper's experiments and the LM token
+pipeline (mirrors ``repro.data``)."""

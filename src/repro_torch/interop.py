@@ -10,7 +10,17 @@ bit.
 
 For the LM, ``lm_params_from_reference`` loads the reference's parameter
 tree (as numpy arrays) into the port's ``LM``, so both packages compute
-the same function in the parity tests.
+the same function in the parity tests.  ``reference_leaves`` is the path
+map between the two: each port leaf name (``blocks.3.mixer.wq``) with the
+reference's key path (``['stages'][0]['block0']['mixer']['wq']``), its
+layer in that stacked leaf, and the reference leaf's full shape and
+logical axes.  The trainers decide weight decay (``decays``) and
+compressibility (``optim.eigen_compress`` via ``launch.steps``) from the
+reference leaf, not from the port's tensor: the reference stacks a
+stage's layers, so a block's (d,) norm is an (L, d) leaf there.
+``split_reference`` / ``join_reference`` move flat dicts of arrays
+between the two namings, and ``opt_state_from_reference`` /
+``opt_state_to_reference`` carry AdamW's and the eigen trainer's state.
 
 Also the device rule of the port's entry points: ``resolve_device``
 places work on the card unless the caller names the CPU, and raises when
@@ -21,6 +31,7 @@ subspace-iteration products to about three digits.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -28,7 +39,9 @@ import torch
 
 __all__ = [
     "from_reference", "to_numpy", "resolve_device", "strict_fp32",
-    "lm_params_from_reference",
+    "lm_params_from_reference", "ReferenceLeaf", "reference_leaves", "decays",
+    "split_reference", "join_reference", "opt_state_from_reference",
+    "opt_state_to_reference",
 ]
 
 
@@ -78,7 +91,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def lm_params_from_reference(values, cfg, *, device: str | torch.device):
+def lm_params_from_reference(values, cfg, *, device: str | torch.device,
+                             param_dtype: torch.dtype | None = None):
     """The port's ``LM`` for ``cfg`` holding the reference's parameters.
 
     ``values`` is the reference's tree (``init_split(cfg, key)[0]``) with
@@ -86,14 +100,15 @@ def lm_params_from_reference(values, cfg, *, device: str | torch.device):
     ``final_norm`` (d,), and per stage ``stages[i]["block{j}"]`` with a
     leading layer axis: ``norm1``, ``norm2``, ``mixer.{wq (d, h, hd), wk,
     wv (d, kv, hd), wo (h, hd, d)}``, ``mlp.{wi, wg (d, f), wo (f, d)}``.
-    Projections are cast to the config's dtype (the reference casts at
-    every use), norms stay f32.
+    Projections are stored in ``param_dtype`` (default the config's
+    dtype: the reference casts at every use; f32 keeps its values
+    exactly, as training needs), norms stay f32.
     """
     # Function-level import: the models import the kernels, which this
     # module's other helpers must not pull in.
     from repro_torch.models.lm import LM
 
-    model = LM(cfg, device=resolve_device(device))
+    model = LM(cfg, device=resolve_device(device), param_dtype=param_dtype)
 
     def put(param: torch.Tensor, arr) -> None:
         host = torch.tensor(np.asarray(arr, dtype=np.float32))  # a copy
@@ -117,3 +132,199 @@ def lm_params_from_reference(values, cfg, *, device: str | torch.device):
                         for name, w in tree["mlp"].items():
                             put(getattr(blk.mlp, name), w[i])
     return model
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceLeaf:
+    """Where a port leaf lives in the reference's parameter tree."""
+
+    path: str  # the reference's key path (jax.tree_util.keystr)
+    layer: int | None  # index along the stacked layer axis, None if unstacked
+    shape: tuple  # the reference leaf's full shape
+    axes: tuple  # its logical axes
+
+    @property
+    def layer_shape(self) -> tuple:
+        """One layer's slice of the reference leaf (the whole leaf if not
+        stacked): the port tensor's shape before any flattening."""
+        return self.shape if self.layer is None else self.shape[1:]
+
+
+def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
+    """Port leaf name -> ``ReferenceLeaf`` for every parameter of the LM of
+    ``cfg`` (``repro/models/lm.py::init_lm``, ``layers.init_attention``
+    and ``init_mlp``): embed (V_pad, d), unembed (d, V_pad), final_norm
+    (d,), and per stage, stacked over its count L, norm1 / norm2 (L, d),
+    wq (L, d, h, hd), wk / wv (L, d, kv, hd), wo (L, h, hd, d), and the
+    MLP's wi / wg (L, d, f) and wo (L, f, d)."""
+    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.d_ff)
+    out = {"embed": ReferenceLeaf("['embed']", None, (cfg.padded_vocab, d),
+                                  ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ReferenceLeaf("['unembed']", None, (d, cfg.padded_vocab),
+                                       ("embed", "vocab"))
+    out["final_norm"] = ReferenceLeaf("['final_norm']", None, (d,), ("embed",))
+    block = {
+        "norm1": ((d,), ("embed",)),
+        "mixer.wq": ((d, h, hd), ("embed", "heads", "head_dim")),
+        "mixer.wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "mixer.wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "mixer.wo": ((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if f > 0:
+        block.update({
+            "norm2": ((d,), ("embed",)),
+            "mlp.wi": ((d, f), ("embed", "mlp")),
+            "mlp.wo": ((f, d), ("mlp", "embed")),
+        })
+        if cfg.gated_mlp:
+            block["mlp.wg"] = ((d, f), ("embed", "mlp"))
+    b = 0
+    for s_idx, (pattern, count) in enumerate(cfg.stages()):
+        for layer in range(count):
+            for j in range(len(pattern)):
+                for leaf, (shape, axes) in block.items():
+                    keys = "".join(f"['{k}']" for k in leaf.split("."))
+                    out[f"blocks.{b}.{leaf}"] = ReferenceLeaf(
+                        f"['stages'][{s_idx}]['block{j}']{keys}", layer,
+                        (count, *shape), ("layers", *axes))
+                b += 1
+    return out
+
+
+def decays(cfg):
+    """The weight-decay rule for the LM of ``cfg``: ``decays(name, p)`` is
+    True when the reference's leaf has two or more dimensions (the
+    reference's ``p.ndim >= 2``): every per-block leaf, norms included
+    (stacked (L, d) there), and the embeddings; not ``final_norm``."""
+    leaves = reference_leaves(cfg)
+    return lambda name, p=None: len(leaves[name].shape) >= 2
+
+
+def split_reference(flat: Mapping[str, np.ndarray], cfg, *,
+                    lead: int = 0) -> dict[str, np.ndarray]:
+    """Reference key path -> array, to port leaf name -> array: each
+    stacked leaf unstacked along its layer axis (after ``lead`` leading
+    axes, such as the eigen error feedback's shard axis) and each layer's
+    slice reshaped to the port tensor's shape.  Paths absent from
+    ``flat`` are skipped."""
+    out = {}
+    for name, leaf in reference_leaves(cfg).items():
+        if leaf.path not in flat:
+            continue
+        arr = np.asarray(flat[leaf.path])
+        head = arr.shape[:lead]
+        if leaf.layer is not None:
+            arr = arr[(slice(None),) * lead + (leaf.layer,)]
+        out[name] = arr.reshape(head + _port_shape(leaf))
+    return out
+
+
+def _port_shape(leaf: ReferenceLeaf) -> tuple:
+    """The port tensor's shape: a layer's slice, its head axes flattened
+    into a matrix for the attention projections."""
+    shape = leaf.layer_shape
+    if len(shape) == 3 and leaf.axes[-1] == "head_dim":  # wq / wk / wv
+        return (shape[0], shape[1] * shape[2])
+    if len(shape) == 3:  # wo (h, hd, d)
+        return (shape[0] * shape[1], shape[2])
+    return shape
+
+
+def join_reference(named: Mapping[str, object], cfg, *,
+                   lead: int = 0) -> dict[str, np.ndarray]:
+    """The inverse of ``split_reference``: port leaf name -> array (or
+    tensor) to reference key path -> numpy array, re-stacking the layers
+    and reshaping to the reference leaf's shape.  All layers of a stacked
+    leaf must be present."""
+    leaves = reference_leaves(cfg)
+    groups: dict[str, list] = {}
+    for name, val in named.items():
+        leaf = leaves[name]
+        arr = to_numpy(val) if isinstance(val, torch.Tensor) else np.asarray(val)
+        head = arr.shape[:lead]
+        groups.setdefault(leaf.path, []).append(
+            (leaf, arr.reshape(head + leaf.layer_shape)))
+    out = {}
+    for path, items in groups.items():
+        leaf = items[0][0]
+        if leaf.layer is None:
+            out[path] = items[0][1]
+            continue
+        items.sort(key=lambda it: it[0].layer)
+        if [it[0].layer for it in items] != list(range(leaf.shape[0])):
+            raise ValueError(f"{path}: layers {[it[0].layer for it in items]} of "
+                             f"{leaf.shape[0]}")
+        out[path] = np.stack([a for _, a in items], axis=lead)
+    return out
+
+
+def _tensors(arrays: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in arrays.items()}
+
+
+def opt_state_from_reference(ref_opt, cfg, *, device, shard: int | None = None):
+    """The reference's optimizer state (numpy leaves) as the port's.
+
+    AdamW: ``{"m": {path: arr}, "v": {path: arr}, "step"}`` (the moment
+    trees flattened by key path).  Eigen trainer:
+    ``{"full_m", "full_v", "eigen": {path: {"basis", "m", "v", "err",
+    "initialized"}}, "step"}``.  Eigen leaves are unstacked per layer (the
+    reference's matmul views are the port's matrices already); ``err``
+    keeps its shard axis (the stacked form), or with ``shard`` is that
+    shard's slice (one rank of the collective form)."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(ref_opt["step"])), dtype=torch.int32)
+    if "eigen" not in ref_opt:
+        return {"m": _tensors(split_reference(ref_opt["m"], cfg), dev),
+                "v": _tensors(split_reference(ref_opt["v"], cfg), dev), "step": step}
+    eigen = {}
+    for name, leaf in reference_leaves(cfg).items():
+        st = ref_opt["eigen"].get(leaf.path)
+        if st is None:
+            continue
+        pick = (lambda a, lead=0: a if leaf.layer is None
+                else a[(slice(None),) * lead + (leaf.layer,)])
+        err = pick(np.asarray(st["err"]), 1)
+        if shard is not None:
+            err = err[shard]
+        eigen[name] = {
+            **_tensors({k: pick(np.asarray(st[k])) for k in ("basis", "m", "v")}, dev),
+            "err": _tensors({"e": err}, dev)["e"],
+            "initialized": torch.tensor(bool(np.asarray(st["initialized"]))),  # host flag
+        }
+    return {"full_m": _tensors(split_reference(ref_opt["full_m"], cfg), dev),
+            "full_v": _tensors(split_reference(ref_opt["full_v"], cfg), dev),
+            "eigen": eigen, "step": step}
+
+
+def opt_state_to_reference(opt, cfg) -> dict:
+    """The inverse of ``opt_state_from_reference`` (numpy leaves, the
+    reference's key paths and stacked shapes), for comparisons.  A
+    collective-form state's ``err`` has no shard axis."""
+    step = np.asarray(int(opt["step"]), dtype=np.int32)
+    if "eigen" not in opt:
+        return {"m": join_reference(opt["m"], cfg), "v": join_reference(opt["v"], cfg),
+                "step": step}
+    leaves = reference_leaves(cfg)
+    eigen: dict[str, dict] = {}
+    for name, st in opt["eigen"].items():
+        leaf = leaves[name]
+        eigen.setdefault(leaf.path, {"_leaf": leaf, "items": []})["items"].append(
+            (leaf.layer, st))
+    out = {}
+    for path, grp in eigen.items():
+        items = sorted(grp["items"], key=lambda it: it[0] or 0)
+        stacked = grp["_leaf"].layer is not None
+        st0 = items[0][1]
+        rec = {}
+        for k in ("basis", "m", "v", "err"):
+            arrs = [to_numpy(st[k]) for _, st in items]
+            lead = st0["err"].dim() - 2 if k == "err" else 0
+            rec[k] = np.stack(arrs, axis=lead) if stacked else arrs[0]
+        rec["initialized"] = np.asarray(bool(st0["initialized"]))
+        out[path] = rec
+    return {"full_m": join_reference(opt["full_m"], cfg),
+            "full_v": join_reference(opt["full_v"], cfg), "eigen": out, "step": step}

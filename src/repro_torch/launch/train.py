@@ -1,0 +1,285 @@
+"""Training entry point of the port: ``python -m repro_torch.launch.train
+--arch <id> [...]`` (port of ``repro/launch/train.py``).
+
+Production behaviours wired in, as the reference's:
+  * checkpoint/restart: async ``CheckpointManager`` and resume from the
+    latest checkpoint,
+  * fault tolerance: ``FailureInjector`` (``--fail-at``) and resume from
+    the latest checkpoint after a ``SimulatedPreemption``,
+  * NaN guard: the AdamW step skips non-finite steps,
+  * straggler monitor: a step-time EMA whose escalation forces a
+    checkpoint,
+  * eigen-compressed data-parallel gradients (the paper's technique,
+    ``--eigen``).
+
+The model keeps f32 master weights and computes in the config's dtype,
+with per-block remat where the config asks for it; data come from the
+seeded ``TokenPipeline``.  One process holds ``--shards`` data-parallel
+shards stacked; under ``torchrun`` each rank is one shard
+(``launch.mesh.make_aggregation_mesh``) and takes its rows of the global
+batch.  Runs on the card unless ``--device cpu``; without a card it
+refuses to start.  Examples::
+
+    python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8
+    python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8 \\
+        --eigen --shards 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+        --arch granite-3-2b --steps 8 --eigen
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.comm import transport
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.interop import resolve_device, strict_fp32
+from repro_torch.launch.mesh import make_aggregation_mesh, under_torchrun
+from repro_torch.launch.steps import (
+    eigen_opt_init,
+    make_eigen_refresh_step,
+    make_eigen_train_step,
+    make_train_step,
+    start_shapes,
+)
+from repro_torch.models import build, param_count
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.optim.eigen_compress import EigenCompressConfig, draw_starts
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime.fault import FailureInjector, SimulatedPreemption
+from repro_torch.runtime.straggler import StepTimer, StragglerMonitor
+
+__all__ = ["train", "main"]
+
+log = logging.getLogger("repro_torch.train")
+
+
+def _device_batch(batch: dict, dev: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(device=dev, dtype=torch.long)
+            for k, v in batch.items()}
+
+
+def _copy_into(dst, src, shard: Optional[int]) -> None:
+    """Copy a restored tree into the live one in place (a rank takes its
+    own slice of the shard-stacked error feedback)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k], shard)
+        return
+    if isinstance(src, np.ndarray):  # a gathered err: this rank's slice
+        src = torch.from_numpy(src[shard])
+    dst.copy_(src)
+
+
+def train(
+    arch: str | ModelConfig,
+    *,
+    steps: int = 100,
+    batch: int = 8,
+    seq: int = 128,
+    lr: float = 3e-4,
+    warmup: int = 20,
+    reduced: bool = True,
+    eigen: bool = False,
+    eigen_rank: int = 32,
+    eigen_refresh: int = 25,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 50,
+    resume: bool = True,
+    fail_at: tuple = (),
+    seed: int = 0,
+    log_every: int = 10,
+    device: str | torch.device = "cuda",
+    shards: Optional[int] = None,
+    group=None,
+):
+    """Returns (model, final optimizer state, losses).
+
+    ``arch`` is an arch id (its reduced config unless ``reduced=False``)
+    or a ``ModelConfig``.  ``shards`` stacks that many data-parallel
+    shards in this process (default 1); ``group`` runs one shard a rank
+    of a process group instead.  Weights are drawn from ``seed``; each
+    refresh's start bases from a generator seeded by (seed + 1, step),
+    the same on every shard and after a resume."""
+    cfg = arch if isinstance(arch, ModelConfig) else (
+        get_reduced_config(arch) if reduced else get_config(arch))
+    dev = resolve_device(device)
+    strict_fp32()
+    if group is not None and shards is not None:
+        raise ValueError("give shards= (stacked) or group= (one shard a rank), not both")
+    m = torch.distributed.get_world_size(group) if group is not None else (shards or 1)
+    rank = torch.distributed.get_rank(group) if group is not None else 0
+    model = build(cfg, device=dev, param_dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+    params = dict(model.named_parameters())
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=seed)
+
+    adamw_cfg = AdamWConfig()
+    sched = warmup_cosine(lr, warmup, steps)
+    if eigen:
+        ecfg = EigenCompressConfig(rank=eigen_rank, refresh_every=eigen_refresh, min_dim=64)
+        train_step = make_eigen_train_step(model, adamw_cfg=adamw_cfg, schedule=sched,
+                                           shards=shards, group=group)
+        refresh_step = make_eigen_refresh_step(model, ecfg=ecfg, shards=shards, group=group)
+        opt = eigen_opt_init(model, ecfg, m, group=group)
+    else:
+        ecfg = refresh_step = None
+        train_step = make_train_step(model, adamw_cfg=adamw_cfg, schedule=sched, group=group)
+        opt = adamw_init(params)
+
+    def ckpt_tree() -> dict:
+        """The checkpointed state: the collective form gathers every rank's
+        error feedback, so the files are the stacked form's."""
+        o = opt
+        if group is not None and eigen:
+            o = {**opt, "eigen": {n: {**st, "err": transport.all_gather(st["err"], group=group)}
+                                  for n, st in opt["eigen"].items()}}
+        return {"params": params, "opt": o}
+
+    def like_tree() -> dict:
+        if group is None or not eigen:
+            return {"params": params, "opt": opt}
+        o = {**opt, "eigen": {n: {**st, "err": np.broadcast_to(
+            np.float32(0), (m, *st["err"].shape))} for n, st in opt["eigen"].items()}}
+        return {"params": params, "opt": o}
+
+    ckpt = CheckpointManager(checkpoint_dir, every=checkpoint_every) if checkpoint_dir else None
+
+    def save(step: int, force: bool = False) -> None:
+        if ckpt is None or not (force or ckpt.due(step)):
+            return
+        tree = ckpt_tree()
+        if rank == 0:
+            ckpt.maybe_save(step, tree, force=True)
+
+    def restore() -> Optional[int]:
+        ckpt.wait()
+        if group is not None:
+            transport.barrier(group=group)
+        got_step, tree, _ = ckpt.restore_latest(like_tree())
+        if got_step is not None:
+            with torch.no_grad():
+                _copy_into({"params": params, "opt": opt}, tree, rank)
+        return got_step
+
+    start_step = 0
+    if ckpt is not None and resume:
+        got = restore()
+        if got is not None:
+            start_step = got
+            log.info("resumed from step %d", start_step)
+
+    injector = FailureInjector(fail_at_steps=tuple(fail_at))
+    escalated = [False]
+    monitor = StragglerMonitor(on_escalate=lambda s, dt: escalated.__setitem__(0, True))
+    timer = StepTimer(device=dev)
+    losses = []
+
+    step = start_step
+    while step < steps:
+        try:
+            injector.check(step)
+            b = _device_batch(pipe.batch(step), dev)
+            if eigen and step % ecfg.refresh_every == 0:
+                refresh_step(opt, b, draw_starts(start_shapes(opt), seed=seed + 1,
+                                                 step=step, device=dev))
+            metrics = train_step(opt, b)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            dt = timer.lap()
+            monitor.record(step, dt)
+            if step % log_every == 0:
+                log.info("step %d loss %.4f (%.3fs, %.0f tok/s)", step, loss, dt,
+                         batch * seq / max(dt, 1e-9))
+            if ckpt is not None:
+                force = escalated[0]
+                if group is not None:  # every rank saves together
+                    flag = torch.tensor([float(force)], device=dev)
+                    force = bool(transport.all_reduce(flag, group=group, op="max")[0])
+                escalated[0] = False
+                save(step + 1, force=force)
+            step += 1
+        except SimulatedPreemption:
+            log.warning("preempted at step %d; resuming from latest checkpoint", step)
+            if ckpt is not None:
+                got = restore()
+                if got is not None:
+                    step = got
+            # without a checkpoint dir we continue with in-memory state
+
+    if ckpt is not None:
+        save(step, force=True)
+        ckpt.wait()
+    return model, opt, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--eigen", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card, default) or cpu")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="data-parallel shards stacked in this process (not under torchrun)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    group, device, rank = None, args.device, 0
+    if under_torchrun():
+        if args.shards is not None:
+            raise SystemExit("--shards stacks shards in one process; under torchrun "
+                             "each rank is one shard")
+        agg = make_aggregation_mesh(device=args.device)
+        group, device, rank = agg.group, agg.device, agg.rank
+    resolve_device(device)
+    t0 = time.perf_counter()
+    model, _, losses = train(
+        args.arch,
+        steps=args.steps,
+        batch=args.batch,
+        seq=args.seq,
+        lr=args.lr,
+        reduced=not args.full_config,
+        eigen=args.eigen,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=not args.no_resume,
+        fail_at=tuple(args.fail_at),
+        device=device,
+        shards=args.shards,
+        group=group,
+    )
+    wall = time.perf_counter() - t0
+    if rank == 0:
+        print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
+        dev = torch.device(device)
+        print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+        print(f"config: {model.cfg.name} ({param_count(model.cfg)} parameters)")
+        print(f"shards: {torch.distributed.get_world_size(group) if group is not None else args.shards or 1}")
+        print(f"eigen: {args.eigen}")
+        print(f"final_loss_exact: {losses[-1]!r}")
+        print(f"losses: {len(losses)}")
+        print(f"wall_s: {wall:.3f}")
+    if group is not None:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

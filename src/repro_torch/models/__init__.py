@@ -7,5 +7,5 @@ from repro_torch.models.config import (  # noqa: F401
     ShapeConfig,
     param_count,
 )
-from repro_torch.models.lm import LM  # noqa: F401
+from repro_torch.models.lm import LM, loss_fn  # noqa: F401
 from repro_torch.models.registry import build, init_params  # noqa: F401

@@ -7,13 +7,16 @@ reference's (M, H, D) / (H, D, M) tensors flattened to matrices,
 ``wq`` (M, H*D), ``wk``/``wv`` (M, KV*D), ``wo`` (H*D, M); the KV cache
 of a block is ``{"k", "v"}`` of shape (B, KV, S_cache, D) with absolute
 slots.  Norm scales are kept in f32 (the reference stores f32 and uses
-``1 + scale`` in f32); projections in the config's dtype (the reference
-stores f32 and casts at every use, which gives the same values).
+``1 + scale`` in f32).  Projections are stored in the dtype the caller
+gives (``dtype``: the config's dtype to serve, f32 master weights to
+train) and cast to the activations' dtype at every use, as the reference
+casts its f32 parameters; a cast to the dtype a weight already has is a
+no-op, so serving's bf16 weights are used as they are.
 
 Ported so far: full (causal) attention in its train / prefill / decode
-modes and the SwiGLU / GELU MLP.  ``local_attn``'s ring-buffer cache,
-MoE, RG-LRU, SSD and cross-attention wait for their families (ROADMAP
-A11).
+modes, the SwiGLU / GELU MLP and the loss's ``cross_entropy``.
+``local_attn``'s ring-buffer cache, MoE, RG-LRU, SSD and cross-attention
+wait for their families (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "apply_rope", "Attention", "MLP"]
+__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "cross_entropy"]
 
 _NEG_INF = -1e30
 MODES = ("train", "prefill", "decode")
@@ -120,9 +123,10 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = (x @ self.wq).view(b, s, h, hd)
-        k = (x @ self.wk).view(b, s, kv, hd)
-        v = (x @ self.wv).view(b, s, kv, hd)
+        cdt = x.dtype
+        q = (x @ self.wq.to(cdt)).view(b, s, h, hd)
+        k = (x @ self.wk.to(cdt)).view(b, s, kv, hd)
+        v = (x @ self.wv.to(cdt)).view(b, s, kv, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
         qt = q.transpose(1, 2).contiguous()  # (B, H, S, D)
@@ -170,7 +174,7 @@ class Attention(nn.Module):
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
         y = out.transpose(1, 2).reshape(b, s, h * hd)
-        return y @ self.wo, new_cache
+        return y @ self.wo.to(cdt), new_cache
 
 
 class MLP(nn.Module):
@@ -188,9 +192,24 @@ class MLP(nn.Module):
             self.wg = nn.Parameter(torch.empty(d, f, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.wi
+        cdt = x.dtype
+        h = x @ self.wi.to(cdt)
         if self.gated:
-            h = F.silu(x @ self.wg) * h
+            h = F.silu(x @ self.wg.to(cdt)) * h
         else:
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-        return h @ self.wo
+        return h @ self.wo.to(cdt)
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean token CE in f32. logits: (B, S, V); labels: (B, S) integers."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

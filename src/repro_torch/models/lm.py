@@ -13,7 +13,19 @@ Modes of ``LM.forward``:
 
 Logits come out in f32 (products of the model's dtype accumulated in f32,
 as the reference's ``preferred_element_type``), and the padded vocab
-entries are set to -1e30.
+entries are set to -1e30.  ``loss_fn`` is the next-token mean CE over
+them (the dense family has no aux term).
+
+Parameters: ``LM(cfg, param_dtype=...)`` stores the projections, the
+embedding and the unembedding in ``param_dtype`` (default the config's
+dtype, which serving uses as is) and casts each to the config's dtype at
+its use; training stores f32 master weights (``param_dtype=torch.float32``),
+as the reference stores every parameter in f32, so AdamW updates f32
+values.  Norm scales are f32 either way.  In train mode with
+``cfg.remat == "full"`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, as the reference's ``jax.checkpoint`` of
+each layer body.
 
 The KV cache is a list with one ``{"k", "v"}`` per block, each
 (B, KV, cache_len, D) in the model's dtype.  ``prefill`` allocates it at
@@ -28,11 +40,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, MODES, Attention, rms_norm
+from repro_torch.models.layers import MLP, MODES, Attention, cross_entropy, rms_norm
 
-__all__ = ["Block", "LM", "dtype_of"]
+__all__ = ["Block", "LM", "dtype_of", "loss_fn"]
 
 Cache = list[dict[str, torch.Tensor]]
 
@@ -64,10 +77,10 @@ class Block(nn.Module):
     """Pre-norm residual block: ``x + attn(norm1(x))``, then
     ``x + mlp(norm2(x))`` when the config has an MLP."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
         self.eps = cfg.norm_eps
-        dtype = dtype_of(cfg)
+        dtype = dtype or dtype_of(cfg)
         self.norm1 = nn.Parameter(torch.zeros(cfg.d_model, device=device))
         self.mixer = Attention(cfg, device=device, dtype=dtype)
         self.mlp = None
@@ -88,16 +101,17 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Embedding, blocks, final norm, unembedding.  Parameters are
-    allocated uninitialised on ``device``; ``repro_torch.models.build``
-    fills them from a generator, ``interop.lm_params_from_reference``
-    from the reference's parameter tree."""
+    allocated uninitialised on ``device`` in ``param_dtype`` (default the
+    config's dtype; norms f32); ``repro_torch.models.build`` fills them
+    from a generator, ``interop.lm_params_from_reference`` from the
+    reference's parameter tree."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, param_dtype=None):
         super().__init__()
         cfg.validate()
         _refuse_unported(cfg)
         self.cfg = cfg
-        dtype = dtype_of(cfg)
+        dtype = param_dtype or dtype_of(cfg)
         d, vp = cfg.d_model, cfg.padded_vocab
         self.embed = nn.Parameter(torch.empty(vp, d, device=device, dtype=dtype))
         self.unembed = None
@@ -105,7 +119,7 @@ class LM(nn.Module):
             self.unembed = nn.Parameter(torch.empty(d, vp, device=device, dtype=dtype))
         self.final_norm = nn.Parameter(torch.zeros(d, device=device))
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device)
+            Block(cfg, device=device, dtype=dtype)
             for pattern, count in cfg.stages()
             for _ in range(count)
             for _kind in pattern  # "attn" only: _refuse_unported above
@@ -133,19 +147,24 @@ class LM(nn.Module):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         cfg = self.cfg
-        x = F.embedding(tokens, self.embed)  # (B, S, M)
+        cdt = dtype_of(cfg)
+        # Gather, then cast: the reference's take of the cast table.
+        x = F.embedding(tokens, self.embed).to(cdt)  # (B, S, M)
         s = x.shape[1]
         if mode == "decode":
             positions = torch.full((1,), pos, device=x.device)
         else:
             positions = torch.arange(s, device=x.device)
         new_cache = [] if mode in ("prefill", "decode") else None
+        remat = mode == "train" and cfg.remat == "full" and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, c = blk(
-                x, positions=positions, mode=mode,
-                cache=None if cache is None else cache[i], pos=pos,
-                use_kernel=use_kernel,
-            )
+            kw = dict(positions=positions, mode=mode,
+                      cache=None if cache is None else cache[i], pos=pos,
+                      use_kernel=use_kernel)
+            if remat:
+                x, c = checkpoint(blk, x, use_reentrant=False, **kw)
+            else:
+                x, c = blk(x, **kw)
             if new_cache is not None:
                 new_cache.append(c)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -153,7 +172,7 @@ class LM(nn.Module):
             x = x[:, -1:, :]  # serving needs the last position only
         w = self.embed.T if self.unembed is None else self.unembed
         # Products of the model's dtype accumulated in f32, f32 out.
-        logits = x.to(torch.float32) @ w.to(torch.float32)
+        logits = x.to(torch.float32) @ w.to(cdt).to(torch.float32)
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = -1e30  # padded entries out of the softmax
         return logits, new_cache
@@ -192,3 +211,15 @@ class LM(nn.Module):
         every row), the cache updated in place; logits (B, V_pad) f32."""
         logits, cache = self.forward(tokens, mode="decode", cache=cache, pos=pos)
         return logits[:, 0], cache
+
+
+def loss_fn(
+    model: LM, batch: dict[str, torch.Tensor], *, aux_coef: float = 0.01
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token CE of ``batch`` (tokens (B, S), labels (B, S), optional
+    loss_mask) in f32, and ``{"ce", "aux"}``; the dense family's aux loss
+    is 0, so the loss is the CE (the reference adds ``aux_coef * 0``)."""
+    logits, _ = model(batch["tokens"], mode="train")
+    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}

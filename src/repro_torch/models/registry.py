@@ -7,9 +7,9 @@ surface of the reference's ``ModelApi``.  ``init_params`` fills it from a
 ``torch.Generator`` with the reference's distributions
 (``repro/models/layers.py:70-81``): every projection, the embedding and
 the unembedding a standard normal truncated to [-2, 2] times
-1/sqrt(fan_in), drawn in f32 and stored in the model's dtype (the
-reference stores f32 and casts at every use: the same values); norm
-scales zero.  The two frameworks draw different numbers from one seed:
+1/sqrt(fan_in), drawn in f32 and stored in the model's parameter dtype
+(the config's dtype to serve: the reference stores f32 and casts at every
+use, the same values; f32 master weights to train); norm scales zero.  The two frameworks draw different numbers from one seed:
 equivalence is of distributions, and the parity tests carry the
 reference's own weights across with ``interop.lm_params_from_reference``.
 """
@@ -61,11 +61,13 @@ def build(
     *,
     device: str | torch.device = "cuda",
     generator: torch.Generator | None = None,
+    param_dtype: torch.dtype | None = None,
 ) -> LM:
     """The LM of ``cfg`` on ``device`` (the card unless the caller names
     the CPU), initialised from ``generator`` (a generator on that device;
-    seeded 0 if None)."""
+    seeded 0 if None), parameters stored in ``param_dtype`` (default the
+    config's dtype; ``torch.float32`` for training)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return init_params(LM(cfg, device=dev), generator)
+    return init_params(LM(cfg, device=dev, param_dtype=param_dtype), generator)

@@ -45,6 +45,12 @@ same mapped buffers, held like B5/B6 against its plain version and
 against B6's plain version on the stack in each rank's hop order; a
 world whose neighbour never signals raises after the wait bound; and
 one rank per card over NVLink (skipped below two cards; not yet run).
+Training (A11-train): f32 master weights cast to bf16 at their use give
+the bf16-stored model's logits bit for bit; remat's gradients within 1e-6
+of the largest entry; AdamW in place on the card within 1e-6 relative of
+the CPU over a clipped, an unclipped and a skipped step; the eigen refresh
+on CUDA tensors launches B2 and B4 once per compressed leaf and its bases
+agree with the CPU's within 1e-4 f64.
 """
 
 import json
@@ -967,3 +973,166 @@ def test_plan_auto_on_sm90_picks_a_cuda_cell_then_no_b5(dev, r):
     # A CPU-pinned call on this card still plans for the CPU.
     assert resolve_plan("auto", m=8, d=8192, r=r, n_iter=2, context="stacked",
                         tensor_device="cpu").device_kind == "cpu"
+
+
+def _train_cfg(arch="granite-3-2b", **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+
+    return dataclasses.replace(get_reduced_config(arch), **kw)
+
+
+def test_f32_master_weights_are_cast_at_use_on_the_card(dev):
+    """Training keeps f32 master weights and casts each to the config's
+    bf16 at its use: the train-mode logits equal those of the same draws
+    stored in bf16 (serving's storage), and the gradients are f32."""
+    from repro_torch.models import build
+    from repro_torch.models.lm import loss_fn
+
+    cfg = _train_cfg()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    master = build(cfg, device=dev, param_dtype=torch.float32,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    stored = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    assert master.blocks[0].mixer.wq.dtype == torch.float32
+    assert stored.blocks[0].mixer.wq.dtype == torch.bfloat16
+    with torch.no_grad():
+        a, _ = master(tokens, mode="train")
+        b, _ = stored(tokens, mode="train")
+    assert a.dtype == torch.float32 and torch.equal(a, b)
+    loss, _ = loss_fn(master, {"tokens": tokens, "labels": tokens})
+    grads = torch.autograd.grad(loss, list(master.parameters()))
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_remat_gives_the_same_gradients_on_the_card(dev):
+    """cfg.remat == "full" (each block under torch.utils.checkpoint)
+    recomputes the same forward in the backward: gradients within 1e-6 of
+    the largest entry of each leaf's gradient without remat."""
+    from repro_torch.models import build
+    from repro_torch.models.lm import loss_fn
+
+    grads = {}
+    for remat in ("none", "full"):
+        cfg = _train_cfg(remat=remat, dtype="float32")
+        model = build(cfg, device=dev, param_dtype=torch.float32,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        loss, _ = loss_fn(model, {"tokens": tokens, "labels": tokens.roll(1, 1)})
+        grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
+    for a, b in zip(grads["none"], grads["full"]):
+        assert (a - b).abs().max().item() <= 1e-6 * a.abs().max().item()
+
+
+def test_adamw_in_place_on_the_card_matches_the_cpu(dev):
+    """Three AdamW steps (clipped, unclipped, non-finite) on the card and on
+    the CPU from the same tensors: the card's parameters and moments are
+    updated in place (same storage) and agree within 1e-6 relative."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"w": (64, 96), "norm": (96,), "embed": (300, 64)}
+    params = {k: torch.randn(*s, generator=gen) for k, s in shapes.items()}
+    grads = [{k: torch.randn(*s, generator=gen) * sc for k, s in shapes.items()}
+             for sc in (10.0, 0.01, 0.01)]
+    grads[2]["norm"][0] = float("nan")
+    cpu = {k: v.clone() for k, v in params.items()}
+    card = {k: v.to(dev) for k, v in params.items()}
+    ptrs = {k: v.data_ptr() for k, v in card.items()}
+    s_cpu, s_card = adamw_init(cpu), adamw_init(card)
+    cfg = AdamWConfig()
+    decay = lambda name, p: name != "norm"
+    for g in grads:
+        m_cpu = adamw_update({k: v.clone() for k, v in g.items()}, s_cpu, cpu, lr=1e-3,
+                             cfg=cfg, decays=decay)
+        m_card = adamw_update({k: v.to(dev) for k, v in g.items()}, s_card, card, lr=1e-3,
+                              cfg=cfg, decays=decay)
+        assert m_cpu["step_skipped"] == m_card["step_skipped"]
+    assert m_card["step_skipped"] == 1.0 and int(s_card["step"]) == 2
+    assert {k: v.data_ptr() for k, v in card.items()} == ptrs
+    for tree_cpu, tree_card in ((cpu, card), (s_cpu["m"], s_card["m"]), (s_cpu["v"], s_card["v"])):
+        for k in shapes:
+            a, b = tree_cpu[k], tree_card[k].cpu()
+            assert (a - b).abs().max().item() <= 1e-6 * a.abs().max().item(), k
+
+
+def _refresh_f64(grads, starts, r, iters):
+    """The refresh of ``grads`` (one dict of leaf gradients a shard) in f64
+    on the CPU: each shard's local solve, then the Procrustes average
+    aligned to shard 0's basis.  Returns (local bases, refreshed basis)
+    per leaf."""
+    from repro_torch.core.eigenspace import refinement_rounds
+
+    out = {}
+    for n in grads[0]:
+        local = []
+        for g in grads:
+            q, g64 = torch.linalg.qr(starts[n].double().cpu())[0], g[n].double().cpu()
+            for _ in range(iters):
+                q = torch.linalg.qr(g64 @ (g64.T @ q))[0]
+            local.append(q)
+        out[n] = (local, refinement_rounds(torch.stack(local), n_iter=1))
+    return out
+
+
+def test_eigen_refresh_on_the_card_launches_b2_and_b4_per_leaf(dev):
+    """The stacked eigen refresh on CUDA tensors runs the rounds on the
+    kernels: one B2 (batched_gram) and one B4 (align_average) launch per
+    compressed leaf at n_iter = 1.  Every shard gets its own rows.  From
+    the same parameters, batch and starts, each shard's gradients on the
+    card agree with the CPU's within 1e-4 relative L2 (the CPU parity
+    tests' bar), and each shard's local basis and every refreshed basis
+    within max(1e-4, 4 x the CPU's f32 error against the same solve in
+    f64) f64 subspace distance: the 4-step local solve amplifies the
+    gradients' rounding (6e-7 became 2.2e-5 for one leaf on the H100).
+    The embedding's refreshed basis is left out: on distinct rows its
+    refresh is not defined (ROADMAP C7)."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import build
+    from repro_torch.models.lm import loss_fn
+    from repro_torch.optim import EigenCompressConfig
+    from repro_torch.optim import eigen_compress as EC
+    from repro_torch.optim.eigen_compress import draw_starts
+
+    cfg = _train_cfg(dtype="float32", attn_probs_bf16=False)
+    ecfg = EigenCompressConfig(rank=8, min_dim=64)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1))
+    got = {}
+    for where in ("cpu", dev):
+        model = build(cfg, device="cpu", param_dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0)).to(where)
+        opt = tsteps.eigen_opt_init(model, ecfg, 4)
+        batch = {"tokens": tokens.to(where), "labels": tokens.roll(1, 1).to(where)}
+        starts = {k: v.to(where) for k, v in draw_starts(
+            tsteps.start_shapes(opt), seed=1, step=0, device="cpu").items()}
+        params = dict(model.named_parameters())
+        names = sorted(opt["eigen"])
+        grads = []
+        for i in range(4):
+            loss, _ = loss_fn(model, tsteps.shard_rows(batch, i, 4))
+            grads.append(dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names]))))
+        local = [{n: EC._local_basis(g[n], 8, ecfg.power_iters, starts[n]) for n in names}
+                 for g in grads]
+        kernels.reset_launch_counts()
+        tsteps.make_eigen_refresh_step(model, ecfg=ecfg, shards=4)(opt, batch, starts)
+        counts = {k: c for k, c in kernels.launch_counts().items() if c}
+        want = {"batched_gram": len(names), "align_average": len(names)} if where != "cpu" else {}
+        assert counts == want
+        got[str(where)] = ([{n: g[n].cpu() for n in names} for g in grads],
+                           [{n: v[n].cpu() for n in names} for v in local],
+                           {n: opt["eigen"][n]["basis"].cpu() for n in names}, starts)
+    (g_cpu, v_cpu, b_cpu, starts), (g_dev, v_dev, b_dev, _) = got["cpu"], got[str(dev)]
+    exact = _refresh_f64(g_cpu, starts, 8, ecfg.power_iters)
+    errs = {}
+    for n in b_cpu:
+        grad = max(((a[n] - b[n]).norm() / a[n].norm()).item() for a, b in zip(g_cpu, g_dev))
+        loc = max(subspace_dist64(a[n], b[n]) / max(1e-4, 4 * subspace_dist64(a[n], e))
+                  for a, b, e in zip(v_cpu, v_dev, exact[n][0]))
+        ref = 0.0 if n == "embed" else subspace_dist64(b_cpu[n], b_dev[n]) / max(
+            1e-4, 4 * subspace_dist64(b_cpu[n], exact[n][1]))
+        errs[n] = (grad, loc, ref)
+    bad = {n: e for n, e in errs.items() if not (e[0] <= 1e-4 and e[1] <= 1 and e[2] <= 1)}
+    assert not bad, f"(grad rel L2, local basis / bar, refreshed basis / bar): {bad}"
