@@ -108,6 +108,17 @@ of JAX or of the reference package.  Phases, each ending in
    last-position logits within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``; and
    the serve launcher once in its own process at the full config with a
    short prompt.
+   Then the recurrent serving lane (``recurrent_lanes``): recurrentgemma-2b
+   (26 blocks: 18 RG-LRU, 8 local attention with window 2048, head_dim
+   256, 10 query heads on 1 KV head, through B8's wide form) and
+   mamba2-370m (48 SSD blocks) at their full configs with the same
+   traffic: exactly 8 / 0 flash launches in the prefill and none in
+   decode; kernel vs plain prefill, and a prefill of the first 4095
+   tokens plus one decode step (the ring, the RG-LRU / SSD states and
+   the conv tails carried on the card; mamba2's chunk padded), against
+   the 4096-token prefill's last-position logits within the serving
+   bars; B8's device time in one profiled hybrid prefill; the serve
+   launcher once with ``--arch recurrentgemma-2b --full-config``.
    Then the training lanes (``train_lanes``; constants T1_* .. T4_*):
    T1 trains ``llama3.2-3b`` at its full config (3.61 B parameters, f32
    master weights, bf16 compute, remat per block) with AdamW on 8 x 512
@@ -152,13 +163,15 @@ of JAX or of the reference package.  Phases, each ending in
    again calibrated from these timings (``Calibration.from_records``,
    platform "h100").
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
-   cross-rank lanes summed over ranks, B8's the serve call), then, last,
+   cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's
+   and the recurrent lane's), then, last,
    ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
-decode steps) after a warm-up prefill, then one T1 train step after a
+decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``,
+then one T1 train step after a
 warm-up step: it prints each run's wall time, the device's busy share
 and the kernels that took the most device time.  ``--rank K`` and
 ``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
@@ -249,6 +262,17 @@ PEAKS = (
 # The serving lane: llama3.2-3b at its full config, 4 requests of 4096
 # prompt tokens, 32 greedy tokens each.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 4096, 32
+# The recurrent serving lane: each arch at its full config with the same
+# traffic (SERVE_BATCH x SERVE_PROMPT prompt tokens, SERVE_GEN greedy
+# tokens), its attention blocks (the prefill's flash launches), and the
+# dtype of its continuation check.  mamba2-370m's is f32: at its full
+# width (48 blocks, random weights) the bf16 model's last logits are set
+# by where it rounds as much as by the tokens (the lane prints how far
+# they move when only the SSD chunk changes, 128 -> 64, and how far they
+# sit from the same weights in f32), so its bf16 continuation is printed
+# and the check holds the served weights widened to f32, where the two
+# forms agree to f32 rounding.
+RECURRENT_ARCHS = (("recurrentgemma-2b", 8, "bfloat16"), ("mamba2-370m", 0, "float32"))
 # B3 / B5 past the shared-memory Newton-Schulz tiles (r > 136).
 WIDE_RS = (192, 256)
 # B8's wide kernel timed at recurrentgemma-2b's local attention shape.
@@ -774,12 +798,12 @@ def profile_lanes(torch, distributed_pca, samples, dev) -> None:
         print_profile(f"polar={polar} orth={orth}", prof, wall_us)
 
 
-def profile_serving(torch, dev) -> None:
+def profile_serving(torch, dev, arch=SERVE_ARCH) -> None:
     """The serving lane's device time: one full-width prefill and 8 decode
-    steps of SERVE_ARCH under torch.profiler, after a warm-up prefill."""
+    steps of ``arch`` under torch.profiler, after a warm-up prefill."""
     from repro_torch.launch.serve import load
 
-    model, prompts = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    model, prompts = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                           reduced=False, device=dev, seed=SEED)
     cache_len = SERVE_PROMPT + 8
     model.prefill(prompts, cache_len=cache_len)  # warm-up
@@ -787,7 +811,7 @@ def profile_serving(torch, dev) -> None:
     out = []
     prof, wall_us = profiled(
         torch, lambda: out.append(model.prefill(prompts, cache_len=cache_len)))
-    print_profile(f"{SERVE_ARCH} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=16)
+    print_profile(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=16)
     logits, cache = out[0]
 
     def decode():
@@ -797,7 +821,173 @@ def profile_serving(torch, dev) -> None:
             tok = step.argmax(-1)[:, None]
 
     prof, wall_us = profiled(torch, decode)
-    print_profile(f"{SERVE_ARCH} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us)
+    print_profile(f"{arch} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us)
+    del model, prompts, logits, cache, out
+
+
+# -- the recurrent serving lane (phase 3) -------------------------------------
+def recurrent_lanes(torch, dev, launches: dict) -> dict:
+    """recurrentgemma-2b (RG-LRU + local attention, B8 windowed at head_dim
+    256) and mamba2-370m (SSD) served at their full configs through
+    ``launch.serve``'s ``load`` and ``generate``: exactly one flash launch
+    an attention block in the prefill and none in decode; the served model
+    and prompts prefilled through the kernel and through plain attention,
+    and prefilled over the first SERVE_PROMPT - 1 tokens then decoded one
+    step (the ring, the recurrent states and the conv tails carried on the
+    card), each against the whole prefill's last-position logits within
+    SERVE_REL_L2 / SERVE_MAX_ABS; then the serve launcher once in its own
+    process.  Returns B8's device time in one warm hybrid prefill (the
+    profiler's sum over the flash kernel) and that prefill's device time."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate, load
+    from repro_torch.models import LM
+
+    def bars(label, got, want):
+        rel_l2 = ((got - want).norm() / want.norm()).item()
+        max_abs = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
+        print(f"[recur] {label}: rel L2 {rel_l2:.3e} (bar {SERVE_REL_L2}), max abs "
+              f"{max_abs:.3e} = {max_abs / scale:.3e} of the largest logit {scale:.3f} "
+              f"(bar {SERVE_MAX_ABS}), argmax agree {agree}/{got.shape[0]}")
+        require(bool(torch.isfinite(got).all()) and rel_l2 <= SERVE_REL_L2
+                and max_abs <= SERVE_MAX_ABS * scale, f"{label}: outside the serving bars")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    b8 = {}
+    for arch, attn_blocks, cont_dtype in RECURRENT_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, prompts = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                              reduced=False, device="cuda", seed=SEED)
+        toks, st = generate(model, prompts, gen=SERVE_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = model.cfg
+        launches["flash_attention"] += counts["flash_attention"]
+        kinds = [blk.kind for blk in model.blocks]
+        print(f"[recur] {arch} full config (layers {cfg.num_layers}, blocks "
+              f"{ {k: kinds.count(k) for k in dict.fromkeys(kinds)} }, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters), batch "
+              f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: prefill_s "
+              f"{st['prefill_s']:.4f}, decode_s {st['decode_s']:.4f} "
+              f"({st['decode_s'] / SERVE_GEN * 1e3:.2f} ms/step), prefill "
+              f"{SERVE_BATCH * SERVE_PROMPT / st['prefill_s']:.0f} tok/s, decode "
+              f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory "
+              f"{peak_gb:.2f} GB, wall with weight init {wall:.2f} s, attention blocks "
+              f"{st['attention_blocks']}, flash launches {st['flash_launches']}")
+        require(st["attention_blocks"] == attn_blocks
+                and st["flash_launches"] == {"prefill": attn_blocks, "decode": 0},
+                f"{arch}: flash launches {st['flash_launches']}, expected {attn_blocks} "
+                f"in the prefill and none in decode")
+        require(counts == expected_counts({"flash_attention": attn_blocks}),
+                f"{arch}: launches {counts}")
+        require(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+                and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+                f"{arch}: token matrix {tuple(toks.shape)} out of range")
+
+        vocab = cfg.vocab_size
+        (lk, _), t_kernel = timed(lambda: model.prefill(prompts, use_kernel=None))
+        (lp, _), t_plain = timed(lambda: model.prefill(prompts, use_kernel=False))
+        lk, lp = lk[:, :vocab], lp[:, :vocab]
+        first = bool((lk.argmax(-1).cpu() == toks[:, 0]).all())
+        print(f"[recur] {arch} warm prefill through the kernel {t_kernel:.4f} s, through "
+              f"plain attention {t_plain:.4f} s; first served token from the kernel "
+              f"prefill {first}")
+        bars(f"{arch} kernel vs plain prefill, last-position logits", lk, lp)
+        require(first, f"{arch}: the served first tokens are not the kernel prefill's argmax")
+        del lp
+        kernels.reset_launch_counts()
+
+        def continued(m):
+            _, cache = m.prefill(prompts[:, :-1], cache_len=SERVE_PROMPT)
+            return m.decode_step(prompts[:, -1:], cache, SERVE_PROMPT - 1)[0][:, :vocab]
+
+        lc, t_cont = timed(lambda: continued(model))
+        require(kernels.launch_counts()["flash_attention"] == attn_blocks,
+                f"{arch}: continuation launches {kernels.launch_counts()}")
+        launches["flash_attention"] += attn_blocks
+        label = (f"{arch} prefill {SERVE_PROMPT - 1} + decode 1 ({t_cont:.4f} s) vs "
+                 f"prefill {SERVE_PROMPT}")
+        if cont_dtype == cfg.dtype:
+            bars(label, lc, lk)
+        else:
+            # The served weights widened to f32 (exact), the same checks.
+            def twin(**changes):
+                m = LM(dataclasses.replace(cfg, **changes), device=dev,
+                       param_dtype=torch.float32 if "dtype" in changes else None)
+                m.load_state_dict(model.state_dict())  # bf16 widens exactly
+                return m
+
+            def rel(a, b):
+                return ((a - b).norm() / b.norm()).item()
+
+            chunk = twin(ssm_chunk=cfg.ssm_chunk // 2)
+            lh = chunk.prefill(prompts)[0][:, :vocab]
+            del chunk
+            wide = twin(dtype=cont_dtype)
+            lw = wide.prefill(prompts)[0][:, :vocab]
+            print(f"[recur] {label}, {cfg.dtype} (not held): rel L2 {rel(lc, lk):.3e}; "
+                  f"the {cfg.dtype} prefill at chunk {cfg.ssm_chunk // 2}: "
+                  f"{rel(lh, lk):.3e}; in {cont_dtype}: {rel(lk, lw):.3e}")
+            bars(f"{label}, {cont_dtype}", continued(wide), lw)
+            del wide, lw, lh
+        if attn_blocks:
+            model.prefill(prompts)  # warm
+            prof, wall_us = profiled(torch, lambda: model.prefill(prompts))
+            events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+            busy_us = sum(e.self_device_time_total for e in events)
+            fa = [e for e in events if "flash_fwd" in e.key]
+            fa_us = sum(e.self_device_time_total for e in fa)
+            b8 = {"arch": arch, "prefill_device_ms": busy_us / 1e3,
+                  "prefill_wall_ms": wall_us / 1e3, "flash_ms": fa_us / 1e3,
+                  "flash_calls": sum(e.count for e in fa),
+                  "flash_share": fa_us / max(busy_us, 1)}
+            print(f"[recur] {arch} one warm prefill under the profiler: wall "
+                  f"{wall_us / 1e3:.1f} ms, device {busy_us / 1e3:.1f} ms; B8 "
+                  f"({', '.join(sorted({e.key[:40] for e in fa})) or 'not seen'}) "
+                  f"{fa_us / 1e3:.2f} ms over {b8['flash_calls']} launches, "
+                  f"{100 * b8['flash_share']:.1f} % of the device time")
+        del model, prompts, lk, lc
+        torch.cuda.empty_cache()
+
+    arch, attn_blocks, _ = RECURRENT_ARCHS[0]
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--full-config", "--batch", "2", "--prompt-len", "256", "--gen", "8",
+         "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": SRC},
+    )
+    require(cli.returncode == 0, f"serve launcher ({arch}) failed:\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.strip().splitlines()
+    stats = dict(line.split(": ", 1) for line in lines[2:])
+    print(f"[cli] repro_torch.launch.serve --arch {arch} --full-config --batch 2 "
+          f"--prompt-len 256 --gen 8 ({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
+                       "attention_blocks", "flash_launches_prefill",
+                       "flash_launches_decode")))
+    require(lines[0] == "generated token matrix: (2, 8)"
+            and stats["attention_blocks"] == str(attn_blocks)
+            and stats["flash_launches_prefill"] == str(attn_blocks)
+            and stats["flash_launches_decode"] == "0",
+            f"serve launcher ({arch}): wrong token matrix or flash launches")
+    return b8
 
 
 # -- the training lanes (phase 3) ---------------------------------------------
@@ -1446,6 +1636,8 @@ def main(argv=None) -> int:
         del samples, xs
         torch.cuda.empty_cache()
         profile_serving(torch, dev)
+        torch.cuda.empty_cache()
+        profile_serving(torch, dev, RECURRENT_ARCHS[0][0])
         torch.cuda.empty_cache()
         profile_training(torch, dev)
         return 0
@@ -2387,10 +2579,17 @@ def main(argv=None) -> int:
                       ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
                        "flash_launches_prefill", "flash_launches_decode")))
     require(lines[0] == "generated token matrix: (2, 8)"
+            and stats["attention_blocks"] == str(layers)
             and stats["flash_launches_prefill"] == str(layers)
             and stats["flash_launches_decode"] == "0",
             "serve launcher: wrong token matrix or flash launches")
     torch.cuda.synchronize()
+
+    # The recurrent serving lane (recurrentgemma-2b, mamba2-370m).
+    t0 = time.perf_counter()
+    b8_served = recurrent_lanes(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[recur] both archs and the launcher in {time.perf_counter() - t0:.1f} s")
 
     # The training lanes (T1-T4).  The card still holds the earlier phases'
     # tensors that phase 4 times (a few GB); each lane's peak leaves them out.
@@ -2594,7 +2793,7 @@ def main(argv=None) -> int:
           f"{w_flops / (w_ms * 1e9):.2f} TFLOP/s")
     by_name["flash_attention"]["wide_hd256"] = {
         "shape": list(FLASH_WIDE[0]), "window": win, "ms": w_ms, "plain_ms": w_plain,
-        "bound_ms": w_bound, "library_ms": w_lib}
+        "bound_ms": w_bound, "library_ms": w_lib, "served": b8_served}
     del q, k_, v_, mask
     # B7, timed in the rank world (phase 3's processes): WORLD ranks share
     # the card, so the world's bound is WORLD ranks' work; each rank does

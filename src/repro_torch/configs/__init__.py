@@ -1,5 +1,5 @@
-"""Architecture configs of the port (copies of ``repro/configs``, the
-dense family so far)."""
+"""Architecture configs of the port (copies of ``repro/configs``): the
+dense family, recurrentgemma-2b (hybrid) and mamba2-370m (SSM)."""
 
 from repro_torch.configs.registry import (  # noqa: F401
     ARCHS,

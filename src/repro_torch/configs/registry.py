@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (port of
 ``repro/configs/registry.py``).
 
-All ten arch ids of the reference are known.  The port runs the dense
-family so far; asking for an arch of another family raises
-``NotImplementedError`` naming the ROADMAP item that ports it, rather
-than falling through to something else.
+All ten arch ids of the reference are known.  The port runs the dense,
+hybrid (RG-LRU + local attention) and SSM (Mamba2 SSD) families; asking
+for an arch of another family raises ``NotImplementedError`` naming the
+ROADMAP item that ports it, rather than falling through to something
+else.
 """
 
 from __future__ import annotations
@@ -28,14 +29,12 @@ ARCHS: dict[str, tuple[str, str]] = {
     "whisper-tiny": ("whisper_tiny", "audio"),
     "mamba2-370m": ("mamba2_370m", "ssm"),
 }
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 # Family not ported yet -> the ROADMAP item that ports it.
 _PENDING = {
     "moe": "A11-moe",
     "vlm": "A11-vlm",
-    "hybrid": "A11-hybrid",
     "audio": "A11-whisper",
-    "ssm": "A11-ssm",
 }
 
 

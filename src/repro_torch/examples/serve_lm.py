@@ -1,7 +1,7 @@
-"""Batched serving demo: prefill + greedy decode with a KV cache written
-in place, for the port's dense architectures (reduced config; port of
-``examples/serve_lm.py``).  On the card the prefill runs the flash
-kernel (B8) in every layer.
+"""Batched serving demo: prefill + greedy decode with a cache written in
+place, for the port's dense, hybrid and SSM architectures (reduced
+config; port of ``examples/serve_lm.py``).  On the card the prefill runs
+the flash kernel (B8) in every attention block.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch llama3.2-3b [--device cpu]
 """

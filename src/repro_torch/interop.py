@@ -10,13 +10,14 @@ bit.
 
 For the LM, ``lm_params_from_reference`` loads the reference's parameter
 tree (as numpy arrays) into the port's ``LM``, so both packages compute
-the same function in the parity tests.  ``reference_leaves`` is the path
-map between the two: each port leaf name (``blocks.3.mixer.wq``) with the
-reference's key path (``['stages'][0]['block0']['mixer']['wq']``), its
-layer in that stacked leaf, and the reference leaf's full shape and
-logical axes.  The trainers decide weight decay (``decays``) and
-compressibility (``optim.eigen_compress`` via ``launch.steps``) from the
-reference leaf, not from the port's tensor: the reference stacks a
+the same function in the parity tests.  ``reference_leaves`` is the one
+path map between the two, for every family the port runs: each port
+leaf name (``blocks.3.mixer.wq``) with the reference's key path
+(``['stages'][0]['block0']['mixer']['wq']``), its layer in that stacked
+leaf, and the reference leaf's full shape and logical axes.  The
+trainers decide weight decay (``decays``) and compressibility
+(``optim.eigen_compress`` via ``launch.steps``) from the reference leaf,
+not from the port's tensor: the reference stacks a
 stage's layers, so a block's (d,) norm is an (L, d) leaf there.
 ``split_reference`` / ``join_reference`` move flat dicts of arrays
 between the two namings, and ``opt_state_from_reference`` /
@@ -32,6 +33,7 @@ subspace-iteration products to about three digits.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Mapping
 
 import numpy as np
@@ -96,42 +98,34 @@ def lm_params_from_reference(values, cfg, *, device: str | torch.device,
     """The port's ``LM`` for ``cfg`` holding the reference's parameters.
 
     ``values`` is the reference's tree (``init_split(cfg, key)[0]``) with
-    numpy leaves: ``embed`` (V_pad, d), ``unembed`` (d, V_pad),
-    ``final_norm`` (d,), and per stage ``stages[i]["block{j}"]`` with a
-    leading layer axis: ``norm1``, ``norm2``, ``mixer.{wq (d, h, hd), wk,
-    wv (d, kv, hd), wo (h, hd, d)}``, ``mlp.{wi, wg (d, f), wo (f, d)}``.
-    Projections are stored in ``param_dtype`` (default the config's
-    dtype: the reference casts at every use; f32 keeps its values
-    exactly, as training needs), norms stay f32.
+    numpy leaves; every port leaf is read from its reference path and
+    layer as ``reference_leaves`` maps them.  Projections are stored in
+    ``param_dtype`` (default the config's dtype: the reference casts at
+    every use; f32 keeps its values exactly, as training needs); norms and
+    the leaves the reference uses in f32 stay f32.
     """
     # Function-level import: the models import the kernels, which this
     # module's other helpers must not pull in.
     from repro_torch.models.lm import LM
 
     model = LM(cfg, device=resolve_device(device), param_dtype=param_dtype)
-
-    def put(param: torch.Tensor, arr) -> None:
-        host = torch.tensor(np.asarray(arr, dtype=np.float32))  # a copy
-        param.copy_(host.reshape(param.shape))
-
+    params = dict(model.named_parameters())
     with torch.no_grad():
-        put(model.embed, values["embed"])
-        if model.unembed is not None:
-            put(model.unembed, values["unembed"])
-        put(model.final_norm, values["final_norm"])
-        blocks = iter(model.blocks)
-        for (pattern, count), stage in zip(cfg.stages(), values["stages"]):
-            for i in range(count):
-                for j in range(len(pattern)):
-                    tree, blk = stage[f"block{j}"], next(blocks)
-                    put(blk.norm1, tree["norm1"][i])
-                    for name in ("wq", "wk", "wv", "wo"):
-                        put(getattr(blk.mixer, name), tree["mixer"][name][i])
-                    if blk.mlp is not None:
-                        put(blk.norm2, tree["norm2"][i])
-                        for name, w in tree["mlp"].items():
-                            put(getattr(blk.mlp, name), w[i])
+        for name, leaf in reference_leaves(cfg).items():
+            arr = _at_path(values, leaf.path)
+            if leaf.layer is not None:
+                arr = arr[leaf.layer]
+            host = torch.tensor(np.asarray(arr, dtype=np.float32))  # a copy
+            params[name].copy_(host.reshape(params[name].shape))
     return model
+
+
+def _at_path(tree, path: str):
+    """The leaf of a nested dict / list at a ``jax.tree_util.keystr`` path
+    such as ``['stages'][0]['block0']['mixer']['wq']``."""
+    for key, idx in re.findall(r"\['([^']*)'\]|\[(\d+)\]", path):
+        tree = tree[key] if key else tree[int(idx)]
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,11 +146,15 @@ class ReferenceLeaf:
 
 def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
     """Port leaf name -> ``ReferenceLeaf`` for every parameter of the LM of
-    ``cfg`` (``repro/models/lm.py::init_lm``, ``layers.init_attention``
-    and ``init_mlp``): embed (V_pad, d), unembed (d, V_pad), final_norm
-    (d,), and per stage, stacked over its count L, norm1 / norm2 (L, d),
-    wq (L, d, h, hd), wk / wv (L, d, kv, hd), wo (L, h, hd, d), and the
-    MLP's wi / wg (L, d, f) and wo (L, f, d)."""
+    ``cfg`` (``repro/models/lm.py::init_lm`` and ``layers.init_*``):
+    embed (V_pad, d), unembed (d, V_pad), final_norm (d,), and per stage,
+    stacked over its count L, each block's norm1 / norm2 (L, d), its
+    mixer's leaves by kind and the MLP's wi / wg (L, d, f) and wo (L, f, d).
+    Mixers: attention (``attn`` and ``local_attn``) wq (L, d, h, hd),
+    wk / wv (L, d, kv, hd), wo (L, h, hd, d); RG-LRU wx / wgate (L, d, w),
+    conv (L, K, w), wa / wi (L, w, w), wo (L, w, d), lam (L, w); SSD wx /
+    wz (L, d, di), wb / wc (L, d, N), wdt (L, d, H), conv (L, K, di), wo
+    (L, di, d), a_log / dt_bias / dskip (L, H)."""
     d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        cfg.d_ff)
     out = {"embed": ReferenceLeaf("['embed']", None, (cfg.padded_vocab, d),
@@ -165,27 +163,54 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
         out["unembed"] = ReferenceLeaf("['unembed']", None, (d, cfg.padded_vocab),
                                        ("embed", "vocab"))
     out["final_norm"] = ReferenceLeaf("['final_norm']", None, (d,), ("embed",))
-    block = {
-        "norm1": ((d,), ("embed",)),
-        "mixer.wq": ((d, h, hd), ("embed", "heads", "head_dim")),
-        "mixer.wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "mixer.wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "mixer.wo": ((h, hd, d), ("heads", "head_dim", "embed")),
+    attention = {
+        "wq": ((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ((h, hd, d), ("heads", "head_dim", "embed")),
     }
+    w, k = cfg.lru_width or d, cfg.conv_width
+    di, nh, ns = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state_dim
+    mixers = {
+        "attn": attention,
+        "local_attn": attention,
+        "rglru": {
+            "wx": ((d, w), ("embed", "mlp")),
+            "wgate": ((d, w), ("embed", "mlp")),
+            "conv": ((k, w), (None, "mlp")),
+            "wa": ((w, w), ("mlp", None)),
+            "wi": ((w, w), ("mlp", None)),
+            "wo": ((w, d), ("mlp", "embed")),
+            "lam": ((w,), ("mlp",)),
+        },
+        "ssd": {
+            "wx": ((d, di), ("embed", "mlp")),
+            "wz": ((d, di), ("embed", "mlp")),
+            "wb": ((d, ns), ("embed", None)),
+            "wc": ((d, ns), ("embed", None)),
+            "wdt": ((d, nh), ("embed", None)),
+            "conv": ((k, di), (None, "mlp")),
+            "wo": ((di, d), ("mlp", "embed")),
+            "a_log": ((nh,), (None,)),
+            "dt_bias": ((nh,), (None,)),
+            "dskip": ((nh,), (None,)),
+        },
+    }
+    mlp = {}
     if f > 0:
-        block.update({
-            "norm2": ((d,), ("embed",)),
-            "mlp.wi": ((d, f), ("embed", "mlp")),
-            "mlp.wo": ((f, d), ("mlp", "embed")),
-        })
+        mlp = {"norm2": ((d,), ("embed",)),
+               "mlp.wi": ((d, f), ("embed", "mlp")),
+               "mlp.wo": ((f, d), ("mlp", "embed"))}
         if cfg.gated_mlp:
-            block["mlp.wg"] = ((d, f), ("embed", "mlp"))
+            mlp["mlp.wg"] = ((d, f), ("embed", "mlp"))
     b = 0
     for s_idx, (pattern, count) in enumerate(cfg.stages()):
         for layer in range(count):
-            for j in range(len(pattern)):
+            for j, kind in enumerate(pattern):
+                block = {"norm1": ((d,), ("embed",)),
+                         **{f"mixer.{n}": v for n, v in mixers[kind].items()}, **mlp}
                 for leaf, (shape, axes) in block.items():
-                    keys = "".join(f"['{k}']" for k in leaf.split("."))
+                    keys = "".join(f"['{key}']" for key in leaf.split("."))
                     out[f"blocks.{b}.{leaf}"] = ReferenceLeaf(
                         f"['stages'][{s_idx}]['block{j}']{keys}", layer,
                         (count, *shape), ("layers", *axes))

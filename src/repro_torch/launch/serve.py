@@ -5,16 +5,21 @@ service::
     python -m repro_torch.launch.serve --arch llama3.2-3b --prompt-len 64 --gen 32
     python -m repro_torch.launch.serve --arch llama3.2-3b --full-config \\
         --batch 4 --prompt-len 4096 --gen 32          # full width on one card
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --full-config
+    python -m repro_torch.launch.serve --arch mamba2-370m --full-config
     python -m repro_torch.launch.serve --subspace --dim 8192 --subspace-rank 128
 
-LM lane: builds the model from a seeded ``torch.Generator`` (random
-weights, as the reference), draws ``batch`` prompts of ``prompt_len``
-tokens from the next seed, prefills them in one batch, then decodes
-``gen`` greedy tokens for every row in lockstep.  Prefill runs the flash
-kernel (B8) in every layer on a Hopper card; decode steps take the plain
-grouped product.  Prints the reference's lines (the token matrix's shape
-and the timings) and adds tokens per second and the flash launches of
-prefill and decode.  One process, one device: the reference's mesh,
+LM lane (the dense, hybrid and SSM families): builds the model from a
+seeded ``torch.Generator`` (random weights, as the reference), draws
+``batch`` prompts of ``prompt_len`` tokens from the next seed, prefills
+them in one batch, then decodes ``gen`` greedy tokens for every row in
+lockstep.  Prefill runs the flash kernel (B8) in every attention block
+(full or local) on a Hopper card, so once per layer for the dense
+family, 8 times for recurrentgemma-2b and never for mamba2-370m; decode
+steps take the plain grouped product and the recurrences' one step.
+Prints the reference's lines (the token matrix's shape and the timings)
+and adds tokens per second, the attention blocks and the flash launches
+of prefill and decode.  One process, one device: the reference's mesh,
 parameter shardings and jitted, donated decode step are no-ops there and
 have no counterpart here; serving over several cards is later work
 (ROADMAP A11).
@@ -78,8 +83,10 @@ def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tenso
 
     Returns the (batch, gen) token matrix (CPU, int64: the prefill's
     token, then one per decode step but the last) and ``{"prefill_s",
-    "decode_s", "flash_launches": {"prefill", "decode"}}``, times on a
-    host clock around synchronised work.
+    "decode_s", "flash_launches": {"prefill", "decode"},
+    "attention_blocks"}``, times on a host clock around synchronised
+    work; on the card the prefill's flash launches equal the model's
+    attention blocks.
     """
     dev = prompts.device
     prompt_len = prompts.shape[1]
@@ -110,6 +117,7 @@ def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tenso
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "flash_launches": {"prefill": n1 - n0, "decode": _flash_launches() - n1},
+        "attention_blocks": model.attention_blocks,
     }
 
 
@@ -283,6 +291,7 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     print(f"config: {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.vocab_size}")
+    print(f"attention_blocks: {stats['attention_blocks']}")
     print(f"prefill_tokens_per_s: {args.batch * args.prompt_len / stats['prefill_s']:.1f}")
     print(f"decode_tokens_per_s: {args.batch * args.gen / max(stats['decode_s'], 1e-9):.1f}")
     print(f"flash_launches_prefill: {stats['flash_launches']['prefill']}")

@@ -26,6 +26,10 @@ The eigen train step has no clip and no NaN guard, and decays every
 compressed leaf, as the reference's.  Weight decay of the other leaves
 and compressibility follow the reference's leaf (``interop.decays``,
 ``compressed_paths``).
+
+The steps train the dense family.  The hybrid and SSM families serve
+but do not train yet (``refuse_untrained``): their gradients through the
+scans have not been held against the reference's.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from repro_torch.optim.adamw import (
 )
 
 __all__ = [
+    "refuse_untrained",
     "make_train_step",
     "compressed_paths",
     "eigen_opt_init",
@@ -60,6 +65,19 @@ __all__ = [
 ]
 
 Batch = Dict[str, torch.Tensor]
+
+# Families the port serves but does not train yet -> the ROADMAP item.
+_UNTRAINED = {"hybrid": "A11-hybrid-train", "ssm": "A11-ssm-train"}
+
+
+def refuse_untrained(cfg) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
+    whose family the trainers do not take yet."""
+    item = _UNTRAINED.get(cfg.family)
+    if item is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family} family): training is not ported to "
+            f"repro_torch yet: ROADMAP {item}")
 
 
 def shard_rows(batch: Batch, shard: int, m: int) -> Batch:
@@ -92,6 +110,7 @@ def make_train_step(model: LM, *, adamw_cfg: AdamWConfig, schedule, group=None):
     With ``group`` each rank runs its rows and the gradients and loss are
     all-reduced / m: the data-parallel baseline the eigen step
     compresses."""
+    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
 
@@ -178,6 +197,7 @@ def make_eigen_train_step(
     optimizer state.  Collectives per step (collective form): an
     all-reduce of r n words per compressed leaf (d n in the baseline), of
     every uncompressed gradient, and of the loss."""
+    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
 
@@ -242,6 +262,7 @@ def make_eigen_refresh_step(
     ``starts[name]``), then per leaf the Procrustes-fixed average
     (``eigen_compress.refresh_basis``), and the low-rank moments rotated
     into the new basis with R = P_newᵀ P_old: m <- R m, v <- |R|^2 v."""
+    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
 
     def refresh_step(opt_state, batch: Batch, starts: Dict[str, torch.Tensor]) -> dict:

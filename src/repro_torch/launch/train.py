@@ -18,7 +18,9 @@ seeded ``TokenPipeline``.  One process holds ``--shards`` data-parallel
 shards stacked; under ``torchrun`` each rank is one shard
 (``launch.mesh.make_aggregation_mesh``) and takes its rows of the global
 batch.  Runs on the card unless ``--device cpu``; without a card it
-refuses to start.  Examples::
+refuses to start.  The hybrid and SSM families are refused
+(``launch.steps.refuse_untrained``, ROADMAP A11-hybrid-train /
+A11-ssm-train).  Examples::
 
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8 \\
@@ -48,6 +50,7 @@ from repro_torch.launch.steps import (
     make_eigen_refresh_step,
     make_eigen_train_step,
     make_train_step,
+    refuse_untrained,
     start_shapes,
 )
 from repro_torch.models import build, param_count
@@ -112,6 +115,7 @@ def train(
     the same on every shard and after a resume."""
     cfg = arch if isinstance(arch, ModelConfig) else (
         get_reduced_config(arch) if reduced else get_config(arch))
+    refuse_untrained(cfg)
     dev = resolve_device(device)
     strict_fp32()
     if group is not None and shards is not None:

@@ -1,22 +1,33 @@
-"""Model-layer primitives of the dense LM: RMS norm, RoPE, GQA attention
-and the MLP (port of ``repro/models/layers.py``).
+"""Model-layer primitives of the port's LM: RMS norm, RoPE, GQA attention
+(full and local), the MLP, the causal conv, the RG-LRU and Mamba2 SSD
+mixers (port of ``repro/models/layers.py``).
 
 Layouts follow the reference so weights cross unchanged in meaning:
 activations are (B, S, M); the attention's projections hold the
 reference's (M, H, D) / (H, D, M) tensors flattened to matrices,
-``wq`` (M, H*D), ``wk``/``wv`` (M, KV*D), ``wo`` (H*D, M); the KV cache
-of a block is ``{"k", "v"}`` of shape (B, KV, S_cache, D) with absolute
-slots.  Norm scales are kept in f32 (the reference stores f32 and uses
-``1 + scale`` in f32).  Projections are stored in the dtype the caller
-gives (``dtype``: the config's dtype to serve, f32 master weights to
-train) and cast to the activations' dtype at every use, as the reference
-casts its f32 parameters; a cast to the dtype a weight already has is a
-no-op, so serving's bf16 weights are used as they are.
+``wq`` (M, H*D), ``wk``/``wv`` (M, KV*D), ``wo`` (H*D, M).  Caches, one
+per block, of its mixer's kind:
 
-Ported so far: full (causal) attention in its train / prefill / decode
-modes, the SwiGLU / GELU MLP and the loss's ``cross_entropy``.
-``local_attn``'s ring-buffer cache, MoE, RG-LRU, SSD and cross-attention
-wait for their families (ROADMAP A11).
+  attn:       {"k", "v"} (B, KV, S_cache, D), absolute slots;
+  local_attn: {"k", "v"} (B, KV, min(window, S_cache), D), a ring: the
+              key of position p sits in slot p % window (RoPE applied at
+              write time with the absolute position);
+  rglru:      {"h"} (B, W) f32 state, {"conv"} (B, K-1, W) f32 conv tail;
+  ssd:        {"s"} (B, H, P, N) f32 state, {"conv"} (B, K-1, d_inner) f32.
+
+Prefill and decode update the cache they are given in place.
+
+Norm scales are kept in f32 (the reference stores f32 and uses
+``1 + scale`` in f32), and so are the leaves the reference uses in f32
+whatever the activations' dtype: RG-LRU's ``wa``, ``wi`` and ``lam``, and
+SSD's ``wb``, ``wc``, ``wdt``, ``a_log``, ``dt_bias`` and ``dskip``.  The
+other projections are stored in the dtype the caller gives (``dtype``:
+the config's dtype to serve, f32 master weights to train) and cast to the
+activations' dtype at every use, as the reference casts its f32
+parameters; a cast to the dtype a weight already has is a no-op, so
+serving's bf16 weights are used as they are.
+
+Not ported here: MoE and cross-attention (ROADMAP A11-moe, A11-whisper).
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "cross_entropy"]
+__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "causal_conv", "RGLRU",
+           "SSD", "doubling_scan", "silu_ref", "gelu_tanh_ref", "cross_entropy"]
 
 _NEG_INF = -1e30
 MODES = ("train", "prefill", "decode")
@@ -80,17 +92,23 @@ def apply_rope(
 
 
 class Attention(nn.Module):
-    """GQA self-attention (full, causal), ``apply_attention`` of the
-    reference without the window and cross-attention branches.
+    """GQA self-attention, full (causal) or local (causal within the last
+    ``window`` positions): ``apply_attention`` of the reference without
+    its cross-attention branch.
 
-    train:   causal attention over the sequence, no cache.
+    train:   causal (windowed) attention over the sequence, no cache.
     prefill: the same, and the block's K/V written in place into the
-             first S slots of the preallocated ``cache`` (the reference
-             returns fresh K/V and pads them to the cache length later).
+             preallocated ``cache``: the first S slots of a full cache;
+             for a local one, the last ``min(window, S)`` keys into ring
+             slots ``pos % window`` (the reference builds a fresh ring).
     decode:  S == 1 at position ``pos`` (an int): writes the new K/V into
-             slot ``pos`` of the cache in place (the reference updates a
-             donated cache) and attends over the slots <= pos with the
-             grouped GQA product (K/V never repeated).
+             slot ``pos`` (``pos % window``) of the cache in place (the
+             reference updates a donated cache) and attends over the
+             valid slots with the grouped GQA product (K/V never
+             repeated).  A ring slot j holds position
+             ``p_j = pos - ((pos - j) mod window)`` and is valid when
+             ``p_j >= 0`` and ``p_j > pos - window``; the modulus takes the
+             divisor's sign (``torch.remainder``, as ``jnp``'s ``%``).
 
     Prefill goes through ``kernels.ops.attention``: the flash kernel (B8)
     for CUDA tensors, the plain ``ref.attention`` for CPU tensors or when
@@ -100,15 +118,22 @@ class Attention(nn.Module):
     the plain product, as the reference keeps it in XLA.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, *, window: int | None = None, device=None,
+                 dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.window = window
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype)
         self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
         self.wk = nn.Parameter(torch.empty(d, kv * hd, **kw))
         self.wv = nn.Parameter(torch.empty(d, kv * hd, **kw))
         self.wo = nn.Parameter(torch.empty(h * hd, d, **kw))
+
+    def cache_slots(self, cache_len: int) -> int:
+        """Slots of this block's cache for a serving length of
+        ``cache_len``: all of them, or a ring of at most ``window``."""
+        return cache_len if self.window is None else min(self.window, cache_len)
 
     def forward(
         self,
@@ -120,7 +145,7 @@ class Attention(nn.Module):
         pos: int | None = None,
         use_kernel: bool | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
-        cfg = self.cfg
+        cfg, window = self.cfg, self.window
         b, s, _ = x.shape
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         cdt = x.dtype
@@ -139,9 +164,15 @@ class Attention(nn.Module):
             if s != 1 or pos is None:
                 raise ValueError("decode takes one token and its position")
             ck, cv = cache["k"], cache["v"]
-            ck[:, :, pos] = kt[:, :, 0].to(ck.dtype)
-            cv[:, :, pos] = vt[:, :, 0].to(cv.dtype)
-            valid = torch.arange(ck.shape[2], device=x.device) <= pos
+            slot = pos if window is None else pos % window
+            ck[:, :, slot] = kt[:, :, 0].to(ck.dtype)
+            cv[:, :, slot] = vt[:, :, 0].to(cv.dtype)
+            idx = torch.arange(ck.shape[2], device=x.device)
+            if window is None:
+                valid = idx <= pos
+            else:
+                p_j = pos - torch.remainder(pos - idx, window)
+                valid = (p_j >= 0) & (p_j > pos - window)
             qg = qt.reshape(b, kv, h // kv, 1, hd)
             # Operands in their dtype, products accumulated in f32 (the
             # reference's preferred_element_type): upcast, then multiply.
@@ -162,13 +193,19 @@ class Attention(nn.Module):
                     raise ValueError("train takes plain attention: B8 has no backward")
                 use_kernel = False
             out = kops.attention(
-                qt, kt, vt, causal=True, window=None, use_kernel=use_kernel,
+                qt, kt, vt, causal=True, window=window, use_kernel=use_kernel,
                 probs_bf16=cfg.attn_probs_bf16,
             )
             new_cache = None
             if mode == "prefill":
-                cache["k"][:, :, :s] = kt
-                cache["v"][:, :, :s] = vt
+                if window is None:
+                    cache["k"][:, :, :s] = kt
+                    cache["v"][:, :, :s] = vt
+                else:
+                    w = min(window, s)
+                    slots = torch.remainder(positions[-w:], window)
+                    cache["k"][:, :, slots] = kt[:, :, -w:].to(cache["k"].dtype)
+                    cache["v"][:, :, slots] = vt[:, :, -w:].to(cache["v"].dtype)
                 new_cache = cache
         else:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -199,6 +236,256 @@ class MLP(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
         return h @ self.wo.to(cdt)
+
+
+def silu_ref(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` one op at a time in x's dtype: the
+    reference's ``jax.nn.silu``, which rounds each step to bf16 in a bf16
+    model (``F.silu`` rounds once, and differs in ~40 % of bf16 values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu_tanh_ref(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU one op at a time in x's dtype, constants
+    rounded to it: the reference's ``jax.nn.gelu`` (its default form)."""
+    def c(v: float) -> float:  # the constant rounded to x's dtype
+        return float(torch.tensor(v, dtype=x.dtype))
+
+    inner = c(np.sqrt(2.0 / np.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (1.0 + torch.tanh(inner)))
+
+
+def causal_conv(
+    x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along time (the reference's ``_causal_conv``).
+
+    x: (B, S, W); w: (K, W); ``tail`` (B, K-1, W) the last K-1 inputs
+    before x (zeros when None), cast to x's dtype.  The K products are
+    summed in x's dtype in the reference's order, term 0 first.  Returns
+    (y (B, S, W) in x's dtype, the new tail: the last K-1 inputs, f32).
+    """
+    kw, s = w.shape[0], x.shape[1]
+    if tail is None:
+        pad = x.new_zeros(x.shape[0], kw - 1, x.shape[2])
+    else:
+        pad = tail.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, W)
+    wc = w.to(x.dtype)
+    y = xp[:, :s] * wc[0]
+    for i in range(1, kw):
+        y = y + xp[:, i:i + s] * wc[i]
+    return y, xp[:, -(kw - 1):].to(torch.float32)
+
+
+def doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All states of ``h_t = a_t h_{t-1} + b_t`` (h_{-1} = 0) along dim 1,
+    by the doubling (Hillis-Steele) scan: ceil(log2 S) elementwise passes,
+    each combining every step with the one ``d`` before it,
+    (A, B)_t <- (A_{t-d} A_t, A_t B_{t-d} + B_t), d = 1, 2, 4, ...
+
+    The same recurrence as the reference's ``associative_scan``, summed
+    in another order: the two agree to f32 rounding, not bit for bit.
+    Not the log-space cumsum form: over thousands of steps the summed
+    log a reaches -1e3 and ``exp(-L)`` overflows."""
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], dim=1)
+        if 2 * d < s:  # the last pass needs no A
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+class RGLRU(nn.Module):
+    """RG-LRU mixer of RecurrentGemma (``init_rglru`` / ``apply_rglru``):
+    the gated linear recurrence
+
+        h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t u_t),
+        a_t = a^(c r_t),  a = sigmoid(lam),  c = 8,
+
+    with u the causal conv of ``x wx``, r = sigmoid(u wa) and
+    i = sigmoid(u wi) in f32, and the output ``(h * gelu(x wgate)) wo``.
+    Train and prefill run the whole sequence through ``doubling_scan``
+    in f32, the cache's state folded into the first step
+    (``b_0 += a_0 h0``); decode takes one step.  Prefill and decode start
+    from the cache's ``h`` and conv tail and write the new ones into it
+    in place.
+
+    Leaves: ``wx``, ``wgate`` (d, w), ``conv`` (K, w), ``wo`` (w, d) in the
+    parameter dtype; ``wa``, ``wi`` (w, w) and ``lam`` (w,) in f32.
+    """
+
+    C = 8.0
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        f32 = dict(device=device, dtype=torch.float32)
+        self.width = w
+        self.wx = nn.Parameter(torch.empty(d, w, **kw))
+        self.wgate = nn.Parameter(torch.empty(d, w, **kw))
+        self.conv = nn.Parameter(torch.empty(cfg.conv_width, w, **kw))
+        self.wa = nn.Parameter(torch.empty(w, w, **f32))
+        self.wi = nn.Parameter(torch.empty(w, w, **f32))
+        self.wo = nn.Parameter(torch.empty(w, d, **kw))
+        self.lam = nn.Parameter(torch.empty(w, **f32))
+
+    def forward(self, x, *, mode="train", cache=None, **_):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode != "train" and cache is None:
+            raise ValueError(f"{mode} writes into a preallocated state cache")
+        cdt = x.dtype
+        u = x @ self.wx.to(cdt)
+        gate = x @ self.wgate.to(cdt)
+        u, new_tail = causal_conv(u, self.conv, None if cache is None else cache["conv"])
+        uf = u.to(torch.float32)
+        r = torch.sigmoid(uf @ self.wa)
+        i = torch.sigmoid(uf @ self.wi)
+        log_a = -self.C * F.softplus(-self.lam)  # log sigmoid(lam), f32
+        a = torch.exp(log_a * r)  # (B, S, W) in (0, 1)
+        b_in = torch.sqrt(torch.clamp(1.0 - a * a, min=_f32(1e-9))) * (i * uf)
+        h0 = None if cache is None else cache["h"]
+        if mode == "decode":
+            hs = (a[:, 0] * h0 + b_in[:, 0])[:, None]
+        else:
+            if h0 is not None:
+                b_in[:, 0] += a[:, 0] * h0
+            hs = doubling_scan(a, b_in)
+        y = hs.to(cdt) * gelu_tanh_ref(gate)
+        out = y @ self.wo.to(cdt)
+        if cache is not None:
+            cache["h"].copy_(hs[:, -1])
+            cache["conv"].copy_(new_tail)
+        return out, cache
+
+
+class SSD(nn.Module):
+    """Mamba2 SSD mixer (``init_ssd`` / ``_ssd_scan_chunked`` /
+    ``apply_ssd``), one group (B and C shared by the heads).
+
+    x wx goes through the causal conv and silu; B = x wb, C = x wc and
+    dt = softplus(x wdt + dt_bias) come from x in f32, the decay
+    a = exp(-dt exp(a_log)) and the input u = dt * x per head.  Train and
+    prefill run the chunked dual form: S is padded to a multiple of the
+    chunk (a = 1, u = B = C = 0 on the pad); within a chunk a masked
+    lower-triangular product (the exponent masked to -1e30 before
+    ``exp``, as the reference does), across chunks a Python loop carrying
+    the (B, H, P, N) state from the cache's ``s``.  Decode takes one state
+    step.  Then the ``dskip`` term, the gate silu(x wz) and ``wo``.
+    Prefill and decode write the new state and conv tail into the cache
+    in place.
+
+    Leaves: ``wx``, ``wz`` (d, di), ``conv`` (K, di), ``wo`` (di, d) in the
+    parameter dtype; ``wb``, ``wc`` (d, N), ``wdt`` (d, H), ``a_log``,
+    ``dt_bias``, ``dskip`` (H,) in f32.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        d, di, nh, ns = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state_dim
+        kw = dict(device=device, dtype=dtype)
+        f32 = dict(device=device, dtype=torch.float32)
+        self.wx = nn.Parameter(torch.empty(d, di, **kw))
+        self.wz = nn.Parameter(torch.empty(d, di, **kw))
+        self.wb = nn.Parameter(torch.empty(d, ns, **f32))
+        self.wc = nn.Parameter(torch.empty(d, ns, **f32))
+        self.wdt = nn.Parameter(torch.empty(d, nh, **f32))
+        self.conv = nn.Parameter(torch.empty(cfg.conv_width, di, **kw))
+        self.wo = nn.Parameter(torch.empty(di, d, **kw))
+        self.a_log = nn.Parameter(torch.empty(nh, **f32))
+        self.dt_bias = nn.Parameter(torch.empty(nh, **f32))
+        self.dskip = nn.Parameter(torch.empty(nh, **f32))
+
+    def forward(self, x, *, mode="train", cache=None, **_):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode != "train" and cache is None:
+            raise ValueError(f"{mode} writes into a preallocated state cache")
+        cfg = self.cfg
+        cdt = x.dtype
+        b, s, _ = x.shape
+        nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+        xin = x @ self.wx.to(cdt)
+        z = x @ self.wz.to(cdt)
+        xin, new_tail = causal_conv(xin, self.conv, None if cache is None else cache["conv"])
+        xin = silu_ref(xin)
+        xf = x.to(torch.float32)
+        bmat = xf @ self.wb
+        cmat = xf @ self.wc
+        dt = F.softplus(xf @ self.wdt + self.dt_bias)  # (B, S, H)
+        a = torch.exp(-dt * torch.exp(self.a_log))  # (B, S, H) in (0, 1)
+        xh = xin.to(torch.float32).view(b, s, nh, hp)
+        u = dt[..., None] * xh  # (B, S, H, P)
+        s0 = None if cache is None else cache["s"]
+        if mode == "decode":
+            s_last = a[:, 0, :, None, None] * s0 + torch.einsum(
+                "bhp,bn->bhpn", u[:, 0], bmat[:, 0])
+            y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], s_last)[:, None]
+        else:
+            q = min(cfg.ssm_chunk, s)
+            pad = (-s) % q
+            if pad:
+                a = F.pad(a, (0, 0, 0, pad), value=1.0)
+                u = F.pad(u, (0, 0, 0, 0, 0, pad))
+                bmat = F.pad(bmat, (0, 0, 0, pad))
+                cmat = F.pad(cmat, (0, 0, 0, pad))
+            y, s_last = _ssd_scan_chunked(a, u, bmat, cmat, s0, q)
+            y = y[:, :s]
+        y = y + self.dskip[:, None] * xh
+        y = y.reshape(b, s, nh * hp).to(cdt) * silu_ref(z)
+        out = y @ self.wo.to(cdt)
+        if cache is not None:
+            cache["s"].copy_(s_last)
+            cache["conv"].copy_(new_tail)
+        return out, cache
+
+
+def _ssd_scan_chunked(a, u, bmat, cmat, s0, chunk):
+    """Chunked SSD forward (the reference's ``_ssd_scan_chunked``).
+
+    a: (B, S, H) per-step decay in (0, 1]; u: (B, S, H, P) inputs (dt x);
+    bmat / cmat: (B, S, N); s0: (B, H, P, N) or None; S a multiple of
+    ``chunk``.  Returns (y (B, S, H, P), the last state (B, H, P, N)), f32.
+    """
+    b, s, h = a.shape
+    p, n, q = u.shape[-1], bmat.shape[-1], chunk
+    nc = s // q
+    ar = a.reshape(b, nc, q, h)
+    ur = u.reshape(b, nc, q, h, p)
+    br = bmat.reshape(b, nc, q, n)
+    cr = cmat.reshape(b, nc, q, n)
+
+    cum = torch.cumsum(torch.log(torch.clamp(ar, min=_f32(1e-20))), dim=2)  # (B,NC,Q,H)
+    total = cum[:, :, -1]  # (B, NC, H)
+
+    # Intra-chunk: y[t] = sum_{tau <= t} (C_t . B_tau) exp(cum_t - cum_tau) u_tau.
+    scores = torch.einsum("bcqn,bckn->bcqk", cr, br)  # (B, NC, Q, Q)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=a.device))[:, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, NC, Q, K, H)
+    decay = torch.exp(torch.where(tri, diff, _NEG_INF))  # masked before exp
+    w = torch.where(tri, scores[..., None] * decay, 0.0)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, ur)
+
+    # Chunk-local final states: sum_tau exp(total - cum_tau) B_tau u_tau^T.
+    state_w = torch.exp(total[:, :, None, :] - cum)  # (B, NC, Q, H)
+    s_local = torch.einsum("bcqhp,bcqn->bchpn", state_w[..., None] * ur, br)
+
+    # The state entering each chunk, carried across the chunks.
+    carry = s_local.new_zeros(b, h, p, n) if s0 is None else s0
+    decays = torch.exp(total)
+    s_in = []
+    for c in range(nc):
+        s_in.append(carry)
+        carry = decays[:, c, :, None, None] * carry + s_local[:, c]
+    s_in = torch.stack(s_in, dim=1)  # (B, NC, H, P, N)
+
+    # Inter-chunk: y[t] += exp(cum_t) C_t . S_in.
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cr, s_in) * torch.exp(cum)[..., None]
+    return (y_intra + y_inter).reshape(b, s, h, p), carry
 
 
 def cross_entropy(

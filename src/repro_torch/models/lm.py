@@ -1,9 +1,12 @@
-"""Decoder-only LM of the dense family (port of ``repro/models/lm.py``).
+"""Decoder-only LM of the dense, hybrid and SSM families (port of
+``repro/models/lm.py``).
 
-The depth follows ``cfg.stages()``: one ``Block`` per mixer of each
-stage's pattern, repeated ``count`` times, in a ``ModuleList``; a Python
-loop over it takes the place of the reference's ``jax.lax.scan`` over
-stacked parameters.
+The depth follows ``cfg.stages()``, the remainder stage included: one
+``Block`` per mixer of each stage's pattern, repeated ``count`` times, in
+a ``ModuleList``; a Python loop over it takes the place of the
+reference's ``jax.lax.scan`` over stacked parameters.  A block's kind
+picks its mixer: ``attn`` (full attention), ``local_attn`` (windowed,
+``cfg.window_size``), ``rglru`` or ``ssd``.
 
 Modes of ``LM.forward``:
   train   - causal forward over the whole sequence, (B, S, V_pad) logits;
@@ -14,25 +17,30 @@ Modes of ``LM.forward``:
 Logits come out in f32 (products of the model's dtype accumulated in f32,
 as the reference's ``preferred_element_type``), and the padded vocab
 entries are set to -1e30.  ``loss_fn`` is the next-token mean CE over
-them (the dense family has no aux term).
+them (these families have no aux term).
 
 Parameters: ``LM(cfg, param_dtype=...)`` stores the projections, the
 embedding and the unembedding in ``param_dtype`` (default the config's
 dtype, which serving uses as is) and casts each to the config's dtype at
 its use; training stores f32 master weights (``param_dtype=torch.float32``),
 as the reference stores every parameter in f32, so AdamW updates f32
-values.  Norm scales are f32 either way.  In train mode with
+values.  Norm scales, and the recurrent mixers' leaves that the
+reference uses in f32 (``models/layers.py``), are f32 either way.  In
+train mode with
 ``cfg.remat == "full"`` each block runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward, as the reference's ``jax.checkpoint`` of
 each layer body.
 
-The KV cache is a list with one ``{"k", "v"}`` per block, each
-(B, KV, cache_len, D) in the model's dtype.  ``prefill`` allocates it at
-``cache_len`` slots and the blocks write their K/V into it in place, and
-``decode_step`` writes each new K/V into its slot in place: the
-reference instead pads a fresh cache to ``cache_len`` and donates it to
-its jitted decode step, which XLA then updates in place.
+The cache is a list with one dict per block, of its kind
+(``models/layers.py``): ``attn`` K/V (B, KV, cache_len, D) and
+``local_attn`` rings of ``min(window, cache_len)`` slots in the model's
+dtype, RG-LRU and SSD states and conv tails in f32.  Only ``attn``
+caches grow with ``cache_len``, as in the reference.  ``prefill``
+allocates the cache and the blocks write into it in place, and
+``decode_step`` updates it in place: the reference instead builds a fresh
+cache, pads its ``attn`` K/V to ``cache_len`` and donates it to its jitted
+decode step, which XLA then updates in place.
 """
 
 from __future__ import annotations
@@ -43,9 +51,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, MODES, Attention, cross_entropy, rms_norm
+from repro_torch.models.layers import (
+    MLP,
+    MODES,
+    RGLRU,
+    SSD,
+    Attention,
+    cross_entropy,
+    rms_norm,
+)
 
-__all__ = ["Block", "LM", "dtype_of", "loss_fn"]
+__all__ = ["ATTENTION_KINDS", "Block", "LM", "dtype_of", "loss_fn"]
 
 Cache = list[dict[str, torch.Tensor]]
 
@@ -55,8 +71,8 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def _refuse_unported(cfg: ModelConfig) -> None:
-    """The port's LM runs the dense family; name the ROADMAP item of the
-    rest rather than run something else."""
+    """The port's LM runs the dense, hybrid and SSM families; name the
+    ROADMAP item of the rest rather than run something else."""
     pending = []
     if cfg.is_moe:
         pending.append("MoE MLP: ROADMAP A11-moe")
@@ -64,29 +80,39 @@ def _refuse_unported(cfg: ModelConfig) -> None:
         pending.append("VLM patch stub: ROADMAP A11-vlm")
     if cfg.is_encoder_decoder:
         pending.append("encoder-decoder: ROADMAP A11-whisper")
-    mixers = {"local_attn": "A11-hybrid", "rglru": "A11-hybrid", "ssd": "A11-ssm"}
-    pending += [f"{m} mixer: ROADMAP {mixers[m]}"
-                for m in dict.fromkeys(cfg.block_pattern) if m in mixers]
     if pending:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet ({'; '.join(pending)})"
         )
 
 
-class Block(nn.Module):
-    """Pre-norm residual block: ``x + attn(norm1(x))``, then
-    ``x + mlp(norm2(x))`` when the config has an MLP."""
+ATTENTION_KINDS = ("attn", "local_attn")
 
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+
+class Block(nn.Module):
+    """Pre-norm residual block of one ``kind``: ``x + mixer(norm1(x))``,
+    then ``x + mlp(norm2(x))`` when the config has an MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None, dtype=None):
         super().__init__()
+        self.cfg, self.kind = cfg, kind
         self.eps = cfg.norm_eps
         dtype = dtype or dtype_of(cfg)
+        kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.Parameter(torch.zeros(cfg.d_model, device=device))
-        self.mixer = Attention(cfg, device=device, dtype=dtype)
+        if kind in ATTENTION_KINDS:
+            window = cfg.window_size if kind == "local_attn" else None
+            self.mixer = Attention(cfg, window=window, **kw)
+        elif kind == "rglru":
+            self.mixer = RGLRU(cfg, **kw)
+        elif kind == "ssd":
+            self.mixer = SSD(cfg, **kw)
+        else:
+            raise ValueError(f"unknown mixer {kind!r}")
         self.mlp = None
         if cfg.d_ff > 0:
             self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, device=device))
-            self.mlp = MLP(cfg, device=device, dtype=dtype)
+            self.mlp = MLP(cfg, **kw)
 
     def forward(self, x, *, positions, mode, cache=None, pos=None, use_kernel=None):
         out, new_cache = self.mixer(
@@ -97,6 +123,23 @@ class Block(nn.Module):
         if self.mlp is not None:
             x = x + self.mlp(rms_norm(x, self.norm2, self.eps))
         return x, new_cache
+
+    def init_cache(self, batch: int, cache_len: int) -> dict[str, torch.Tensor]:
+        """This block's zero cache for ``batch`` rows and a serving length
+        of ``cache_len`` (see the module docstring)."""
+        cfg, mixer = self.cfg, self.mixer
+        dev = self.norm1.device
+        if self.kind in ATTENTION_KINDS:
+            shape = (batch, cfg.num_kv_heads, mixer.cache_slots(cache_len), cfg.head_dim)
+            kw = dict(device=dev, dtype=dtype_of(cfg))
+            return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        f32 = dict(device=dev, dtype=torch.float32)
+        conv = mixer.conv.shape  # (K, width)
+        tail = torch.zeros(batch, conv[0] - 1, conv[1], **f32)
+        if self.kind == "rglru":
+            return {"h": torch.zeros(batch, mixer.width, **f32), "conv": tail}
+        return {"s": torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state_dim, **f32), "conv": tail}
 
 
 class LM(nn.Module):
@@ -119,15 +162,21 @@ class LM(nn.Module):
             self.unembed = nn.Parameter(torch.empty(d, vp, device=device, dtype=dtype))
         self.final_norm = nn.Parameter(torch.zeros(d, device=device))
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype)
+            Block(cfg, kind, device=device, dtype=dtype)
             for pattern, count in cfg.stages()
             for _ in range(count)
-            for _kind in pattern  # "attn" only: _refuse_unported above
+            for kind in pattern
         )
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def attention_blocks(self) -> int:
+        """Blocks whose mixer is attention (full or local): the flash
+        kernel's launches in one prefill on the card."""
+        return sum(blk.kind in ATTENTION_KINDS for blk in self.blocks)
 
     def forward(
         self,
@@ -178,12 +227,8 @@ class LM(nn.Module):
         return logits, new_cache
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        """Zero KV cache, one {"k", "v"} (B, KV, cache_len, D) per block."""
-        cfg = self.cfg
-        shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
-        kw = dict(device=self.device, dtype=dtype_of(cfg))
-        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-                for _ in self.blocks]
+        """Zero cache, one dict per block of its kind (``Block.init_cache``)."""
+        return [blk.init_cache(batch, cache_len) for blk in self.blocks]
 
     @torch.no_grad()
     def prefill(
@@ -194,8 +239,10 @@ class LM(nn.Module):
         use_kernel: bool | None = None,
     ) -> tuple[torch.Tensor, Cache]:
         """Build the serving cache from a prompt (B, S): returns the last
-        position's logits (B, V_pad) f32 and a cache of
-        ``max(cache_len, S)`` slots with the prompt's K/V in the first S."""
+        position's logits (B, V_pad) f32 and the cache for a serving
+        length of ``max(cache_len, S)``: full-attention K/V in its first S
+        slots, local rings holding the last ``window`` keys, recurrent
+        states after the prompt's last token."""
         b, s = tokens.shape
         cache = self.init_cache(b, max(cache_len or s, s))
         logits, cache = self.forward(

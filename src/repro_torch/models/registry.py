@@ -9,7 +9,11 @@ surface of the reference's ``ModelApi``.  ``init_params`` fills it from a
 the unembedding a standard normal truncated to [-2, 2] times
 1/sqrt(fan_in), drawn in f32 and stored in the model's parameter dtype
 (the config's dtype to serve: the reference stores f32 and casts at every
-use, the same values; f32 master weights to train); norm scales zero.  The two frameworks draw different numbers from one seed:
+use, the same values; f32 master weights to train); a causal conv's fan-in
+is its kernel width K; norm scales zero.  RG-LRU's ``lam`` is
+``linspace(2.2, 6.9, w)``; SSD's ``a_log`` is ``log(linspace(1, 16, H))``,
+``dt_bias`` zeros and ``dskip`` ones (``init_rglru`` :468, ``init_ssd``
+:562).  The two frameworks draw different numbers from one seed:
 equivalence is of distributions, and the parity tests carry the
 reference's own weights across with ``interop.lm_params_from_reference``.
 """
@@ -20,7 +24,7 @@ import torch
 
 from repro_torch.interop import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import ATTENTION_KINDS, LM
 
 __all__ = ["build", "init_params"]
 
@@ -43,10 +47,26 @@ def init_params(model: LM, generator: torch.Generator) -> LM:
     model.final_norm.zero_()
     for blk in model.blocks:
         blk.norm1.zero_()
-        att = blk.mixer
-        for w in (att.wq, att.wk, att.wv):
-            _trunc_normal_(w, d, generator)
-        _trunc_normal_(att.wo, cfg.num_heads * cfg.head_dim, generator)
+        mix = blk.mixer
+        if blk.kind in ATTENTION_KINDS:
+            for w in (mix.wq, mix.wk, mix.wv):
+                _trunc_normal_(w, d, generator)
+            _trunc_normal_(mix.wo, cfg.num_heads * cfg.head_dim, generator)
+        elif blk.kind == "rglru":
+            w = mix.width
+            for p_, fan_in in ((mix.wx, d), (mix.wgate, d), (mix.conv, cfg.conv_width),
+                               (mix.wa, w), (mix.wi, w), (mix.wo, w)):
+                _trunc_normal_(p_, fan_in, generator)
+            mix.lam.copy_(torch.linspace(2.2, 6.9, w, dtype=torch.float32))
+        else:  # ssd
+            for p_, fan_in in ((mix.wx, d), (mix.wz, d), (mix.wb, d), (mix.wc, d),
+                               (mix.wdt, d), (mix.conv, cfg.conv_width),
+                               (mix.wo, cfg.d_inner)):
+                _trunc_normal_(p_, fan_in, generator)
+            mix.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, cfg.ssm_heads,
+                                                     dtype=torch.float32)))
+            mix.dt_bias.zero_()
+            mix.dskip.fill_(1.0)
         if blk.mlp is not None:
             blk.norm2.zero_()
             _trunc_normal_(blk.mlp.wi, d, generator)

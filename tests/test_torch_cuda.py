@@ -51,8 +51,13 @@ of the largest entry; AdamW in place on the card within 1e-6 relative of
 the CPU over a clipped, an unclipped and a skipped step; the eigen refresh
 on CUDA tensors launches B2 and B4 once per compressed leaf and its bases
 agree with the CPU's within 1e-4 f64.
+Recurrent families: the reduced recurrentgemma-2b and mamba2-370m on the
+card against the CPU (f32, 1e-4 at every serving step); a hybrid prefill
+at head_dim 256 launches B8 once per local attention block (8 of 26); the
+RG-LRU doubling scan at S = 4096 against a sequential f64 loop.
 """
 
+import copy
 import json
 import math
 import os
@@ -729,6 +734,89 @@ def test_reduced_serve_kernel_matches_plain(dev, arch):
     lk, lp = lk[:, : base.vocab_size], lp[:, : base.vocab_size]
     assert ((lk - lp).norm() / lp.norm()).item() <= 0.05
     assert (lk - lp).abs().max().item() <= 0.08 * lp.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-370m"])
+def test_reduced_recurrent_lm_on_the_card_matches_the_cpu(dev, arch):
+    """A reduced recurrent LM (the same seeded weights on both devices) in
+    f32 with f32 probabilities: prefill of 40 tokens (window 16, SSD chunk
+    16 with a padded last chunk) and 6 decode steps fed the CPU's tokens,
+    logits within 1e-4 of the CPU's at every step.  The hybrid prefill
+    launches B8 once per attention block (1 here) and decode never."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                              attn_probs_bf16=False)
+    models = {"cpu": build(cfg, device="cpu", generator=torch.Generator().manual_seed(0))}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to(dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    lc, cc = models["cpu"].prefill(prompts, cache_len=46)
+    lg, cg = models["cuda"].prefill(prompts.to(dev), cache_len=46)
+    torch.cuda.synchronize()
+    blocks = models["cuda"].attention_blocks
+    assert blocks == (1 if arch == "recurrentgemma-2b" else 0)
+    assert kernels.launch_counts()["flash_attention"] == blocks
+    for i in range(7):
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4, i
+        if i == 6:
+            break
+        tok = lc.argmax(-1)[:, None]
+        lc, cc = models["cpu"].decode_step(tok, cc, 40 + i)
+        lg, cg = models["cuda"].decode_step(tok.to(dev), cg, 40 + i)
+    assert kernels.launch_counts()["flash_attention"] == blocks
+
+
+def test_hybrid_prefill_launches_b8_per_local_block(dev):
+    """recurrentgemma-2b's layer pattern at a narrow width (d_model 256,
+    head_dim 256 as the full config's, 10 query heads, 1 KV head) with 8
+    local attention blocks in 26: one prefill of 300 tokens past a window
+    of 128 launches B8 exactly 8 times (its wide form), and the kernel and
+    plain prefills' last logits agree within chip_smoke.py's serving bars."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), d_model=2560, num_heads=10,
+                              num_kv_heads=1, d_ff=512, lru_width=256, vocab_size=1024,
+                              window_size=128)
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    assert model.attention_blocks == 8 and cfg.head_dim == 256
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    kernels.reset_launch_counts()
+    lk, cache = model.prefill(prompts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 8
+    assert tfa.flash_attention.last_form is not None
+    assert cache[2]["k"].shape[2] == 128
+    lp, _ = model.prefill(prompts, use_kernel=False)
+    assert kernels.launch_counts()["flash_attention"] == 8
+    lk, lp = lk[:, :cfg.vocab_size], lp[:, :cfg.vocab_size]
+    assert ((lk - lp).norm() / lp.norm()).item() <= 0.05
+    assert (lk - lp).abs().max().item() <= 0.08 * lp.abs().max().item()
+
+
+def test_doubling_scan_on_the_card_matches_sequential_f64(dev):
+    """RG-LRU's doubling scan in f32 on the card at S = 4096 against a
+    sequential loop in f64 (on the CPU), a in (0.5, 1): within 1e-5 of
+    the largest state."""
+    from repro_torch.models.layers import doubling_scan
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand(2, 4096, 64, generator=g, dtype=torch.float64) * 0.5 + 0.5
+    b = torch.randn(2, 4096, 64, generator=g, dtype=torch.float64)
+    want, h = torch.empty_like(b), torch.zeros(2, 64, dtype=torch.float64)
+    for t in range(4096):
+        h = a[:, t] * h + b[:, t]
+        want[:, t] = h
+    got = doubling_scan(a.float().to(dev), b.float().to(dev)).double().cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 _WORKER = r"""
