@@ -90,8 +90,9 @@ of JAX or of the reference package.  Phases, each ending in
    (``repro_torch.optim``; d = 1024, r = 8, 8 machines, n = r d .. 8 r d
    rows a machine), whose error must fall as n grows.
    Then the serving lane, with the PCA data freed first: B8
-   (``flash_attention``) against its plain version at the serving shape
-   (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal) and at ragged
+   (``flash_attention``) against its plain version at the serving shapes
+   (b 4, hq 24, hkv 8, s = t = 4096, hd 128, bf16, causal; qwen3-moe-
+   30b-a3b's b 4, hq 32, hkv 4, hd 64) and at ragged
    ones (GQA s 96 / t 160 in bf16 and f32, s > t with its zero rows,
    windows 16 and 1024, MQA, and s, t and windows at the bf16 kernel's
    128-row and 128-key tile edges, and head_dim 136, 192 and 256 through
@@ -119,6 +120,19 @@ of JAX or of the reference package.  Phases, each ending in
    the 4096-token prefill's last-position logits within the serving
    bars; B8's device time in one profiled hybrid prefill; the serve
    launcher once with ``--arch recurrentgemma-2b --full-config``.
+   Then the MoE serving lane (``moe_lane``): qwen3-moe-30b-a3b at its
+   full config (48 blocks, head_dim 64 through B8's wgmma form, 128
+   experts top-8; 30,079,649,792 parameters, 60.16 GB in bf16) with the
+   same traffic: exactly 48 flash launches in the prefill and none in
+   decode; the pairs each layer drops (forward hooks that route the
+   layer's input again); kernel vs plain prefill (the plain side one
+   prompt row at a time) within the serving bars, with the routing
+   decisions that differ between the two; a 4095-token prefill plus one
+   decode step against the 4096-token prefill: the K/V caches' first 4095
+   slots within the bars, and the logits of every row whose last token
+   kept its pairs in every layer (a dropped last token makes the two
+   another function); B8's share of one profiled prefill; the serve
+   launcher once with ``--arch qwen3-moe-30b-a3b --full-config``.
    Then the training lanes (``train_lanes``; constants T1_* .. T4_*):
    T1 trains ``llama3.2-3b`` at its full config (3.61 B parameters, f32
    master weights, bf16 compute, remat per block) with AdamW on 8 x 512
@@ -148,7 +162,8 @@ of JAX or of the reference package.  Phases, each ending in
    product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
    r = 192 and 256; B8's wide kernel at recurrentgemma-2b's local
    attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
-   2048, bf16).  B7 is
+   2048, bf16) and at qwen3-moe-30b-a3b's prefill shape (b 4, hq 32, hkv
+   4, s = t = 4096, hd 64, bf16, causal) beside SDPA.  B7 is
    timed in the rank world, per round on every rank, against the bound
    of the 8 ranks' work on the one card, with each round split into the
    time its hops waited between launches and the time they computed (the
@@ -163,15 +178,15 @@ of JAX or of the reference package.  Phases, each ending in
    again calibrated from these timings (``Calibration.from_records``,
    platform "h100").
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
-   cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's
-   and the recurrent lane's), then, last,
+   cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's,
+   the recurrent lane's and the MoE lane's), then, last,
    ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
-decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``,
-then one T1 train step after a
+decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``
+and ``qwen3-moe-30b-a3b``, then one T1 train step after a
 warm-up step: it prints each run's wall time, the device's busy share
 and the kernels that took the most device time.  ``--rank K`` and
 ``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
@@ -297,6 +312,9 @@ FLASH_CHECKS = (
      "bfloat16", 128),
     ("ragged edge window 129 (1, 4/2, 300x300, 128) bf16", (1, 4, 2, 300, 300, 128),
      "bfloat16", 129),
+    # qwen3-moe-30b-a3b's prefill shape (the MoE lane): head_dim 64.
+    ("main qwen3 (4, 32/4, 4096x4096, 64) bf16", (4, 32, 4, 4096, 4096, 64), "bfloat16",
+     None),
     # head_dim past 128: the wide kernel, both dtypes.
     ("ragged hd 136 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 136), "bfloat16", None),
     ("ragged hd 192 window 16 (1, 4/2, 200x457) f32", (1, 4, 2, 200, 457, 192),
@@ -798,7 +816,7 @@ def profile_lanes(torch, distributed_pca, samples, dev) -> None:
         print_profile(f"polar={polar} orth={orth}", prof, wall_us)
 
 
-def profile_serving(torch, dev, arch=SERVE_ARCH) -> None:
+def profile_serving(torch, dev, arch=SERVE_ARCH, top=16) -> None:
     """The serving lane's device time: one full-width prefill and 8 decode
     steps of ``arch`` under torch.profiler, after a warm-up prefill."""
     from repro_torch.launch.serve import load
@@ -811,7 +829,7 @@ def profile_serving(torch, dev, arch=SERVE_ARCH) -> None:
     out = []
     prof, wall_us = profiled(
         torch, lambda: out.append(model.prefill(prompts, cache_len=cache_len)))
-    print_profile(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=16)
+    print_profile(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=top)
     logits, cache = out[0]
 
     def decode():
@@ -821,8 +839,22 @@ def profile_serving(torch, dev, arch=SERVE_ARCH) -> None:
             tok = step.argmax(-1)[:, None]
 
     prof, wall_us = profiled(torch, decode)
-    print_profile(f"{arch} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us)
+    print_profile(f"{arch} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us, top=top)
     del model, prompts, logits, cache, out
+
+
+def serving_gap(torch, got, want) -> tuple:
+    """(relative L2, max abs over the largest |want|, argmax agreements) of
+    two (rows, vocab) logit matrices."""
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    max_abs = ((got - want).abs().max() / want.abs().max()).item()
+    return rel_l2, max_abs, int((got.argmax(-1) == want.argmax(-1)).sum())
+
+
+def within_bars(torch, got, want) -> bool:
+    """Finite, and within SERVE_REL_L2 / SERVE_MAX_ABS of ``want``."""
+    rel_l2, max_abs, _ = serving_gap(torch, got, want)
+    return bool(torch.isfinite(got).all()) and rel_l2 <= SERVE_REL_L2 and max_abs <= SERVE_MAX_ABS
 
 
 # -- the recurrent serving lane (phase 3) -------------------------------------
@@ -845,15 +877,11 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
     from repro_torch.models import LM
 
     def bars(label, got, want):
-        rel_l2 = ((got - want).norm() / want.norm()).item()
-        max_abs = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
+        rel_l2, max_abs, agree = serving_gap(torch, got, want)
         print(f"[recur] {label}: rel L2 {rel_l2:.3e} (bar {SERVE_REL_L2}), max abs "
-              f"{max_abs:.3e} = {max_abs / scale:.3e} of the largest logit {scale:.3f} "
+              f"{max_abs:.3e} of the largest logit {want.abs().max().item():.3f} "
               f"(bar {SERVE_MAX_ABS}), argmax agree {agree}/{got.shape[0]}")
-        require(bool(torch.isfinite(got).all()) and rel_l2 <= SERVE_REL_L2
-                and max_abs <= SERVE_MAX_ABS * scale, f"{label}: outside the serving bars")
+        require(within_bars(torch, got, want), f"{label}: outside the serving bars")
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -987,6 +1015,229 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
             and stats["flash_launches_prefill"] == str(attn_blocks)
             and stats["flash_launches_decode"] == "0",
             f"serve launcher ({arch}): wrong token matrix or flash launches")
+    return b8
+
+
+# -- the MoE serving lane (phase 3) -------------------------------------------
+# qwen3-moe-30b-a3b at its full config: 48 blocks of full attention (head_dim
+# 64, 32 query heads on 4 KV heads) and 128 experts top-8 (expert d_ff 768),
+# 30,079,649,792 parameters (60.16 GB in bf16) with the padded vocab; the
+# other serving lanes' traffic; its default einsum dispatch form (one
+# capacity per row: 320 slots an expert at 4096 tokens, 4 in decode).
+MOE_ARCH, MOE_PARAMS = "qwen3-moe-30b-a3b", 30_079_649_792
+# B8 at qwen3's prefill shape (b, hq, hkv, s, t, hd), bf16, causal (phase 4).
+FLASH_MOE = (4, 32, 4, 4096, 4096, 64)
+
+
+def moe_routes(torch, model):
+    """Forward hooks on every MoE layer of ``model``: each forward appends,
+    per layer, the routing of the layer's input computed again
+    (``MoE.routing``; the module keeps no counters): the experts (uint8),
+    the pairs dropped, and whether each row's last token lost a pair.
+    Returns (the records, a function that removes the hooks)."""
+    rec = []
+
+    def hook(mod, inp, _out):
+        rt = mod.routing(inp[0])
+        rec.append({"experts": rt.experts.to(torch.uint8), "drops": (~rt.keep).sum(),
+                    "pairs": rt.keep.numel(), "last_dropped": (~rt.keep[:, -1]).any(-1)})
+
+    handles = [blk.mlp.register_forward_hook(hook) for blk in model.blocks]
+    return rec, lambda: [h.remove() for h in handles]
+
+
+def moe_lane(torch, dev, launches: dict) -> dict:
+    """qwen3-moe-30b-a3b served at its full config through ``launch.serve``'s
+    ``load`` and ``generate``: exactly one flash launch a block in the
+    prefill (48) and none in decode; the pairs each layer drops in the
+    prefill (forward hooks); the served model and prompts prefilled through
+    the kernel and through plain attention one prompt row at a time (rows
+    are independent in the einsum form; plain attention over the whole
+    batch would not fit beside the weights), the routing decisions that
+    differ between the two, the last-position logits within SERVE_REL_L2 /
+    SERVE_MAX_ABS; a prefill of the first SERVE_PROMPT - 1 tokens plus one
+    decode step against the whole prefill (both at capacity 320, so the
+    first 4095 tokens' places and drops are the same; a decode step never
+    drops): the K/V caches' first 4095 slots within the bars, and the
+    logits of each row whose last token kept all its pairs in every layer
+    (a dropped last token makes the two another function, by the
+    reference's own semantics); B8's share of one profiled warm prefill;
+    then the serve launcher in its own process.  Every check is printed
+    before any is required.  Returns B8's served numbers for phase 4."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate, load
+    from repro_torch.models.layers import moe_capacity
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    print(f"[moe] memory allocated before the lane: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (model, prompts), t_init = timed(lambda: load(
+        MOE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, reduced=False,
+        device="cuda", seed=SEED))
+    toks, st = generate(model, prompts, gen=SERVE_GEN)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = model.cfg
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    n_params = sum(p.numel() for p in model.parameters())
+    launches["flash_attention"] += counts["flash_attention"]
+    print(f"[moe] {MOE_ARCH} full config (layers {layers}, d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, experts "
+          f"{cfg.num_experts} top-{cfg.num_experts_per_token}, d_ff {cfg.d_ff}, vocab "
+          f"{vocab}, {n_params} parameters, dispatch {cfg.moe_impl}), batch {SERVE_BATCH}, "
+          f"prompt {SERVE_PROMPT}, gen {SERVE_GEN}: weight init {t_init:.2f} s, prefill_s "
+          f"{st['prefill_s']:.4f}, decode_s {st['decode_s']:.4f} "
+          f"({st['decode_s'] / SERVE_GEN * 1e3:.2f} ms/step), prefill "
+          f"{SERVE_BATCH * SERVE_PROMPT / st['prefill_s']:.0f} tok/s, decode "
+          f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory "
+          f"{peak_gb:.2f} GB, attention blocks {st['attention_blocks']}, flash launches "
+          f"{st['flash_launches']}, tokens {tuple(toks.shape)} in "
+          f"[{int(toks.min())}, {int(toks.max())}]")
+    require(n_params == MOE_PARAMS, f"{MOE_ARCH}: {n_params} parameters, not {MOE_PARAMS}")
+    require(st["attention_blocks"] == layers
+            and st["flash_launches"] == {"prefill": layers, "decode": 0},
+            f"{MOE_ARCH}: flash launches {st['flash_launches']}, expected {layers} in "
+            f"the prefill and none in decode")
+    require(counts == expected_counts({"flash_attention": layers}),
+            f"{MOE_ARCH}: launches {counts}")
+    require(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+            and 0 <= int(toks.min()) and int(toks.max()) < vocab,
+            f"{MOE_ARCH}: token matrix {tuple(toks.shape)} out of range")
+
+    (lw, _), t_warm = timed(lambda: model.prefill(prompts))
+    lw = lw[:, :vocab]
+    rec, unhook = moe_routes(torch, model)
+    lk, kcache = model.prefill(prompts)
+    kern = list(rec)
+    rec.clear()
+    rows, t_plain = timed(lambda: [model.prefill(prompts[i:i + 1], use_kernel=False)[0]
+                                   for i in range(SERVE_BATCH)])
+    plain = list(rec)  # row by row, each its layers in order
+    unhook()
+    lk, lp = lk[:, :vocab], torch.cat(rows)[:, :vocab]
+    del rows
+    drops = [int(r["drops"]) for r in kern]
+    pairs = kern[0]["pairs"]
+    worst = max(range(layers), key=drops.__getitem__)
+    flips = last_flips = 0
+    for li in range(layers):
+        ke = kern[li]["experts"].sort(-1).values
+        pe = torch.cat([plain[i * layers + li]["experts"] for i in range(SERVE_BATCH)])
+        differ = (ke != pe.sort(-1).values).any(-1)  # (B, S)
+        flips += int(differ.sum())
+        last_flips += int(differ[:, -1].sum())
+    decisions = layers * SERVE_BATCH * SERVE_PROMPT
+    first = bool((lw.argmax(-1).cpu() == toks[:, 0]).all())
+    print(f"[moe] warm prefill through the kernel {t_warm:.4f} s; through plain attention "
+          f"one row at a time {t_plain:.4f} s; first served token from the kernel prefill "
+          f"{first}; hooked prefill equal to the warm one {bool(torch.equal(lk, lw))}")
+    print(f"[moe] drops in the prefill (capacity {moe_capacity(cfg, SERVE_PROMPT)} slots an "
+          f"expert a row, {pairs} pairs a layer): "
+          f"{sum(drops)} of {layers * pairs} pairs ({100 * sum(drops) / (layers * pairs):.3f} "
+          f"%); the most in layer {worst}: {drops[worst]} "
+          f"({100 * drops[worst] / pairs:.3f} %); per layer {drops}")
+    print(f"[moe] routing decisions (token, layer) whose expert set differs between the "
+          f"kernel and the plain prefill: {flips} of {decisions} "
+          f"({100 * flips / decisions:.4f} %), {last_flips} of {layers * SERVE_BATCH} at the "
+          f"last position")
+    gaps = {"kernel vs plain prefill": serving_gap(torch, lk, lp)}
+    held = {"kernel vs plain prefill": within_bars(torch, lk, lp)}
+
+    kernels.reset_launch_counts()
+
+    def continued():
+        _, cache = model.prefill(prompts[:, :-1], cache_len=SERVE_PROMPT)
+        return model.decode_step(prompts[:, -1:], cache, SERVE_PROMPT - 1)[0], cache
+
+    (lc, ccache), t_cont = timed(continued)
+    lc = lc[:, :vocab]
+    c_launches = kernels.launch_counts()["flash_attention"]
+    launches["flash_attention"] += c_launches
+    last = torch.stack([r["last_dropped"] for r in kern]).cpu()  # (layers, B)
+    dropped_rows = last.any(0)
+    cache_rel, cache_abs = [], []
+    for kc, cc in zip(kcache, ccache):
+        for name in ("k", "v"):
+            want = kc[name][:, :, :SERVE_PROMPT - 1].float()
+            got = cc[name][:, :, :SERVE_PROMPT - 1].float()
+            cache_rel.append(((got - want).norm() / want.norm()).item())
+            cache_abs.append(((got - want).abs().max() / want.abs().max()).item())
+    label = f"prefill {SERVE_PROMPT - 1} + decode 1 ({t_cont:.4f} s) vs prefill {SERVE_PROMPT}"
+    print(f"[moe] {label}: flash launches {c_launches}; the last token lost a pair in the "
+          f"{SERVE_PROMPT}-token prefill in rows {dropped_rows.nonzero().flatten().tolist()} "
+          f"(layers {[li for li in range(layers) if last[li].any()]}); K/V caches' first "
+          f"{SERVE_PROMPT - 1} slots over {2 * layers} tensors: worst rel L2 "
+          f"{max(cache_rel):.3e}, worst max abs {max(cache_abs):.3e} of the largest")
+    held["K/V caches' first slots"] = (max(cache_rel) <= SERVE_REL_L2
+                                       and max(cache_abs) <= SERVE_MAX_ABS)
+    kept = ~dropped_rows.to(lc.device)
+    gaps[f"{label}, all rows"] = serving_gap(torch, lc, lw)
+    if kept.any():
+        gaps[f"{label}, rows whose last token kept its pairs"] = serving_gap(
+            torch, lc[kept], lw[kept])
+        held[f"{label}, rows whose last token kept its pairs"] = within_bars(
+            torch, lc[kept], lw[kept])
+    for name, (rel_l2, max_abs, agree) in gaps.items():
+        print(f"[moe] {name}: rel L2 {rel_l2:.3e} (bar {SERVE_REL_L2}), max abs "
+              f"{max_abs:.3e} of the largest logit (bar {SERVE_MAX_ABS}), argmax agree "
+              f"{agree}/{SERVE_BATCH if 'kept' not in name else int(kept.sum())}"
+              f"{'' if name in held else ' (printed, not held)'}")
+    del kcache, ccache, lc, lk, lp, kern, plain, rec
+
+    model.prefill(prompts)  # warm
+    prof, wall_us = profiled(torch, lambda: model.prefill(prompts))
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in events)
+    fa = [e for e in events if "flash_fwd" in e.key]
+    fa_us = sum(e.self_device_time_total for e in fa)
+    b8 = {"arch": MOE_ARCH, "prefill_device_ms": busy_us / 1e3,
+          "prefill_wall_ms": wall_us / 1e3, "flash_ms": fa_us / 1e3,
+          "flash_calls": sum(e.count for e in fa), "flash_share": fa_us / max(busy_us, 1)}
+    names = ", ".join(sorted({e.key[:40] for e in fa})) or "not seen"
+    print(f"[moe] one warm prefill under the profiler: wall {wall_us / 1e3:.1f} ms, device "
+          f"{busy_us / 1e3:.1f} ms; B8 ({names}) {fa_us / 1e3:.2f} ms over "
+          f"{b8['flash_calls']} launches, "
+          f"{100 * b8['flash_share']:.1f} % of the device time")
+    print_profile(f"{MOE_ARCH} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=20)
+    del model, prompts, lw, prof
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MOE_ARCH,
+         "--full-config", "--batch", "2", "--prompt-len", "256", "--gen", "8",
+         "--device", "cuda"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": SRC},
+    )
+    require(cli.returncode == 0, f"serve launcher ({MOE_ARCH}) failed:\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.strip().splitlines()
+    stats = dict(line.split(": ", 1) for line in lines[2:])
+    print(f"[cli] repro_torch.launch.serve --arch {MOE_ARCH} --full-config --batch 2 "
+          f"--prompt-len 256 --gen 8 ({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
+                       "attention_blocks", "flash_launches_prefill",
+                       "flash_launches_decode")))
+    require(lines[0] == "generated token matrix: (2, 8)"
+            and stats["attention_blocks"] == str(layers)
+            and stats["flash_launches_prefill"] == str(layers)
+            and stats["flash_launches_decode"] == "0",
+            f"serve launcher ({MOE_ARCH}): wrong token matrix or flash launches")
+    require(first, f"{MOE_ARCH}: the served first tokens are not the kernel prefill's argmax")
+    require(c_launches == layers, f"{MOE_ARCH}: continuation launches {c_launches}")
+    for name, ok in held.items():
+        require(ok, f"{MOE_ARCH}: {name} outside the serving bars")
     return b8
 
 
@@ -1638,6 +1889,8 @@ def main(argv=None) -> int:
         profile_serving(torch, dev)
         torch.cuda.empty_cache()
         profile_serving(torch, dev, RECURRENT_ARCHS[0][0])
+        torch.cuda.empty_cache()
+        profile_serving(torch, dev, MOE_ARCH, top=24)
         torch.cuda.empty_cache()
         profile_training(torch, dev)
         return 0
@@ -2591,6 +2844,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[recur] both archs and the launcher in {time.perf_counter() - t0:.1f} s")
 
+    # The MoE serving lane (qwen3-moe-30b-a3b).
+    t0 = time.perf_counter()
+    b8_moe = moe_lane(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[moe] the lane and the launcher in {time.perf_counter() - t0:.1f} s")
+
     # The training lanes (T1-T4).  The card still holds the earlier phases'
     # tensors that phase 4 times (a few GB); each lane's peak leaves them out.
     train_lanes(torch, dev, launches)
@@ -2795,6 +3054,26 @@ def main(argv=None) -> int:
         "shape": list(FLASH_WIDE[0]), "window": win, "ms": w_ms, "plain_ms": w_plain,
         "bound_ms": w_bound, "library_ms": w_lib, "served": b8_served}
     del q, k_, v_, mask
+    # B8 at qwen3-moe-30b-a3b's prefill shape (head_dim 64).
+    b, hq, hkv, s_, t_, hd = FLASH_MOE
+    q, k_, v_ = qkv(FLASH_MOE, "bfloat16")
+    m_flops = 4.0 * b * hq * hd * (s_ * (s_ + 1) // 2)
+    m_bytes = 2 * (2 * b * hq * s_ * hd + 2 * b * hkv * t_ * hd)
+    m_bound = 1e3 * max(m_flops / peak_bf16, m_bytes / peak_bw)
+    m_by = "operations" if m_flops / peak_bf16 >= m_bytes / peak_bw else "bytes"
+    m_ms = time_ms(lambda: flash_attention(q, k_, v_), 10)
+    m_form = flash_attention.last_form
+    m_plain = time_ms(lambda: ref.flash_attention(q, k_, v_), 3)
+    m_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_, v_, is_causal=True, enable_gqa=True), 10)
+    print(f"[time] flash_attention qwen3 {FLASH_MOE} bf16 causal [{m_form}] kernel_ms "
+          f"{m_ms:.4f} bound_ms {m_bound:.4f} ({m_by}, bf16 peak; {m_flops / 1e9:.1f} GFLOP, "
+          f"{m_bytes / 1e6:.1f} MB) plain_ms {m_plain:.4f} library_ms {m_lib:.4f} (SDPA "
+          f"is_causal, enable_gqa); {m_flops / (m_ms * 1e9):.2f} TFLOP/s")
+    by_name["flash_attention"]["qwen3_hd64"] = {
+        "shape": list(FLASH_MOE), "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+        "bound_by": m_by, "library_ms": m_lib, "form": m_form, "served": b8_moe}
+    del q, k_, v_
     # B7, timed in the rank world (phase 3's processes): WORLD ranks share
     # the card, so the world's bound is WORLD ranks' work; each rank does
     # B6's operations and writes WORLD - 1 hops of d r f32 to its neighbour.

@@ -1,5 +1,6 @@
 """Architecture configs of the port (copies of ``repro/configs``): the
-dense family, recurrentgemma-2b (hybrid) and mamba2-370m (SSM)."""
+dense family, qwen3-moe-30b-a3b and kimi-k2-1t-a32b (MoE),
+recurrentgemma-2b (hybrid) and mamba2-370m (SSM)."""
 
 from repro_torch.configs.registry import (  # noqa: F401
     ARCHS,

@@ -2,7 +2,7 @@
 ``repro/configs/registry.py``).
 
 All ten arch ids of the reference are known.  The port runs the dense,
-hybrid (RG-LRU + local attention) and SSM (Mamba2 SSD) families; asking
+MoE, hybrid (RG-LRU + local attention) and SSM (Mamba2 SSD) families; asking
 for an arch of another family raises ``NotImplementedError`` naming the
 ROADMAP item that ports it, rather than falling through to something
 else.
@@ -29,10 +29,9 @@ ARCHS: dict[str, tuple[str, str]] = {
     "whisper-tiny": ("whisper_tiny", "audio"),
     "mamba2-370m": ("mamba2_370m", "ssm"),
 }
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # Family not ported yet -> the ROADMAP item that ports it.
 _PENDING = {
-    "moe": "A11-moe",
     "vlm": "A11-vlm",
     "audio": "A11-whisper",
 }

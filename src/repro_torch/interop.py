@@ -149,7 +149,9 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
     ``cfg`` (``repro/models/lm.py::init_lm`` and ``layers.init_*``):
     embed (V_pad, d), unembed (d, V_pad), final_norm (d,), and per stage,
     stacked over its count L, each block's norm1 / norm2 (L, d), its
-    mixer's leaves by kind and the MLP's wi / wg (L, d, f) and wo (L, f, d).
+    mixer's leaves by kind and the MLP's wi / wg (L, d, f) and wo (L, f, d),
+    or an MoE config's router (L, d, e), wi / wg (L, e, d, f) and wo
+    (L, e, f, d).
     Mixers: attention (``attn`` and ``local_attn``) wq (L, d, h, hd),
     wk / wv (L, d, kv, hd), wo (L, h, hd, d); RG-LRU wx / wgate (L, d, w),
     conv (L, K, w), wa / wi (L, w, w), wo (L, w, d), lam (L, w); SSD wx /
@@ -197,7 +199,14 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
         },
     }
     mlp = {}
-    if f > 0:
+    if f > 0 and cfg.is_moe:
+        e = cfg.num_experts
+        mlp = {"norm2": ((d,), ("embed",)),
+               "mlp.router": ((d, e), ("embed", None)),
+               "mlp.wi": ((e, d, f), ("experts", "embed", "mlp")),
+               "mlp.wg": ((e, d, f), ("experts", "embed", "mlp")),
+               "mlp.wo": ((e, f, d), ("experts", "mlp", "embed"))}
+    elif f > 0:
         mlp = {"norm2": ((d,), ("embed",)),
                "mlp.wi": ((d, f), ("embed", "mlp")),
                "mlp.wo": ((f, d), ("mlp", "embed"))}
@@ -248,11 +257,12 @@ def split_reference(flat: Mapping[str, np.ndarray], cfg, *,
 
 def _port_shape(leaf: ReferenceLeaf) -> tuple:
     """The port tensor's shape: a layer's slice, its head axes flattened
-    into a matrix for the attention projections."""
+    into a matrix for the attention projections (the MoE's (e, ., .)
+    expert leaves keep theirs)."""
     shape = leaf.layer_shape
-    if len(shape) == 3 and leaf.axes[-1] == "head_dim":  # wq / wk / wv
+    if leaf.axes[-1] == "head_dim":  # wq / wk / wv (d, h, hd)
         return (shape[0], shape[1] * shape[2])
-    if len(shape) == 3:  # wo (h, hd, d)
+    if leaf.axes[-2:] == ("head_dim", "embed"):  # wo (h, hd, d)
         return (shape[0] * shape[1], shape[2])
     return shape
 

@@ -7,16 +7,18 @@ service::
         --batch 4 --prompt-len 4096 --gen 32          # full width on one card
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --full-config
     python -m repro_torch.launch.serve --arch mamba2-370m --full-config
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full-config
     python -m repro_torch.launch.serve --subspace --dim 8192 --subspace-rank 128
 
-LM lane (the dense, hybrid and SSM families): builds the model from a
+LM lane (the dense, MoE, hybrid and SSM families): builds the model from a
 seeded ``torch.Generator`` (random weights, as the reference), draws
 ``batch`` prompts of ``prompt_len`` tokens from the next seed, prefills
 them in one batch, then decodes ``gen`` greedy tokens for every row in
 lockstep.  Prefill runs the flash kernel (B8) in every attention block
-(full or local) on a Hopper card, so once per layer for the dense
-family, 8 times for recurrentgemma-2b and never for mamba2-370m; decode
-steps take the plain grouped product and the recurrences' one step.
+(full or local) on a Hopper card, so once per layer for the dense and
+MoE families (48 times for qwen3-moe-30b-a3b), 8 times for
+recurrentgemma-2b and never for mamba2-370m; decode steps take the plain
+grouped product and the recurrences' one step.
 Prints the reference's lines (the token matrix's shape and the timings)
 and adds tokens per second, the attention blocks and the flash launches
 of prefill and decode.  One process, one device: the reference's mesh,

@@ -27,9 +27,10 @@ compressed leaf, as the reference's.  Weight decay of the other leaves
 and compressibility follow the reference's leaf (``interop.decays``,
 ``compressed_paths``).
 
-The steps train the dense family.  The hybrid and SSM families serve
-but do not train yet (``refuse_untrained``): their gradients through the
-scans have not been held against the reference's.
+The steps train the dense family.  The MoE, hybrid and SSM families
+serve but do not train yet (``refuse_untrained``): their gradients
+through the routing and the scans have not been held against the
+reference's.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ __all__ = [
 Batch = Dict[str, torch.Tensor]
 
 # Families the port serves but does not train yet -> the ROADMAP item.
-_UNTRAINED = {"hybrid": "A11-hybrid-train", "ssm": "A11-ssm-train"}
+_UNTRAINED = {"moe": "A11-moe-train", "hybrid": "A11-hybrid-train",
+              "ssm": "A11-ssm-train"}
 
 
 def refuse_untrained(cfg) -> None:

@@ -1,5 +1,6 @@
 """The port's LM stack: configs, layers, the decoder-only LM and its
-builder (dense family so far; ROADMAP A11 lists the rest)."""
+builder (the dense, MoE, hybrid and SSM families; ROADMAP A11 lists the
+rest)."""
 
 from repro_torch.models.config import (  # noqa: F401
     SHAPES,

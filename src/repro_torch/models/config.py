@@ -9,10 +9,11 @@ builds a ``ModuleList`` of blocks over that structure (a Python loop
 takes the place of the reference's ``jax.lax.scan``).
 
 Every field of the reference is kept, so the two packages' configs
-compare field by field; the sharding, remat and scan knobs
-(``remat``, ``scan_layers``, ``moe_impl``, ``serve_*``, ``fsdp``,
-``eigen_compress``) are read by the reference only.  Of the families,
-the port runs ``dense`` so far (``repro_torch.configs.registry``).
+compare field by field; the sharding and scan knobs (``scan_layers``,
+``serve_*``, ``fsdp``, ``eigen_compress``) are read by the reference only
+(``remat`` picks per-block checkpointing in training, ``moe_impl`` the MoE
+dispatch form).  Of the families, the port runs
+the dense, MoE, hybrid and SSM ones (``repro_torch.configs.registry``).
 """
 
 

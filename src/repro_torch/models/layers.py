@@ -1,6 +1,6 @@
 """Model-layer primitives of the port's LM: RMS norm, RoPE, GQA attention
-(full and local), the MLP, the causal conv, the RG-LRU and Mamba2 SSD
-mixers (port of ``repro/models/layers.py``).
+(full and local), the MLP, the routed MoE MLP, the causal conv, the
+RG-LRU and Mamba2 SSD mixers (port of ``repro/models/layers.py``).
 
 Layouts follow the reference so weights cross unchanged in meaning:
 activations are (B, S, M); the attention's projections hold the
@@ -19,18 +19,21 @@ Prefill and decode update the cache they are given in place.
 
 Norm scales are kept in f32 (the reference stores f32 and uses
 ``1 + scale`` in f32), and so are the leaves the reference uses in f32
-whatever the activations' dtype: RG-LRU's ``wa``, ``wi`` and ``lam``, and
-SSD's ``wb``, ``wc``, ``wdt``, ``a_log``, ``dt_bias`` and ``dskip``.  The
+whatever the activations' dtype: the MoE router, RG-LRU's ``wa``, ``wi``
+and ``lam``, and SSD's ``wb``, ``wc``, ``wdt``, ``a_log``, ``dt_bias`` and
+``dskip``.  The
 other projections are stored in the dtype the caller gives (``dtype``:
 the config's dtype to serve, f32 master weights to train) and cast to the
 activations' dtype at every use, as the reference casts its f32
 parameters; a cast to the dtype a weight already has is a no-op, so
 serving's bf16 weights are used as they are.
 
-Not ported here: MoE and cross-attention (ROADMAP A11-moe, A11-whisper).
+Not ported here: cross-attention (ROADMAP A11-whisper).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,8 +43,9 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "causal_conv", "RGLRU",
-           "SSD", "doubling_scan", "silu_ref", "gelu_tanh_ref", "cross_entropy"]
+__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "MoE", "Routing", "moe_capacity",
+           "causal_conv", "RGLRU", "SSD", "doubling_scan", "silu_ref", "gelu_tanh_ref",
+           "cross_entropy"]
 
 _NEG_INF = -1e30
 MODES = ("train", "prefill", "decode")
@@ -236,6 +240,146 @@ class MLP(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
         return h @ self.wo.to(cdt)
+
+
+def moe_capacity(cfg: ModelConfig, seq: int) -> int:
+    """Slots an expert has in each row of ``seq`` tokens (the einsum
+    form's capacity): ``cf * seq * k / e`` rounded down, then up to a
+    multiple of 4, at least 4."""
+    c = int(cfg.capacity_factor * seq * cfg.num_experts_per_token / cfg.num_experts)
+    return max(4, (c + 3) // 4 * 4)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of x (B, S, M): each token's K experts in
+    top-k order and their renormalised gates (B, S, K), whether each pair
+    got a slot (``keep``) and which (``slots``: expert-major into the
+    (E, groups * cap) buffer; meaningless where not kept), the capacity,
+    the number of token groups sharing one capacity, and the Switch aux
+    loss (f32 scalar)."""
+
+    gates: torch.Tensor
+    experts: torch.Tensor
+    keep: torch.Tensor
+    slots: torch.Tensor
+    cap: int
+    groups: int
+    aux: torch.Tensor
+
+
+def _queue_places(flat: torch.Tensor, e: int) -> torch.Tensor:
+    """flat (G, P) expert ids, pairs in queue order -> (G, P) int64: each
+    pair's place in its expert's queue of its group, the number of pairs
+    before it routed to the same expert.  A stable sort by expert keeps
+    the queue order within an expert, so a pair's place is its index in
+    the sorted ids minus where its expert's run starts."""
+    order = torch.argsort(flat, dim=-1, stable=True)
+    run = flat.gather(-1, order)
+    experts = torch.arange(e, device=flat.device).repeat(flat.shape[0], 1)
+    starts = torch.searchsorted(run, experts)
+    rank = torch.arange(flat.shape[1], device=flat.device) - starts.gather(-1, run)
+    return torch.empty_like(rank).scatter_(-1, order, rank)
+
+
+class MoE(nn.Module):
+    """Routed SwiGLU experts with capacity (``init_moe`` / ``apply_moe``):
+    the same experts, places, drops, combine weights and rounding points
+    as the reference's two dispatch forms, computed with gathers and
+    batched products instead of one-hot contractions.
+
+    Routing: router logits in f32 (x and the router widened), softmax,
+    the top k (ties to the lower expert id, as ``jax.lax.top_k``), gates
+    renormalised by ``max(sum, 1e-9)``; aux ``e * sum_e f_e p_e`` with f_e
+    the share of tokens whose top-1 is e.  A (token, k) pair's place in
+    its expert's queue counts the pairs before it in token-major, then k
+    order; a pair at place >= cap is dropped (contributes zero; the
+    residual carries the token).
+
+    ``cfg.moe_impl == "sort"`` takes the sort form: one capacity
+    ``max(4, int(cf B S k / e + 3) // 4 * 4)`` over the whole B*S token
+    group, and the combine adds each kept pair's ``out * gate`` (rounded
+    to the compute dtype) into its token in the compute dtype, pairs in
+    expert order (the reference's scatter-add of pairs sorted by expert).
+    Any other name takes the einsum form: a capacity per row
+    (``moe_capacity(cfg, S)``), and the combine rounds the gates to the
+    compute dtype, sums each token's K products in f32 and rounds once
+    (the reference's one bf16 dot with f32 accumulation; the order of
+    that f32 sum differs).
+
+    Both forms gather x into one (E, groups * cap, M) buffer (an empty
+    slot holds zeros), run ``h = silu(x wg) * (x wi)`` then ``h wo`` as
+    three batched products in the compute dtype, and gather each kept
+    pair's output back.  The silu is ``silu_ref``, rounded op by op as
+    the reference's: with it a bf16 layer gives the reference's bits on
+    the CPU (``F.silu`` moves ~half of the outputs by up to a bf16 step).
+    Leaves (the reference's layouts): ``router`` (d, e) in f32, ``wi`` /
+    ``wg`` (e, d, f) and ``wo`` (e, f, d) in the parameter dtype.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        kw = dict(device=device, dtype=dtype)
+        self.router = nn.Parameter(torch.empty(d, e, device=device, dtype=torch.float32))
+        self.wi = nn.Parameter(torch.empty(e, d, f, **kw))
+        self.wg = nn.Parameter(torch.empty(e, d, f, **kw))
+        self.wo = nn.Parameter(torch.empty(e, f, d, **kw))
+
+    def routing(self, x: torch.Tensor) -> Routing:
+        """Experts, gates, slots and drops of x (B, S, M); see the class
+        docstring."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        e, k = cfg.num_experts, cfg.num_experts_per_token
+        probs = torch.softmax(x.to(torch.float32) @ self.router.to(torch.float32), dim=-1)
+        top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, experts = top[..., :k], idx[..., :k]
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=_f32(1e-9))
+        f_e = F.one_hot(experts[..., 0], e).to(torch.float32).mean(dim=(0, 1))
+        aux = e * (f_e * probs.mean(dim=(0, 1))).sum()
+        if cfg.moe_impl == "sort":
+            groups = 1
+            cap = max(4, int(cfg.capacity_factor * b * s * k / e + 3) // 4 * 4)
+        else:
+            groups, cap = b, moe_capacity(cfg, s)
+        places = _queue_places(experts.reshape(groups, -1), e).view(b, s, k)
+        group = 0 if groups == 1 else torch.arange(b, device=x.device)[:, None, None]
+        slots = experts * (groups * cap) + group * cap + places
+        return Routing(gates, experts, places < cap, slots, cap, groups, aux)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, M) -> (out (B, S, M) in x's dtype, aux f32 scalar)."""
+        cfg, cdt = self.cfg, x.dtype
+        b, s, m = x.shape
+        e, k = cfg.num_experts, cfg.num_experts_per_token
+        rt = self.routing(x)
+        n_slots = e * rt.groups * rt.cap
+        # Dispatch: the token each slot holds; empty slots read a zero row.
+        tok = torch.arange(b * s, device=x.device).view(b, s, 1).expand(b, s, k)
+        src = torch.full((n_slots + 1,), b * s, dtype=torch.long, device=x.device)
+        src.scatter_(0, torch.where(rt.keep, rt.slots, n_slots).reshape(-1),
+                     tok.reshape(-1))  # dropped pairs all land in the last slot
+        xs = torch.cat([x.reshape(b * s, m), x.new_zeros(1, m)])
+        buf = xs[src[:n_slots]].view(e, rt.groups * rt.cap, m)
+        h = torch.bmm(buf, self.wi.to(cdt))
+        h = silu_ref(torch.bmm(buf, self.wg.to(cdt))) * h
+        out = torch.bmm(h, self.wo.to(cdt)).view(n_slots, m)
+        # Combine: each token's pairs in expert order, a dropped pair's
+        # weight zero.
+        order = torch.argsort(rt.experts, dim=-1)
+        slots = torch.clamp(rt.slots.gather(-1, order), max=n_slots - 1).view(b * s, k)
+        w = torch.where(rt.keep, rt.gates, 0.0).gather(-1, order).view(b * s, k).to(cdt)
+        if cfg.moe_impl == "sort":
+            y = out[slots[:, 0]] * w[:, :1]
+            for j in range(1, k):
+                y = y + out[slots[:, j]] * w[:, j:j + 1]
+        else:
+            wf = w.to(torch.float32)
+            y = out[slots[:, 0]].to(torch.float32) * wf[:, :1]
+            for j in range(1, k):
+                y.addcmul_(out[slots[:, j]].to(torch.float32), wf[:, j:j + 1])
+        return y.to(cdt).view(b, s, m), rt.aux
 
 
 def silu_ref(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense, hybrid and SSM families (port of
+"""Decoder-only LM of the dense, MoE, hybrid and SSM families (port of
 ``repro/models/lm.py``).
 
 The depth follows ``cfg.stages()``, the remainder stage included: one
@@ -6,7 +6,8 @@ The depth follows ``cfg.stages()``, the remainder stage included: one
 a ``ModuleList``; a Python loop over it takes the place of the
 reference's ``jax.lax.scan`` over stacked parameters.  A block's kind
 picks its mixer: ``attn`` (full attention), ``local_attn`` (windowed,
-``cfg.window_size``), ``rglru`` or ``ssd``.
+``cfg.window_size``), ``rglru`` or ``ssd``; its MLP is the routed
+``MoE`` when ``cfg.is_moe``, else the dense ``MLP``.
 
 Modes of ``LM.forward``:
   train   - causal forward over the whole sequence, (B, S, V_pad) logits;
@@ -17,7 +18,9 @@ Modes of ``LM.forward``:
 Logits come out in f32 (products of the model's dtype accumulated in f32,
 as the reference's ``preferred_element_type``), and the padded vocab
 entries are set to -1e30.  ``loss_fn`` is the next-token mean CE over
-them (these families have no aux term).
+them plus ``aux_coef`` times the MoE layers' aux loss, summed over the
+blocks (``LM.forward_with_aux``; 0 for the other families).  Serving
+ignores the aux.
 
 Parameters: ``LM(cfg, param_dtype=...)`` stores the projections, the
 embedding and the unembedding in ``param_dtype`` (default the config's
@@ -54,6 +57,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP,
     MODES,
+    MoE,
     RGLRU,
     SSD,
     Attention,
@@ -71,11 +75,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def _refuse_unported(cfg: ModelConfig) -> None:
-    """The port's LM runs the dense, hybrid and SSM families; name the
-    ROADMAP item of the rest rather than run something else."""
+    """The port's LM runs the dense, MoE, hybrid and SSM families; name
+    the ROADMAP item of the rest rather than run something else."""
     pending = []
-    if cfg.is_moe:
-        pending.append("MoE MLP: ROADMAP A11-moe")
     if cfg.num_patches:
         pending.append("VLM patch stub: ROADMAP A11-vlm")
     if cfg.is_encoder_decoder:
@@ -91,7 +93,9 @@ ATTENTION_KINDS = ("attn", "local_attn")
 
 class Block(nn.Module):
     """Pre-norm residual block of one ``kind``: ``x + mixer(norm1(x))``,
-    then ``x + mlp(norm2(x))`` when the config has an MLP."""
+    then ``x + mlp(norm2(x))`` when the config has an MLP (the routed
+    ``MoE`` for an MoE config).  ``forward`` returns (x, the block's cache,
+    its aux loss: the MoE's f32 scalar, else None)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device=None, dtype=None):
         super().__init__()
@@ -112,7 +116,7 @@ class Block(nn.Module):
         self.mlp = None
         if cfg.d_ff > 0:
             self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, device=device))
-            self.mlp = MLP(cfg, **kw)
+            self.mlp = MoE(cfg, **kw) if cfg.is_moe else MLP(cfg, **kw)
 
     def forward(self, x, *, positions, mode, cache=None, pos=None, use_kernel=None):
         out, new_cache = self.mixer(
@@ -120,9 +124,13 @@ class Block(nn.Module):
             cache=cache, pos=pos, use_kernel=use_kernel,
         )
         x = x + out
+        aux = None
         if self.mlp is not None:
-            x = x + self.mlp(rms_norm(x, self.norm2, self.eps))
-        return x, new_cache
+            out = self.mlp(rms_norm(x, self.norm2, self.eps))
+            if self.cfg.is_moe:
+                out, aux = out
+            x = x + out
+        return x, new_cache, aux
 
     def init_cache(self, batch: int, cache_len: int) -> dict[str, torch.Tensor]:
         """This block's zero cache for ``batch`` rows and a serving length
@@ -193,6 +201,20 @@ class LM(nn.Module):
         (``kernels.ops.attention``: None = the flash kernel for CUDA
         tensors); train always takes plain attention, decode the plain
         grouped product."""
+        logits, new_cache, _ = self.forward_with_aux(
+            tokens, mode=mode, cache=cache, pos=pos, use_kernel=use_kernel)
+        return logits, new_cache
+
+    def forward_with_aux(
+        self,
+        tokens: torch.Tensor,
+        *,
+        mode: str = "train",
+        cache: Cache | None = None,
+        pos: int | None = None,
+        use_kernel: bool | None = None,
+    ) -> tuple[torch.Tensor, Cache | None, torch.Tensor]:
+        """``forward``, and the blocks' aux losses summed (f32 scalar)."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         cfg = self.cfg
@@ -206,14 +228,17 @@ class LM(nn.Module):
             positions = torch.arange(s, device=x.device)
         new_cache = [] if mode in ("prefill", "decode") else None
         remat = mode == "train" and cfg.remat == "full" and torch.is_grad_enabled()
+        total_aux = None
         for i, blk in enumerate(self.blocks):
             kw = dict(positions=positions, mode=mode,
                       cache=None if cache is None else cache[i], pos=pos,
                       use_kernel=use_kernel)
             if remat:
-                x, c = checkpoint(blk, x, use_reentrant=False, **kw)
+                x, c, aux = checkpoint(blk, x, use_reentrant=False, **kw)
             else:
-                x, c = blk(x, **kw)
+                x, c, aux = blk(x, **kw)
+            if aux is not None:
+                total_aux = aux if total_aux is None else total_aux + aux
             if new_cache is not None:
                 new_cache.append(c)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -224,7 +249,9 @@ class LM(nn.Module):
         logits = x.to(torch.float32) @ w.to(cdt).to(torch.float32)
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = -1e30  # padded entries out of the softmax
-        return logits, new_cache
+        if total_aux is None:
+            total_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, new_cache, total_aux
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
         """Zero cache, one dict per block of its kind (``Block.init_cache``)."""
@@ -264,9 +291,10 @@ def loss_fn(
     model: LM, batch: dict[str, torch.Tensor], *, aux_coef: float = 0.01
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token CE of ``batch`` (tokens (B, S), labels (B, S), optional
-    loss_mask) in f32, and ``{"ce", "aux"}``; the dense family's aux loss
-    is 0, so the loss is the CE (the reference adds ``aux_coef * 0``)."""
-    logits, _ = model(batch["tokens"], mode="train")
+    loss_mask) in f32 plus ``aux_coef`` times the MoE layers' aux loss
+    summed over the blocks, and ``{"ce", "aux"}``.  The aux loss is 0 for
+    the families without MoE layers, so their loss is the CE (the
+    reference adds ``aux_coef * 0``)."""
+    logits, _, aux = model.forward_with_aux(batch["tokens"], mode="train")
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

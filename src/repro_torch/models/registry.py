@@ -10,7 +10,11 @@ the unembedding a standard normal truncated to [-2, 2] times
 1/sqrt(fan_in), drawn in f32 and stored in the model's parameter dtype
 (the config's dtype to serve: the reference stores f32 and casts at every
 use, the same values; f32 master weights to train); a causal conv's fan-in
-is its kernel width K; norm scales zero.  RG-LRU's ``lam`` is
+is its kernel width K; an MoE layer's ``router`` (d, e), ``wi`` and ``wg``
+(e, d, f) have fan-in d and its ``wo`` (e, f, d) fan-in f (the
+reference's ``in_axis=1``), each drawn one leaf at a time on the model's
+device, so a full MoE config is never held in f32; norm scales zero.
+RG-LRU's ``lam`` is
 ``linspace(2.2, 6.9, w)``; SSD's ``a_log`` is ``log(linspace(1, 16, H))``,
 ``dt_bias`` zeros and ``dskip`` ones (``init_rglru`` :468, ``init_ssd``
 :562).  The two frameworks draw different numbers from one seed:
@@ -69,10 +73,15 @@ def init_params(model: LM, generator: torch.Generator) -> LM:
             mix.dskip.fill_(1.0)
         if blk.mlp is not None:
             blk.norm2.zero_()
-            _trunc_normal_(blk.mlp.wi, d, generator)
-            _trunc_normal_(blk.mlp.wo, cfg.d_ff, generator)
-            if blk.mlp.gated:
-                _trunc_normal_(blk.mlp.wg, d, generator)
+            if cfg.is_moe:
+                for p_, fan_in in ((blk.mlp.router, d), (blk.mlp.wi, d),
+                                   (blk.mlp.wg, d), (blk.mlp.wo, cfg.d_ff)):
+                    _trunc_normal_(p_, fan_in, generator)
+            else:
+                _trunc_normal_(blk.mlp.wi, d, generator)
+                _trunc_normal_(blk.mlp.wo, cfg.d_ff, generator)
+                if blk.mlp.gated:
+                    _trunc_normal_(blk.mlp.wg, d, generator)
     return model
 
 

@@ -55,6 +55,12 @@ Recurrent families: the reduced recurrentgemma-2b and mamba2-370m on the
 card against the CPU (f32, 1e-4 at every serving step); a hybrid prefill
 at head_dim 256 launches B8 once per local attention block (8 of 26); the
 RG-LRU doubling scan at S = 4096 against a sequential f64 loop.
+MoE family: the reduced qwen3-moe-30b-a3b and kimi-k2-1t-a32b on the card
+against the CPU in both dispatch forms (f32, 1e-4 at every serving step,
+the same greedy tokens); one MoE layer at qwen3's full width (d_model
+2048, 128 experts top-8, d_ff 768) at (1, 512) tokens on the card against
+the CPU in f32 (the same experts and drops, 1e-5 of the largest output);
+qwen3's 48 blocks at head_dim 64 launch B8 48 times in one prefill.
 """
 
 import copy
@@ -797,6 +803,97 @@ def test_hybrid_prefill_launches_b8_per_local_block(dev):
     assert cache[2]["k"].shape[2] == 128
     lp, _ = model.prefill(prompts, use_kernel=False)
     assert kernels.launch_counts()["flash_attention"] == 8
+    lk, lp = lk[:, :cfg.vocab_size], lp[:, :cfg.vocab_size]
+    assert ((lk - lp).norm() / lp.norm()).item() <= 0.05
+    assert (lk - lp).abs().max().item() <= 0.08 * lp.abs().max().item()
+
+
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_reduced_moe_lm_on_the_card_matches_the_cpu(dev, arch, impl):
+    """A reduced MoE LM (the same seeded weights on both devices) in f32
+    with f32 probabilities and either dispatch form at capacity factor 0.5
+    (so both forms drop pairs): prefill of 40 tokens and 6 decode steps
+    fed the CPU's tokens, logits within 1e-4 of the CPU's and the same
+    greedy token at every step; the prefill launches B8 once per block."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                              attn_probs_bf16=False, moe_impl=impl, capacity_factor=0.5)
+    models = {"cpu": build(cfg, device="cpu", generator=torch.Generator().manual_seed(0))}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to(dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    lc, cc = models["cpu"].prefill(prompts, cache_len=46)
+    lg, cg = models["cuda"].prefill(prompts.to(dev), cache_len=46)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    assert not models["cpu"].blocks[0].mlp.routing(x).keep.all()  # the form drops
+    for i in range(7):
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4, i
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), i
+        if i == 6:
+            break
+        tok = lc.argmax(-1)[:, None]
+        lc, cc = models["cpu"].decode_step(tok, cc, 40 + i)
+        lg, cg = models["cuda"].decode_step(tok.to(dev), cg, 40 + i)
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+
+
+def test_moe_layer_at_full_width_on_the_card_matches_the_cpu(dev):
+    """One MoE layer at qwen3-moe-30b-a3b's width (d_model 2048, 128
+    experts top-8, expert d_ff 768) in f32 at (1, 512) tokens (capacity
+    40): the card and the CPU route the same, drop the same pairs, and
+    agree within 1e-5 of the largest output; the aux loss within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=1,
+                              vocab_size=256, dtype="float32")
+    cpu = build(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).blocks[0].mlp
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(1, 512, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, aux_c = cpu(x)
+        got, aux_g = card(x.to(dev))
+        rc, rg = cpu.routing(x), card.routing(x.to(dev))
+    assert rc.cap == 40
+    assert torch.equal(rg.experts.cpu(), rc.experts)
+    assert torch.equal(rg.keep.cpu(), rc.keep)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert abs(aux_g.item() - aux_c.item()) <= 1e-6
+
+
+def test_moe_prefill_launches_b8_per_block_at_head_dim_64(dev):
+    """qwen3-moe-30b-a3b's 48 blocks at head_dim 64 (d_model 2048, 32/4
+    heads) with narrow experts (16, top-4, d_ff 64) and vocab 1024: one
+    prefill of 300 tokens launches B8 exactly 48 times, and the kernel and
+    plain prefills' last logits agree within chip_smoke.py's serving
+    bars."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_experts=16,
+                              num_experts_per_token=4, d_ff=64, vocab_size=1024)
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    assert model.attention_blocks == 48 and cfg.head_dim == 64
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    kernels.reset_launch_counts()
+    lk, _ = model.prefill(prompts)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 48
+    lp, _ = model.prefill(prompts, use_kernel=False)
+    assert kernels.launch_counts()["flash_attention"] == 48
     lk, lp = lk[:, :cfg.vocab_size], lp[:, :cfg.vocab_size]
     assert ((lk - lp).norm() / lp.norm()).item() <= 0.05
     assert (lk - lp).abs().max().item() <= 0.08 * lp.abs().max().item()

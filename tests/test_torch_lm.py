@@ -230,8 +230,10 @@ def test_module_holds_param_count(arch):
 
 def test_registry_knows_every_arch_and_refuses_unported():
     assert set(ARCHS) == set(REF_ARCHS)
-    # The dense family here; the hybrid and SSM archs in test_torch_recurrent.py.
-    ported = set(DENSE) | {"recurrentgemma-2b", "mamba2-370m"}
+    # The dense family here; the MoE archs in test_torch_moe.py, the hybrid
+    # and SSM archs in test_torch_recurrent.py.
+    ported = set(DENSE) | {"qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                           "recurrentgemma-2b", "mamba2-370m"}
     for arch in sorted(set(ARCHS) - ported):
         for get in (get_config, get_reduced_config):
             with pytest.raises(NotImplementedError, match=r"ROADMAP A11-"):
@@ -262,8 +264,7 @@ def test_unported_model_pieces_are_refused():
     from repro_torch.models.lm import LM
 
     cfg = get_reduced_config("llama3.2-3b")
-    for overrides, item in (({"num_experts": 4, "num_experts_per_token": 2}, "A11-moe"),
-                            ({"num_patches": 4}, "A11-vlm"),
+    for overrides, item in (({"num_patches": 4}, "A11-vlm"),
                             ({"is_encoder_decoder": True, "num_encoder_layers": 2},
                              "A11-whisper")):
         with pytest.raises(NotImplementedError, match=item):
@@ -311,11 +312,23 @@ def test_cli_serves_on_cpu():
 
 @pytest.mark.parametrize("args,needle", [
     (("--arch", "internvl2-2b", "--device", "cpu"), "ROADMAP A11-vlm"),
-    (("--arch", "qwen3-moe-30b-a3b", "--device", "cpu"), "ROADMAP A11-moe"),
-    (("--arch", "kimi-k2-1t-a32b", "--device", "cpu"), "ROADMAP A11-moe"),
     (("--arch", "whisper-tiny", "--device", "cpu"), "ROADMAP A11-whisper"),
 ])
 def test_cli_refuses_unported(args, needle):
     proc = _cli(*args)
     assert proc.returncode == 2
     assert needle in proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_cli_serves_moe_on_cpu(arch):
+    """The MoE archs, once refused here, serve at their reduced configs."""
+    proc = _cli("--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "24",
+                "--gen", "3")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "generated token matrix: (2, 3)"
+    stats = dict(line.split(": ", 1) for line in lines[2:])
+    assert stats["config"].startswith(f"{arch} layers=2")
+    assert stats["attention_blocks"] == "2"
+    assert stats["flash_launches_prefill"] == "0"
