@@ -151,6 +151,17 @@ of JAX or of the reference package.  Phases, each ending in
    step); T4 runs the train launcher
    in its own process, preempted at step 5 and resumed from its
    checkpoint, against the straight run, both deterministic.
+   Then the recurrent training lanes (``recurrent_train_lanes``, on
+   ``[train-recur]`` lines; constants R1_* .. R2_*): R1 trains
+   recurrentgemma-2b (26 blocks, 3.55 B parameters) and mamba2-370m (48
+   blocks, a tied embedding) at their full configs with T1's AdamW
+   traffic and checks, and no kernel launched (train mode takes plain
+   attention); R1c holds each family's reduced config, 3 AdamW steps on
+   the card against the CPU; B2 and B4 are held at R2's refresh shapes
+   (leading dims 256000, 7680, 2560, 50432, 2048, 1024); R2 runs the
+   eigen trainer as T2 does on mamba2 whole and on the hybrid at 11 of
+   its blocks (one B2 and one B4 a compressed leaf a refresh, exactly;
+   the words a step; the error feedback's bytes).
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
@@ -187,7 +198,8 @@ and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
 decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``
 and ``qwen3-moe-30b-a3b``, then one T1 train step after a
-warm-up step: it prints each run's wall time, the device's busy share
+warm-up step, and one R1 step of recurrentgemma-2b and of mamba2-370m:
+it prints each run's wall time, the device's busy share
 and the kernels that took the most device time.  ``--rank K`` and
 ``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
 
@@ -1288,6 +1300,20 @@ T4_DETERMINISTIC = (
     "import runpy, sys, torch; torch.use_deterministic_algorithms(True); "
     "sys.argv[0] = 'repro_torch.launch.train'; "
     "runpy.run_module('repro_torch.launch.train', run_name='__main__')")
+# R1-R2: training the recurrent families (ROADMAP A11-hybrid-train,
+# A11-ssm-train), after T1-T4.  R1: AdamW at each family's full config
+# (recurrentgemma-2b: 26 blocks, 18 RG-LRU and 8 local attention at window
+# 2048, untied embeddings; mamba2-370m: 48 SSD blocks, a tied embedding)
+# with T1's traffic, steps, lr and checks, uncut.  R1c: each family's
+# reduced config in f32, T1c's steps and bars, card vs CPU.  R2: the eigen
+# trainer stacked with T2's shards, rank, refresh and steps: mamba2-370m at
+# its full config, recurrentgemma-2b at full width and R2_HYBRID_LAYERS
+# blocks (3 k + 2: both stages and 3 local attention blocks; its 26 blocks
+# would need ~57 GB of error feedback alone, the cut T2 makes for llama).
+# B2 and B4 are first held at R2's refresh shapes, R2_REFRESH_DS.
+RECUR_TRAIN = ("recurrentgemma-2b", "mamba2-370m")
+R2_HYBRID_LAYERS = 11
+R2_REFRESH_DS = (256000, 7680, 2560, 50432, 2048, 1024)
 
 
 def train_cfg(layers=None, **kw):
@@ -1475,16 +1501,16 @@ def run_train_ranks(out: str) -> None:
     require(not bad, f"train rank workers failed: {bad}")
 
 
-def hold_refresh_shapes(torch, dev) -> None:
-    """B2 and B4 at the shapes T2's refreshes give them (4 shards, rank
-    32: d = 128256 for the embedding, 8192 and 3072 for the layers'
-    matrices) against their plain versions, with the f32 sum bar; these
-    launches are comparisons and count for no lane."""
+def hold_refresh_shapes(torch, dev, ds=(128256, 8192, 3072)) -> None:
+    """B2 and B4 at the shapes an eigen refresh gives them (4 shards, rank
+    32, leading dims ``ds``: T2's are 128256 for the embedding, 8192 and
+    3072 for the layers' matrices) against their plain versions, with the
+    f32 sum bar; these launches are comparisons and count for no lane."""
     from repro_torch.kernels import procrustes_align as pa
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for d in (128256, 8192, 3072):
+    for d in ds:
         vs = noisy_stack(torch, gen, T2_SHARDS, d, T2_RANK, dev)
         rf = vs[0].contiguous()
         g_want = ref.batched_gram(vs, rf)
@@ -1501,91 +1527,100 @@ def hold_refresh_shapes(torch, dev) -> None:
                 f"B2/B4 disagree with their plain versions at ({T2_SHARDS}, {d}, {T2_RANK})")
 
 
-def train_lanes(torch, dev, launches: dict) -> dict:
-    """T1-T4 (see the constants above).  Adds the lanes' kernel launches to
-    ``launches``; returns the numbers PERF.md reports."""
+def free_card(torch) -> int:
+    """Release the last lane's tensors and restart the peak count; returns
+    the bytes still allocated (the earlier phases' tensors), which a
+    lane's own peak leaves out."""
     import gc
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def device_batch(torch, pipe, step, where) -> dict:
+    return {k: torch.from_numpy(v).to(where, torch.long) for k, v in pipe.batch(step).items()}
+
+
+def adamw_lane(torch, dev, cfg, batch: int) -> dict:
+    """T1's AdamW run of ``cfg`` (f32 master weights from the seeded
+    generator, T1_STEPS steps of ``batch`` x T1_SEQ tokens, T1's
+    schedule), each step timed to a synchronise, its launches counted.
+    Checks nothing; returns the numbers."""
     from repro_torch import kernels
-    from repro_torch.configs import get_reduced_config
-    from repro_torch.core.metrics import subspace_dist64
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.launch import train as train_mod
-    from repro_torch.launch.steps import compressed_paths, make_train_step
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build
-    from repro_torch.optim import EigenCompressConfig
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
-    from repro_torch.optim.schedule import constant, warmup_cosine
+    from repro_torch.optim.schedule import warmup_cosine
 
-    out = {}
-
-    def batch_at(pipe, step, where):
-        return {k: torch.from_numpy(v).to(where, torch.long)
-                for k, v in pipe.batch(step).items()}
-
-    def free() -> int:
-        """Release this lane's tensors and restart the peak count; returns
-        the bytes still allocated (the earlier phases' tensors), which a
-        lane's own peak leaves out."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
-
-    # T1: AdamW at the full config.
-    held = free()
-    cfg = train_cfg()
+    held = free_card(torch)
     t0 = time.perf_counter()
     model = build(cfg, device=dev, param_dtype=torch.float32,
                   generator=torch.Generator(device=dev).manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    params = dict(model.named_parameters())
-    opt = adamw_init(params)
+    opt = adamw_init(dict(model.named_parameters()))
     step_fn = make_train_step(model, adamw_cfg=AdamWConfig(),
                               schedule=warmup_cosine(T1_LR, T1_WARMUP, T1_STEPS))
-    pipe = TokenPipeline(cfg.vocab_size, T1_SEQ, T1_BATCH, seed=SEED)
+    pipe = TokenPipeline(cfg.vocab_size, T1_SEQ, batch, seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
-    losses, step_ms, metrics = [], [], []
+    losses, step_ms, norms, skipped = [], [], [], 0
     for s in range(T1_STEPS):
-        b = batch_at(pipe, s, dev)
+        b = device_batch(torch, pipe, s, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step_fn(opt, b)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-        metrics.append(m)
+        norms.append(m["grad_norm"])
+        skipped += int(m["step_skipped"])
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() - held
     ms = sum(step_ms[1:]) / (len(step_ms) - 1)
-    toks = T1_BATCH * T1_SEQ / (ms / 1e3)
-    print(f"[train] T1 {cfg.name} full config (layers {cfg.num_layers}, d_model "
+    return {"params": n_params, "init_s": init_s, "step_ms": step_ms, "ms": ms,
+            "tokens_s": batch * T1_SEQ / (ms / 1e3), "peak_gb": peak / 1e9,
+            "held_gb": held / 1e9, "losses": losses, "norms": norms, "skipped": skipped,
+            "counts": counts, "batch": batch}
+
+
+def print_adamw(label, cfg, r) -> None:
+    print(f"[{label} {cfg.name} full config (layers {cfg.num_layers}, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, remat {cfg.remat}, compute "
-          f"{cfg.dtype}, f32 master weights): {n_params} parameters, batch {T1_BATCH} x "
+          f"{cfg.dtype}, f32 master weights): {r['params']} parameters, batch {r['batch']} x "
           f"{T1_SEQ} tokens, AdamW, {T1_STEPS} steps, warmup {T1_WARMUP}: init "
-          f"{init_s:.2f} s, step 0 {step_ms[0]:.1f} ms, ms/step after step 0 {ms:.2f} "
-          f"(each {[round(x, 1) for x in step_ms[1:]]}), {toks:.0f} tokens/s, peak "
-          f"memory {peak / 1e9:.2f} GB (max_memory_allocated less the {held / 1e9:.2f} GB "
-          f"the earlier phases hold), launches "
-          f"{ {k: c for k, c in counts.items() if c} }")
-    print(f"[train] T1 losses {[round(x, 4) for x in losses]}, grad norms "
-          f"{[round(x['grad_norm'], 3) for x in metrics]}, skipped "
-          f"{sum(x['step_skipped'] for x in metrics)}")
-    require(all(math.isfinite(x) for x in losses), "T1: a loss is not finite")
-    require(not any(x["step_skipped"] for x in metrics), "T1: a step was skipped")
-    require(sum(losses[-2:]) / 2 < losses[0], f"T1: the loss did not fall: {losses}")
-    out["t1"] = {"params": n_params, "peak_gb": peak / 1e9, "ms": ms, "tokens_s": toks,
-                 "losses": losses}
-    del model, params, opt, step_fn, metrics, m, b
-    free()
+          f"{r['init_s']:.2f} s, step 0 {r['step_ms'][0]:.1f} ms, ms/step after step 0 "
+          f"{r['ms']:.2f} (each {[round(x, 1) for x in r['step_ms'][1:]]}), "
+          f"{r['tokens_s']:.0f} tokens/s, peak memory {r['peak_gb']:.2f} GB "
+          f"(max_memory_allocated less the {r['held_gb']:.2f} GB the earlier phases hold), "
+          f"launches { {k: c for k, c in r['counts'].items() if c} }")
+    print(f"[{label} losses {[round(x, 4) for x in r['losses']]}, grad norms "
+          f"{[round(x, 3) for x in r['norms']]}, skipped {r['skipped']}")
 
-    # T1c: the same AdamW steps on the card and on the CPU.
-    import dataclasses
 
-    small = dataclasses.replace(get_reduced_config("granite-3-2b"), dtype="float32",
-                                attn_probs_bf16=False)
+def require_adamw(label, r) -> None:
+    """T1's checks: finite losses, no skipped step, the mean of the last
+    two losses below the first."""
+    losses = r["losses"]
+    require(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite")
+    require(not r["skipped"], f"{label}: a step was skipped")
+    require(sum(losses[-2:]) / 2 < losses[0], f"{label}: the loss did not fall: {losses}")
+
+
+def card_vs_cpu(torch, dev, small) -> tuple:
+    """T1c: T1C_STEPS AdamW steps of the reduced config ``small`` on the
+    CPU and on the card from the same parameters and batches (4 x 32
+    tokens).  Returns (worst relative loss gap, worst parameter relative
+    L2, card losses, CPU losses)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedule import constant
+
     runs = {}
     for where in ("cpu", dev):
         model = build(small, device="cpu", param_dtype=torch.float32,
@@ -1594,69 +1629,111 @@ def train_lanes(torch, dev, launches: dict) -> dict:
         opt = adamw_init(params)
         step_fn = make_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1C_LR))
         pipe = TokenPipeline(small.vocab_size, 32, 4, seed=SEED)
-        ls = [float(step_fn(opt, batch_at(pipe, s, where))["loss"]) for s in range(T1C_STEPS)]
+        ls = [float(step_fn(opt, device_batch(torch, pipe, s, where))["loss"])
+              for s in range(T1C_STEPS)]
         runs[str(where)] = (ls, {k: p.detach().cpu() for k, p in params.items()})
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
     par_err = max(((pc[k] - pg[k]).norm() / pc[k].norm()).item() for k in pc)
-    print(f"[train] T1c {small.name} reduced f32, {T1C_STEPS} AdamW steps, card vs CPU: "
-          f"losses {[round(x, 6) for x in lg]} vs {[round(x, 6) for x in lc]}, worst "
-          f"relative loss gap {loss_err:.2e} (bar {T1C_LOSS}), worst parameter rel L2 "
-          f"{par_err:.2e} (bar {T1C_PARAM})")
-    require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM, "T1c: card and CPU disagree")
-    del runs, model, params, opt, step_fn
-    free()
+    return loss_err, par_err, lg, lc
 
-    # T2: the eigen trainer stacked, 16 layers at full width; first B2 and
-    # B4 at its refresh shapes against their plain versions.
-    hold_refresh_shapes(torch, dev)
-    held = free()
-    cfg2 = train_cfg(T2_LAYERS)
-    ecfg = EigenCompressConfig(rank=T2_RANK, min_dim=64)
-    comp = compressed_paths(cfg2, ecfg)
+
+def eigen_lane(torch, dev, cfg) -> dict:
+    """T2's eigen trainer run of ``cfg``: ``launch.train.train`` stacked on
+    T2_SHARDS shards, rank T2_RANK, min_dim 64, a refresh every
+    T2_REFRESH of T2_STEPS steps, T1's traffic; returns the numbers and
+    the launches (one B2 and one B4 a compressed leaf a refresh
+    expected)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import compressed_paths
+    from repro_torch.optim import EigenCompressConfig
+
+    held = free_card(torch)
+    comp = compressed_paths(cfg, EigenCompressConfig(rank=T2_RANK, min_dim=64))
     refreshes = len(range(0, T2_STEPS, T2_REFRESH))
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, opt, losses = train_mod.train(
-        cfg2, steps=T2_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR, warmup=T1_WARMUP,
+        cfg, steps=T2_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR, warmup=T1_WARMUP,
         eigen=True, eigen_rank=T2_RANK, eigen_refresh=T2_REFRESH, device=dev,
         shards=T2_SHARDS, seed=SEED, log_every=10 ** 9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() - held
-    n_params = sum(p.numel() for p in model.parameters())
-    low = sum(min(T2_RANK, d, n) * n for d, n in comp.values())
-    full = sum(d * n for d, n in comp.values())
-    other = sum(p.numel() for k, p in model.named_parameters() if k not in comp)
-    err_bytes = sum(st["err"].numel() * 4 for st in opt["eigen"].values())
-    want = expected_counts({"batched_gram": len(comp) * refreshes,
-                            "align_average": len(comp) * refreshes})
-    print(f"[train] T2 eigen stacked, {cfg2.name} at {T2_LAYERS} of 28 layers, full width "
-          f"({n_params} parameters), {T2_SHARDS} shards of {T1_BATCH // T2_SHARDS} x "
-          f"{T1_SEQ} tokens, rank {T2_RANK}, min_dim 64, refresh every {T2_REFRESH}, "
-          f"{T2_STEPS} steps: wall {wall:.2f} s, {len(comp)} compressed leaves, "
-          f"launches { {k: c for k, c in counts.items() if c} } (expected one B2 and one "
-          f"B4 a compressed leaf a refresh: {len(comp)} x {refreshes}), all-reduce words "
-          f"a step: compressed {low} (sum r n) against {full} (sum d n, {full / low:.1f}x), "
-          f"plus {other} uncompressed and 1 loss; err {err_bytes / 1e9:.2f} GB; peak memory "
-          f"{peak / 1e9:.2f} GB (less the earlier phases' {held / 1e9:.2f} GB); losses "
-          f"{[round(x, 4) for x in losses]}")
-    require(all(math.isfinite(x) for x in losses), "T2: a loss is not finite")
-    require(counts == want, f"T2: launches {counts}, expected {want}")
+    return {
+        "wall": wall, "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+        "held_gb": held / 1e9, "params": sum(p.numel() for p in model.parameters()),
+        "low": sum(min(T2_RANK, d, n) * n for d, n in comp.values()),
+        "full": sum(d * n for d, n in comp.values()),
+        "other": sum(p.numel() for k, p in model.named_parameters() if k not in comp),
+        "err_gb": sum(st["err"].numel() * 4 for st in opt["eigen"].values()) / 1e9,
+        "leaves": len(comp), "refreshes": refreshes, "losses": losses, "counts": counts,
+        "want": expected_counts({"batched_gram": len(comp) * refreshes,
+                                 "align_average": len(comp) * refreshes})}
+
+
+def print_eigen(label, cfg, depth, r) -> None:
+    print(f"[{label} eigen stacked, {cfg.name} at {depth}, full width ({r['params']} "
+          f"parameters), {T2_SHARDS} shards of {T1_BATCH // T2_SHARDS} x {T1_SEQ} tokens, "
+          f"rank {T2_RANK}, min_dim 64, refresh every {T2_REFRESH}, {T2_STEPS} steps: wall "
+          f"{r['wall']:.2f} s, {r['leaves']} compressed leaves, launches "
+          f"{ {k: c for k, c in r['counts'].items() if c} } (expected one B2 and one B4 a "
+          f"compressed leaf a refresh: {r['leaves']} x {r['refreshes']}), all-reduce words a "
+          f"step: compressed {r['low']} (sum r n) against {r['full']} (sum d n, "
+          f"{r['full'] / r['low']:.1f}x), plus {r['other']} uncompressed and 1 loss; err "
+          f"{r['err_gb']:.2f} GB; peak memory {r['peak_gb']:.2f} GB (less the earlier "
+          f"phases' {r['held_gb']:.2f} GB); losses {[round(x, 4) for x in r['losses']]}")
+
+
+def train_lanes(torch, dev, launches: dict) -> None:
+    """T1-T4 (see the constants above).  Adds the lanes' kernel launches to
+    ``launches``."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.metrics import subspace_dist64
+    from repro_torch.launch.steps import compressed_paths
+    from repro_torch.optim import EigenCompressConfig
+
+
+    # T1: AdamW at the full config.
+    cfg = train_cfg()
+    r = adamw_lane(torch, dev, cfg, T1_BATCH)
+    print_adamw("train] T1", cfg, r)
+    require_adamw("T1", r)
+    free_card(torch)
+
+    # T1c: the same AdamW steps on the card and on the CPU.
+    small = dataclasses.replace(get_reduced_config("granite-3-2b"), dtype="float32",
+                                attn_probs_bf16=False)
+    loss_err, par_err, lg, lc = card_vs_cpu(torch, dev, small)
+    print(f"[train] T1c {small.name} reduced f32, {T1C_STEPS} AdamW steps, card vs CPU: "
+          f"losses {[round(x, 6) for x in lg]} vs {[round(x, 6) for x in lc]}, worst "
+          f"relative loss gap {loss_err:.2e} (bar {T1C_LOSS}), worst parameter rel L2 "
+          f"{par_err:.2e} (bar {T1C_PARAM})")
+    require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM, "T1c: card and CPU disagree")
+    free_card(torch)
+
+    # T2: the eigen trainer stacked, 16 layers at full width; first B2 and
+    # B4 at its refresh shapes against their plain versions.
+    hold_refresh_shapes(torch, dev)
+    cfg2 = train_cfg(T2_LAYERS)
+    r = eigen_lane(torch, dev, cfg2)
+    print_eigen("train] T2", cfg2, f"{T2_LAYERS} of 28 layers", r)
+    require(all(math.isfinite(x) for x in r["losses"]), "T2: a loss is not finite")
+    require(r["counts"] == r["want"], f"T2: launches {r['counts']}, expected {r['want']}")
     for k in KERNELS:
-        launches[k] += counts[k]
-    out["t2"] = {"wall": wall, "peak_gb": peak / 1e9, "low": low, "full": full,
-                 "other": other, "err_gb": err_bytes / 1e9, "leaves": len(comp),
-                 "launches": counts}
-    del model, opt
-    free()
+        launches[k] += r["counts"][k]
+    ecfg = EigenCompressConfig(rank=T2_RANK, min_dim=64)
+    free_card(torch)
 
     # T3: the eigen trainer in a rank world against itself stacked, each
     # shard its own rows: the stacked run first, then the ranks, which take
     # its embedding refreshes.
-    free()
+    free_card(torch)
     kernels.reset_launch_counts()
     probes = []
     losses, seen, opt, model = t3_run(torch, dev, probes=probes)
@@ -1666,7 +1743,7 @@ def train_lanes(torch, dev, launches: dict) -> dict:
     other3 = sum(p.numel() for k, p in model.named_parameters() if k not in comp3)
     stacked_state = [t3_state(torch, opt, shard=k) for k in range(T3_RANKS)]
     del model, opt
-    free()
+    free_card(torch)
     with tempfile.TemporaryDirectory() as tmp:
         torch.save([{ILL_POSED: {f: k[ILL_POSED][f] for f in ("basis", "m", "v")}}
                     for k in seen], os.path.join(tmp, "t3-force.pt"))
@@ -1722,10 +1799,8 @@ def train_lanes(torch, dev, launches: dict) -> dict:
             f"T3 ranks: launches {r_counts}")
     for k in KERNELS:
         launches[k] += counts[k] + r_counts[k]
-    out["t3"] = {"loss_gap": loss_gap, "sds": sds, "ratios": ratios, "state": state_gap,
-                 "handed": want_bytes}
     del seen, reps, stacked_state
-    free()
+    free_card(torch)
 
     # T4: the launcher, preempted and resumed, against the straight run.
     finals = {}
@@ -1753,19 +1828,67 @@ def train_lanes(torch, dev, launches: dict) -> dict:
     print(f"[train] T4 resume after preemption at step {T4_FAIL}: final loss gap {gap:.2e} "
           f"(bar {T4_BAR})")
     require(gap <= T4_BAR, f"T4: final losses {finals}")
-    out["t4"] = {"gap": gap}
-    return out
 
 
-def profile_training(torch, dev) -> None:
-    """T1's train step under torch.profiler, after a warm-up step."""
+def recurrent_train_lanes(torch, dev, launches: dict) -> None:
+    """R1, R1c and R2 (see the constants above), on ``[train-recur]``
+    lines.  Adds R2's kernel launches to ``launches``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_reduced_config
+
+    # R1: AdamW at each family's full config, uncut.
+    for arch in RECUR_TRAIN:
+        cfg = get_config(arch)
+        r = adamw_lane(torch, dev, cfg, T1_BATCH)
+        print_adamw("train-recur] R1", cfg, r)
+        require_adamw(f"R1 {arch}", r)
+        require(not any(r["counts"].values()),
+                f"R1 {arch}: kernels launched in training: {r['counts']}")
+        free_card(torch)
+
+    # R1c: each family's reduced config in f32, card vs CPU.
+    for arch in RECUR_TRAIN:
+        small = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                                    attn_probs_bf16=False)
+        loss_err, par_err, lg, lc = card_vs_cpu(torch, dev, small)
+        print(f"[train-recur] R1c {small.name} reduced f32, {T1C_STEPS} AdamW steps, card vs "
+              f"CPU: losses {[round(x, 6) for x in lg]} vs {[round(x, 6) for x in lc]}, worst "
+              f"relative loss gap {loss_err:.2e} (bar {T1C_LOSS}), worst parameter rel L2 "
+              f"{par_err:.2e} (bar {T1C_PARAM})")
+        require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM,
+                f"R1c {arch}: card and CPU disagree")
+    free_card(torch)
+
+    # R2: the eigen trainer stacked; first B2 and B4 at its refresh shapes.
+    hold_refresh_shapes(torch, dev, R2_REFRESH_DS)
+    for arch in RECUR_TRAIN:
+        cfg = get_config(arch)
+        depth = f"its {cfg.num_layers} blocks"
+        if cfg.family == "hybrid":
+            depth = f"{R2_HYBRID_LAYERS} of its {cfg.num_layers} blocks"
+            cfg = dataclasses.replace(cfg, num_layers=R2_HYBRID_LAYERS)
+        r = eigen_lane(torch, dev, cfg)
+        print_eigen("train-recur] R2", cfg, depth, r)
+        require(all(math.isfinite(x) for x in r["losses"]), f"R2 {arch}: a loss is not finite")
+        require(r["counts"] == r["want"], f"R2 {arch}: launches {r['counts']}, expected "
+                                          f"{r['want']}")
+        for k in KERNELS:
+            launches[k] += r["counts"][k]
+        free_card(torch)
+
+
+def profile_training(torch, dev, cfg=None) -> None:
+    """One AdamW train step of ``cfg`` (T1's, llama3.2-3b's full config, by
+    default) with T1's traffic under torch.profiler, after a warm-up
+    step."""
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.optim.schedule import constant
 
-    cfg = train_cfg()
+    cfg = cfg or train_cfg()
     model = build(cfg, device=dev, param_dtype=torch.float32,
                   generator=torch.Generator(device=dev).manual_seed(SEED))
     opt = adamw_init(dict(model.named_parameters()))
@@ -1893,6 +2016,11 @@ def main(argv=None) -> int:
         profile_serving(torch, dev, MOE_ARCH, top=24)
         torch.cuda.empty_cache()
         profile_training(torch, dev)
+        from repro_torch.configs import get_config
+
+        for arch in RECUR_TRAIN:
+            free_card(torch)
+            profile_training(torch, dev, get_config(arch))
         return 0
 
     # -- phase 2: each kernel against its plain version --------------------
@@ -2854,6 +2982,11 @@ def main(argv=None) -> int:
     # tensors that phase 4 times (a few GB); each lane's peak leaves them out.
     train_lanes(torch, dev, launches)
     torch.cuda.synchronize()
+    # Training the recurrent families (R1, R1c, R2).
+    t0 = time.perf_counter()
+    recurrent_train_lanes(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[train-recur] R1, R1c and R2 in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: times at the main path's shapes ---------------------------
     def time_ms(fn, reps):

@@ -230,8 +230,11 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
 def decays(cfg):
     """The weight-decay rule for the LM of ``cfg``: ``decays(name, p)`` is
     True when the reference's leaf has two or more dimensions (the
-    reference's ``p.ndim >= 2``): every per-block leaf, norms included
-    (stacked (L, d) there), and the embeddings; not ``final_norm``."""
+    reference's ``p.ndim >= 2``): every per-block leaf, norms and the
+    recurrent mixers' vectors included (RG-LRU's ``lam`` and SSD's
+    ``a_log``, ``dt_bias``, ``dskip`` are stacked (L, w) / (L, H) there,
+    even where a stage has L = 1), and the embeddings; not
+    ``final_norm``."""
     leaves = reference_leaves(cfg)
     return lambda name, p=None: len(leaves[name].shape) >= 2
 

@@ -27,10 +27,12 @@ compressed leaf, as the reference's.  Weight decay of the other leaves
 and compressibility follow the reference's leaf (``interop.decays``,
 ``compressed_paths``).
 
-The steps train the dense family.  The MoE, hybrid and SSM families
-serve but do not train yet (``refuse_untrained``): their gradients
-through the routing and the scans have not been held against the
-reference's.
+The steps train the dense, hybrid (RG-LRU + local attention) and SSM
+(Mamba2 SSD) families, whose gradients through the causal conv, the
+scans and the tied embedding are held against the reference's.  The MoE
+family serves but does not train yet (``refuse_untrained``, ROADMAP
+A11-moe-train): its gradient through the routing has not been held
+against the reference's.
 """
 
 from __future__ import annotations
@@ -68,8 +70,7 @@ __all__ = [
 Batch = Dict[str, torch.Tensor]
 
 # Families the port serves but does not train yet -> the ROADMAP item.
-_UNTRAINED = {"moe": "A11-moe-train", "hybrid": "A11-hybrid-train",
-              "ssm": "A11-ssm-train"}
+_UNTRAINED = {"moe": "A11-moe-train"}
 
 
 def refuse_untrained(cfg) -> None:

@@ -18,13 +18,14 @@ seeded ``TokenPipeline``.  One process holds ``--shards`` data-parallel
 shards stacked; under ``torchrun`` each rank is one shard
 (``launch.mesh.make_aggregation_mesh``) and takes its rows of the global
 batch.  Runs on the card unless ``--device cpu``; without a card it
-refuses to start.  The MoE, hybrid and SSM families are refused
-(``launch.steps.refuse_untrained``, ROADMAP A11-moe-train,
-A11-hybrid-train / A11-ssm-train).  Examples::
+refuses to start.  The dense, hybrid and SSM families train; the MoE
+family is refused (``launch.steps.refuse_untrained``, ROADMAP
+A11-moe-train).  Examples::
 
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8 \\
         --eigen --shards 4
+    python -m repro_torch.launch.train --device cpu --arch mamba2-370m --steps 8 --eigen
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
         --arch granite-3-2b --steps 8 --eigen
 """

@@ -495,7 +495,7 @@ class RGLRU(nn.Module):
         if mode == "decode":
             hs = (a[:, 0] * h0 + b_in[:, 0])[:, None]
         else:
-            if h0 is not None:
+            if h0 is not None:  # prefill's cache: no autograd there (LM.prefill)
                 b_in[:, 0] += a[:, 0] * h0
             hs = doubling_scan(a, b_in)
         y = hs.to(cdt) * gelu_tanh_ref(gate)

@@ -17,10 +17,12 @@ Modes of ``LM.forward``:
 
 Logits come out in f32 (products of the model's dtype accumulated in f32,
 as the reference's ``preferred_element_type``), and the padded vocab
-entries are set to -1e30.  ``loss_fn`` is the next-token mean CE over
-them plus ``aux_coef`` times the MoE layers' aux loss, summed over the
-blocks (``LM.forward_with_aux``; 0 for the other families).  Serving
-ignores the aux.
+entries are set to -1e30.  A tied config (mamba2) unembeds with
+``embed.T``: autograd sums the gather's gradient and the unembedding's
+into the one leaf, as the reference's ``jax.grad`` does.  ``loss_fn`` is
+the next-token mean CE over them plus ``aux_coef`` times the MoE layers'
+aux loss, summed over the blocks (``LM.forward_with_aux``; 0 for the
+other families).  Serving ignores the aux.
 
 Parameters: ``LM(cfg, param_dtype=...)`` stores the projections, the
 embedding and the unembedding in ``param_dtype`` (default the config's

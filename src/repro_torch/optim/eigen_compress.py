@@ -83,7 +83,11 @@ def init_state(d: int, n: int, cfg: EigenCompressConfig, *, err_lead: tuple = ()
     """Low-rank state of one compressed (d, n) leaf: basis (d, r), Adam
     moments (r, n), the error feedback (``err_lead`` + (d, n): the shard
     axis in the stacked form, none in the collective one) and
-    ``initialized``, with r = min(rank, d, n)."""
+    ``initialized``, with r = min(rank, d, n).  At r = n (a leaf no wider
+    than the rank, such as mamba2's ``wdt`` (d, heads)) the basis spans
+    every column the gradient has, so the compression loses nothing and
+    the error feedback stays at rounding level; ``_local_basis``'s QR
+    keeps r orthonormal columns when a shard's gradient has lower rank."""
     r = min(cfg.rank, d, n)
     kw = dict(dtype=torch.float32, device=device)
     return {

@@ -157,12 +157,29 @@ def test_async_save_holds_its_steps_state(tmp_path, monkeypatch):
             assert torch.equal(v, want[k]), k
 
 
-@pytest.mark.parametrize("kw", [{}, {"eigen": True, "eigen_rank": 8, "eigen_refresh": 2,
-                                     "shards": 4}], ids=["baseline", "eigen-stacked"])
-def test_resume_after_preemption_reproduces_the_run(tmp_path, kw):
-    _, _, straight = train("granite-3-2b", checkpoint_dir=str(tmp_path / "a"),
+EIGEN_STACKED = {"eigen": True, "eigen_rank": 8, "eigen_refresh": 2, "shards": 4}
+
+
+@pytest.fixture
+def one_thread():
+    """The reduced shapes are tiny: one intra-op thread, so that the
+    suite's other workers' threads do not stall these many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("arch,kw", [("granite-3-2b", {}), ("granite-3-2b", EIGEN_STACKED),
+                                     ("mamba2-370m", EIGEN_STACKED)],
+                         ids=["baseline", "eigen-stacked", "mamba2-eigen-stacked"])
+def test_resume_after_preemption_reproduces_the_run(tmp_path, arch, kw, one_thread):
+    """Preempted at step 5, resumed from the step-4 checkpoint, the run
+    ends at the straight run's loss: the dense family and the SSM family
+    (the tied embedding's error feedback, the SSD leaves' moments)."""
+    _, _, straight = train(arch, checkpoint_dir=str(tmp_path / "a"),
                            checkpoint_every=2, **TRAIN, **kw)
-    _, opt, crashed = train("granite-3-2b", checkpoint_dir=str(tmp_path / "b"),
+    _, opt, crashed = train(arch, checkpoint_dir=str(tmp_path / "b"),
                             checkpoint_every=2, fail_at=(5,), **TRAIN, **kw)
     # the crashed run redoes steps 4 and 5 from its step-4 checkpoint
     assert len(crashed) == len(straight) + 1

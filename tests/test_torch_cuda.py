@@ -55,6 +55,11 @@ Recurrent families: the reduced recurrentgemma-2b and mamba2-370m on the
 card against the CPU (f32, 1e-4 at every serving step); a hybrid prefill
 at head_dim 256 launches B8 once per local attention block (8 of 26); the
 RG-LRU doubling scan at S = 4096 against a sequential f64 loop.
+Training them (A11-hybrid-train, A11-ssm-train): one full-width RG-LRU,
+local attention (past its 2048 window) and SSD block in train mode at
+S = 4096, f32, every gradient on the card within 1e-4 relative L2 of the
+CPU's; the doubling scan's gradient at S = 4096 against the sequential
+f64 loop's within 1e-5.
 MoE family: the reduced qwen3-moe-30b-a3b and kimi-k2-1t-a32b on the card
 against the CPU in both dispatch forms (f32, 1e-4 at every serving step,
 the same greedy tokens); one MoE layer at qwen3's full width (d_model
@@ -1321,3 +1326,69 @@ def test_eigen_refresh_on_the_card_launches_b2_and_b4_per_leaf(dev):
         errs[n] = (grad, loc, ref)
     bad = {n: e for n, e in errs.items() if not (e[0] <= 1e-4 and e[1] <= 1 and e[2] <= 1)}
     assert not bad, f"(grad rel L2, local basis / bar, refreshed basis / bar): {bad}"
+
+
+def _full_block(arch, kind):
+    """One block of ``arch``'s full config (its full width) in f32 with f32
+    probabilities, as a one-block LM with a small vocab (the embeddings
+    are not part of the block), weights from a seeded generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1, block_pattern=(kind,),
+                              vocab_size=512, dtype="float32", attn_probs_bf16=False)
+    return build(cfg, device="cpu", param_dtype=torch.float32,
+                 generator=torch.Generator().manual_seed(0)).blocks[0]
+
+
+@pytest.mark.parametrize("arch,kind", [("recurrentgemma-2b", "rglru"),
+                                       ("recurrentgemma-2b", "local_attn"),
+                                       ("mamba2-370m", "ssd")])
+def test_recurrent_block_gradient_at_full_width_on_the_card_matches_the_cpu(dev, arch, kind):
+    """Train mode through one full-width block at S = 4096, f32: an
+    RG-LRU block (d_model 2560, its doubling scan over 4096 steps), a
+    local attention block (window 2048, 10 query heads on 1 KV head at
+    head_dim 256, so the window cuts the keys) and an SSD block (d_inner
+    2048, 32 heads, chunk 128, 32 chunks).  The gradient of <out, cot>
+    wrt the input and every parameter on the card within 1e-4 relative L2
+    of the CPU's (the two devices sum the products in other orders)."""
+    block = _full_block(arch, kind)
+    g = torch.Generator().manual_seed(1)
+    d = block.cfg.d_model
+    x = torch.randn(1, 4096, d, generator=g)
+    cot = torch.randn(1, 4096, d, generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        blk = copy.deepcopy(block).to(where)
+        xi = x.to(where).requires_grad_()
+        out, _, _ = blk(xi, positions=torch.arange(4096, device=where), mode="train")
+        params = dict(blk.named_parameters())
+        gs = torch.autograd.grad((out * cot.to(where)).sum(), [xi, *params.values()])
+        grads[str(where)] = dict(zip(["x", *params], (t.cpu() for t in gs)))
+    errs = {k: ((grads[str(dev)][k] - v).norm() / v.norm()).item()
+            for k, v in grads["cpu"].items()}
+    assert all(math.isfinite(e) for e in errs.values()) and max(errs.values()) <= 1e-4, errs
+
+
+def test_doubling_scan_gradient_on_the_card_matches_sequential_f64(dev):
+    """The doubling scan's gradient wrt a and b in f32 on the card at
+    S = 4096 against autograd through the sequential recurrence in f64 on
+    the CPU, a in (0.5, 1): within 1e-5 relative L2."""
+    from repro_torch.models.layers import doubling_scan
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand(2, 4096, 64, generator=g, dtype=torch.float64) * 0.5 + 0.5
+    b = torch.randn(2, 4096, 64, generator=g, dtype=torch.float64)
+    cot = torch.randn(2, 4096, 64, generator=g, dtype=torch.float64)
+    a64, b64 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    h, hs = torch.zeros(2, 64, dtype=torch.float64), []
+    for t in range(4096):
+        h = a64[:, t] * h + b64[:, t]
+        hs.append(h)
+    want = torch.autograd.grad((torch.stack(hs, dim=1) * cot).sum(), [a64, b64])
+    a32, b32 = (t.float().to(dev).requires_grad_() for t in (a, b))
+    got = torch.autograd.grad((doubling_scan(a32, b32) * cot.float().to(dev)).sum(), [a32, b32])
+    for gt, w in zip(got, want):
+        assert ((gt.double().cpu() - w).norm() / w.norm()).item() <= 1e-5

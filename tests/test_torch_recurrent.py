@@ -524,19 +524,6 @@ def test_reference_leaves_cover_the_model(arch):
         np.testing.assert_array_equal(back[path], arr)
 
 
-@pytest.mark.parametrize("arch,item", [(HYBRID, "A11-hybrid-train"), (SSM, "A11-ssm-train")])
-def test_trainer_refuses_recurrent_families(arch, item):
-    from repro_torch.launch import steps
-    from repro_torch.launch.train import train
-    from repro_torch.optim.adamw import AdamWConfig
-
-    with pytest.raises(NotImplementedError, match=item):
-        train(arch, steps=1, device="cpu")
-    model = build(get_reduced_config(arch), device="cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        steps.make_train_step(model, adamw_cfg=AdamWConfig(), schedule=lambda s: 1e-3)
-
-
 # ------------------------------------------------------------- launcher ----
 @pytest.mark.parametrize("arch,blocks", [(HYBRID, 1), (SSM, 0)])
 def test_cli_serves_recurrent_archs_on_cpu(arch, blocks):
@@ -552,6 +539,25 @@ def test_cli_serves_recurrent_archs_on_cpu(arch, blocks):
     assert stats["config"].startswith(f"{arch} layers=")
     assert stats["attention_blocks"] == str(blocks)
     assert stats["flash_launches_prefill"] == "0"  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("eigen", [False, True], ids=["baseline", "eigen"])
+def test_cli_trains_recurrent_archs_on_cpu(arch, eigen):
+    """``python -m repro_torch.launch.train --device cpu --arch ...`` trains
+    both recurrent families at their reduced configs, AdamW and the
+    eigen-compressed step (``test_torch_recurrent_train.py`` holds both
+    against the reference)."""
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--arch",
+         arch, "--steps", "2", "--batch", "4", "--seq", "24", *(["--eigen"] if eigen else [])],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    stats = dict(line.split(": ", 1) for line in proc.stdout.splitlines() if ": " in line)
+    assert stats["device"] == "cpu" and stats["eigen"] == str(eigen)
+    assert stats["config"].startswith(f"{arch} (") and stats["losses"] == "2"
+    assert math.isfinite(float(stats["final_loss_exact"]))
 
 
 def test_serve_is_seeded():

@@ -361,22 +361,54 @@ def test_adamw_steps_match_reference(ref):
 
 def test_decay_and_compression_follow_the_reference_leaf():
     """Weight decay by the reference leaf's rank and compressibility by the
-    reference's ``compressed_paths`` on its own tree, for every dense
-    reduced config and a few (rank, min_dim)."""
-    for arch in ("granite-3-2b", "llama3.2-3b", "chatglm3-6b", "internlm2-20b"):
-        values, axes = abstract_params(ref_reduced_config(arch))
-        cfg = get_reduced_config(arch)
+    reference's ``compressed_paths`` on its own tree (abstract shapes,
+    nothing materialised), for every dense reduced config and the
+    recurrent families' reduced and full configs, at a few (rank,
+    min_dim).  The recurrent stacked vectors (RG-LRU's lam (L, w), SSD's
+    a_log / dt_bias / dskip (L, H)) are decayed, as the reference's (L, .)
+    leaves are.  Where the reference would compress such a vector as one
+    matrix across layers (mamba2's 48 layers at min_dim <= 48) the port
+    raises."""
+    from repro.configs import get_config as ref_config
+    from repro_torch.configs import get_config
+
+    cases = [(arch, True) for arch in ("granite-3-2b", "llama3.2-3b", "chatglm3-6b",
+                                       "internlm2-20b", "recurrentgemma-2b", "mamba2-370m")]
+    cases += [("recurrentgemma-2b", False), ("mamba2-370m", False)]
+    raised = []
+    for arch, reduced in cases:
+        values, axes = abstract_params(ref_reduced_config(arch) if reduced else ref_config(arch))
+        cfg = get_reduced_config(arch) if reduced else get_config(arch)
         leaves = reference_leaves(cfg)
         rule = decays(cfg)
         for name, leaf in leaves.items():
             assert rule(name) == (len(leaf.shape) >= 2), name
         assert rule("blocks.0.norm1") and not rule("final_norm")
-        for rank, min_dim in ((8, 64), (4, 16), (32, 64)):
+        for rank, min_dim in ((8, 64), (4, 16), (32, 64), (32, 1024)):
             want = ref_compressed_paths(values, axes, RefECfg(rank=rank, min_dim=min_dim))
-            got = tsteps.compressed_paths(cfg, EigenCompressConfig(rank=rank,
-                                                                   min_dim=min_dim))
-            assert {leaves[n].path for n in got} == set(want), (arch, rank, min_dim)
+            ecfg = EigenCompressConfig(rank=rank, min_dim=min_dim)
+            vectors = {leaf.path for leaf in leaves.values()
+                       if leaf.layer is not None and len(leaf.shape) == 2}
+            if vectors & set(want):
+                with pytest.raises(NotImplementedError, match="stacked vector"):
+                    tsteps.compressed_paths(cfg, ecfg)
+                raised.append((arch, reduced, rank, min_dim))
+                continue
+            got = tsteps.compressed_paths(cfg, ecfg)
+            assert {leaves[n].path for n in got} == set(want), (arch, reduced, rank, min_dim)
             assert "blocks.0.mixer.wk" not in got  # kv_heads: not a compressed view
+            assert not any(n.endswith((".conv", ".lam", ".a_log")) for n in got)
+    assert raised == [("mamba2-370m", False, 4, 16)]
+    hybrid, ssm = decays(get_config("recurrentgemma-2b")), decays(get_config("mamba2-370m"))
+    assert hybrid("blocks.0.mixer.lam") and hybrid("blocks.25.mixer.lam")  # stage 2: L = 1
+    assert all(ssm(f"blocks.47.mixer.{v}") for v in ("a_log", "dt_bias", "dskip"))
+    full = {arch: tsteps.compressed_paths(get_config(arch), EigenCompressConfig(rank=32,
+                                                                                min_dim=64))
+            for arch in ("recurrentgemma-2b", "mamba2-370m")}
+    assert full["mamba2-370m"]["blocks.0.mixer.wdt"] == (1024, 32)  # r = n: lossless
+    assert full["mamba2-370m"]["embed"] == (50432, 1024)  # tied, padded vocab
+    assert full["recurrentgemma-2b"]["blocks.2.mixer.wq"] == (2560, 2560)  # local attention
+    assert full["recurrentgemma-2b"]["unembed"] == (2560, 256000)
 
 
 def test_warmup_cosine_matches_reference(ref):
@@ -466,49 +498,85 @@ def _ref_state(ref, cfg, prefix, *, shard=None):
 ILL_POSED = ("embed",)
 
 
-def _probes(model, batch, starts, opt, ecfg):
-    """The refresh's own f32 rounding error at this state: for each leaf,
-    how far its refreshed basis (each shard's 4-step local solve on its
-    rows, then their Procrustes average) lies from the same refresh of
-    the same gradients carried out in f64.  Two f32 implementations of
-    the refresh may each be that far from the f64 one."""
-    params = dict(model.named_parameters())
-    names = sorted(opt["eigen"])
-    local = {n: ([], []) for n in names}
-    for i in range(4):
-        loss, _ = loss_fn(model, tsteps.shard_rows(batch, i, 4))
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
-        with torch.no_grad():
-            for n, g in zip(names, grads):
-                local[n][0].append(EC._local_basis(g, starts[n].shape[1], 4, starts[n]))
-                q, g64 = torch.linalg.qr(starts[n].double())[0], g.double()
-                for _ in range(4):
-                    q = torch.linalg.qr(g64 @ (g64.T @ q))[0]
-                local[n][1].append(q)
+def _refresh64(grads, starts, opt, ecfg) -> dict:
+    """The refresh of each compressed leaf carried out in f64 on the
+    per-shard gradients ``grads`` (one dict leaf -> gradient a shard):
+    each shard's 4-step local solve from the leaf's start, then the
+    Procrustes average against its basis.  Leaf -> (d, r) array."""
     out = {}
-    for n in names:
-        st = opt["eigen"][n]
-        a, b = (EC.refresh_basis(torch.stack(v), st["basis"].to(v[0].dtype),
-                                 bool(st["initialized"]), cfg=ecfg) for v in local[n])
-        out[n] = subspace_dist64(a.numpy(), b.numpy())
+    for n, st in opt["eigen"].items():
+        local = []
+        for g in grads:
+            g64 = torch.as_tensor(g[n]).double()
+            q = torch.linalg.qr(starts[n].double())[0]
+            for _ in range(4):
+                q = torch.linalg.qr(g64 @ (g64.T @ q))[0]
+            local.append(q)
+        out[n] = EC.refresh_basis(torch.stack(local), st["basis"].double(),
+                                  bool(st["initialized"]), cfg=ecfg).numpy()
     return out
 
 
-def _teacher_forced(ref, cfg, *, group=None, rank=None) -> dict:
+def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
+    """Leaf -> {"f32": the refresh's own f32 rounding error at this state:
+    how far its refreshed basis (each shard's 4-step local solve on its
+    rows, then their Procrustes average) lies from the same refresh of
+    the same gradients carried out in f64; two f32 implementations of
+    the refresh may each be that far from the f64 one}.  With
+    ``ref_grads`` (each shard's gradients as the reference computed them,
+    port leaf -> array), each shard's gradient is first held within 1e-4
+    relative L2 of the reference's (the worst of the shards is "gap"),
+    and the entry also has "grads": how far the f64 refresh of the
+    port's gradients lies from the f64 refresh of the reference's, what
+    the gradients' own difference moves the bases."""
+    params = dict(model.named_parameters())
+    names = sorted(opt["eigen"])
+    grads, local, gap = [], {n: [] for n in names}, dict.fromkeys(names, 0.0)
+    for i in range(4):
+        loss, _ = loss_fn(model, tsteps.shard_rows(batch, i, 4))
+        shard = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
+        grads.append(shard)
+        with torch.no_grad():
+            for n, g in shard.items():
+                local[n].append(EC._local_basis(g, starts[n].shape[1], 4, starts[n]))
+                if ref_grads is not None:
+                    gap[n] = max(gap[n], _rel_l2(g.numpy(), ref_grads[i][n]))
+                    assert gap[n] <= 1e-4, (n, i, gap[n])
+    exact = _refresh64(grads, starts, opt, ecfg)
+    out = {}
+    for n in names:
+        st = opt["eigen"][n]
+        got = EC.refresh_basis(torch.stack(local[n]), st["basis"], bool(st["initialized"]),
+                               cfg=ecfg).numpy()
+        out[n] = {"f32": subspace_dist64(got, exact[n])}
+    if ref_grads is not None:
+        theirs = _refresh64(ref_grads, starts, opt, ecfg)
+        for n in names:
+            out[n].update(grads=subspace_dist64(theirs[n], exact[n]), gap=gap[n])
+    return out
+
+
+def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
+                    ill_posed=ILL_POSED, ref_grads=False, readings=None) -> dict:
     """Every refresh and train step of the reference's eigen run on the
-    pipeline's own batches (each shard its rows), each started from the
-    reference's own state before it.  Returns the worst ratio of error to
-    bar of each quantity (<= 1 passes): a refresh's bases (max(1e-5,
-    4 x the leaf's probe) f64 subspace distance) and rotated m as P m
-    (1e-4 of the largest magnitude), every leaf but ``ILL_POSED``; a
-    step's loss (1e-5 relative), error feedback (each shard's), low-rank
-    and full moments after it (1e-4 of the largest magnitude), every
-    leaf."""
+    pipeline's own batches of ``seq`` tokens (each shard its rows), each
+    started from the reference's own state before it.  Returns the worst
+    ratio of error to bar of each quantity (<= 1 passes): a refresh's
+    bases (max(1e-5, 4 x the leaf's probe) f64 subspace distance; with
+    ``ref_grads`` the probe is the larger of ``_probes``' "f32" and
+    "grads", the
+    reference's per-shard gradients saved as ``distinct/grads{t}/{shard}/``)
+    and rotated m as P m (1e-4 of the largest magnitude), every leaf but
+    ``ill_posed``; a step's loss (1e-5 relative), error feedback (each
+    shard's), low-rank and full moments after it (1e-4 of the largest
+    magnitude), every leaf.  A ``readings`` list gets, for each refresh
+    and held leaf, its probes and its basis's ratio to the bar of the f32
+    probe alone."""
     shards = None if group is not None else 4
     ecfg = EigenCompressConfig(rank=EIGEN["eigen_rank"], refresh_every=EIGEN["eigen_refresh"],
                                min_dim=64)
     sched = warmup_cosine(EIGEN["lr"], EIGEN["warmup"], EIGEN["steps"])
-    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=SEED)
+    pipe = TokenPipeline(cfg.vocab_size, seq, B, seed=SEED)
     leaves = reference_leaves(cfg)
     starts = _starts(ref, cfg)
     worst = {k: 0.0 for k in ("basis", "m_rotated", "loss", "err", "m", "v", "full")}
@@ -525,19 +593,25 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None) -> dict:
         prefix = f"distinct/state{t}/"
         if t % ecfg.refresh_every == 0:
             model, opt = _ref_state(ref, cfg, prefix)
-            probes = _probes(model, batch, starts(t), opt, ecfg)
+            probes = _probes(model, batch, starts(t), opt, ecfg, [
+                split_reference(_under(ref, f"distinct/grads{t}/{i}/"), cfg)
+                for i in range(4)] if ref_grads else None)
             model, opt = _ref_state(ref, cfg, prefix, shard=rank)
             tsteps.make_eigen_refresh_step(model, ecfg=ecfg, shards=shards, group=group)(
                 opt, batch, starts(t))
             prefix = f"distinct/refreshed{t}/"
             for name, st in opt["eigen"].items():
-                if name in ILL_POSED:
+                if name in ill_posed:
                     continue
                 path = leaves[name].path
                 want_b = pick(ref[f"{prefix}eigen/basis/{path}"], name)
                 got_b = st["basis"].numpy()
-                worst["basis"] = max(worst["basis"], subspace_dist64(got_b, want_b)
-                                     / max(1e-5, 4 * probes[name]))
+                probe = max(probes[name]["f32"], probes[name].get("grads", 0.0))
+                gap = subspace_dist64(got_b, want_b)
+                worst["basis"] = max(worst["basis"], gap / max(1e-5, 4 * probe))
+                if readings is not None:
+                    readings.append({"step": t, "leaf": name, **probes[name],
+                                     "ratio_f32": gap / max(1e-5, 4 * probes[name]["f32"])})
                 # P m, the rotated moment in the parameter space, which does
                 # not depend on the basis's column frame.
                 hold("m_rotated", got_b @ st["m"].numpy(),
