@@ -133,6 +133,22 @@ of JAX or of the reference package.  Phases, each ending in
    kept its pairs in every layer (a dropped last token makes the two
    another function); B8's share of one profiled prefill; the serve
    launcher once with ``--arch qwen3-moe-30b-a3b --full-config``.
+   Then the VLM and encoder-decoder serving lanes (``vlm_whisper_lanes``,
+   ``[vlm]`` / ``[whisper]`` lines): internvl2-2b at its full config (24
+   layers, d_model 2048, head_dim 128; 1,891,244,032 parameters) with the
+   other lanes' traffic after its 256 stub patch embeddings (B8 causal at
+   (4, 16/8, 4352, 4352, 128)): exactly 24 flash launches in the prefill
+   and none in decode; whisper-tiny at its full config through
+   ``EncDec.prefill`` / ``decode_step`` at 32 requests of 1500 frames
+   (whisper's 30-s window after its conv stack) and a 64-token decoder
+   prompt, 32 greedy tokens: exactly 4 bidirectional launches in the
+   encoder (B8 ``causal=False`` at (32, 6/6, 1500, 1500, 64)) and 4 causal
+   in the decoder's prefill, none in decode; for each, kernel vs plain
+   prefill and a (prompt - 1) prefill plus one decode step against the
+   whole prefill within the serving bars; the serve launcher once with
+   ``--arch whisper-tiny --full-config`` (frames = prompt length, the
+   reference's semantics).  Phase 2's B8 checks include internvl2-2b's
+   prefill shape and the bidirectional form (``FLASH_BIDIR_CHECKS``).
    Then the training lanes (``train_lanes``; constants T1_* .. T4_*):
    T1 trains ``llama3.2-3b`` at its full config (3.61 B parameters, f32
    master weights, bf16 compute, remat per block) with AdamW on 8 x 512
@@ -162,6 +178,16 @@ of JAX or of the reference package.  Phases, each ending in
    eigen trainer as T2 does on mamba2 whole and on the hybrid at 11 of
    its blocks (one B2 and one B4 a compressed leaf a refresh, exactly;
    the words a step; the error feedback's bytes).
+   Then the VLM and encoder-decoder training lanes
+   (``vlm_whisper_train_lanes``, ``[train-vlm]`` / ``[train-whisper]``;
+   constants V1_*): V1, T1's AdamW at internvl2-2b's full config on text
+   batches (the launcher's path: ``patch_proj`` only decayed) plus one
+   step with 256 patch embeddings a row, and at whisper-tiny's on 8 x
+   (1500 frames + 448 tokens); V1c, both reduced configs with their stub
+   inputs, card vs CPU; V2, T2's eigen trainer stacked on internvl2-2b
+   uncut (``launch.train.train``) and on whisper-tiny with frames
+   (``launch.steps``' step functions: the launcher refuses an encoder-decoder),
+   one B2 and one B4 a compressed leaf a refresh, exactly.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
@@ -174,7 +200,9 @@ of JAX or of the reference package.  Phases, each ending in
    r = 192 and 256; B8's wide kernel at recurrentgemma-2b's local
    attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
    2048, bf16) and at qwen3-moe-30b-a3b's prefill shape (b 4, hq 32, hkv
-   4, s = t = 4096, hd 64, bf16, causal) beside SDPA.  B7 is
+   4, s = t = 4096, hd 64, bf16, causal) beside SDPA; B8 also
+   bidirectional at whisper-tiny's encoder shape and causal at
+   internvl2-2b's prefill shape, each beside SDPA.  B7 is
    timed in the rank world, per round on every rank, against the bound
    of the 8 ranks' work on the one card, with each round split into the
    time its hops waited between launches and the time they computed (the
@@ -190,14 +218,16 @@ of JAX or of the reference package.  Phases, each ending in
    platform "h100").
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's,
-   the recurrent lane's and the MoE lane's), then, last,
+   the recurrent lane's, the MoE lane's and the VLM and whisper lanes'),
+   then, last,
    ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
-decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``
-and ``qwen3-moe-30b-a3b``, then one T1 train step after a
+decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``,
+``qwen3-moe-30b-a3b``, ``internvl2-2b`` (256 patches + 4096 tokens) and
+``whisper-tiny`` (32 x 1500 frames + 64 tokens), then one T1 train step after a
 warm-up step, and one R1 step of recurrentgemma-2b and of mamba2-370m:
 it prints each run's wall time, the device's busy share
 and the kernels that took the most device time.  ``--rank K`` and
@@ -327,6 +357,9 @@ FLASH_CHECKS = (
     # qwen3-moe-30b-a3b's prefill shape (the MoE lane): head_dim 64.
     ("main qwen3 (4, 32/4, 4096x4096, 64) bf16", (4, 32, 4, 4096, 4096, 64), "bfloat16",
      None),
+    # internvl2-2b's prefill shape (the VLM lane): 256 patches + 4096 tokens.
+    ("main internvl2 (4, 16/8, 4352x4352, 128) bf16", (4, 16, 8, 4352, 4352, 128),
+     "bfloat16", None),
     # head_dim past 128: the wide kernel, both dtypes.
     ("ragged hd 136 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 136), "bfloat16", None),
     ("ragged hd 192 window 16 (1, 4/2, 200x457) f32", (1, 4, 2, 200, 457, 192),
@@ -828,30 +861,37 @@ def profile_lanes(torch, distributed_pca, samples, dev) -> None:
         print_profile(f"polar={polar} orth={orth}", prof, wall_us)
 
 
-def profile_serving(torch, dev, arch=SERVE_ARCH, top=16) -> None:
+def profile_serving(torch, dev, arch=SERVE_ARCH, top=16, model=None, prompts=None,
+                    stub=None) -> None:
     """The serving lane's device time: one full-width prefill and 8 decode
-    steps of ``arch`` under torch.profiler, after a warm-up prefill."""
-    from repro_torch.launch.serve import load
+    steps of ``arch`` under torch.profiler, after a warm-up prefill (the
+    served traffic of ``launch.serve.load``, or the given model, prompts
+    and stub inputs)."""
+    from repro_torch.launch.serve import load, prefill
 
-    model, prompts = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                          reduced=False, device=dev, seed=SEED)
-    cache_len = SERVE_PROMPT + 8
-    model.prefill(prompts, cache_len=cache_len)  # warm-up
+    if model is None:
+        model, prompts, stub = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                    reduced=False, device=dev, seed=SEED)
+    start = prompts.shape[1] + stub["patch_embeds"].shape[1] if "patch_embeds" in stub \
+        else prompts.shape[1]
+    cache_len = start + 8
+    prefill(model, prompts, cache_len=cache_len, **stub)  # warm-up
     torch.cuda.synchronize()
     out = []
     prof, wall_us = profiled(
-        torch, lambda: out.append(model.prefill(prompts, cache_len=cache_len)))
-    print_profile(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT}", prof, wall_us, top=top)
+        torch, lambda: out.append(prefill(model, prompts, cache_len=cache_len, **stub)))
+    print_profile(f"{arch} prefill {tuple(prompts.shape)} "
+                  f"{ {k: tuple(v.shape) for k, v in stub.items()} }", prof, wall_us, top=top)
     logits, cache = out[0]
 
     def decode():
         tok = logits.argmax(-1)[:, None]
         for i in range(8):
-            step, _ = model.decode_step(tok, cache, SERVE_PROMPT + i)
+            step, _ = model.decode_step(tok, cache, start + i)
             tok = step.argmax(-1)[:, None]
 
     prof, wall_us = profiled(torch, decode)
-    print_profile(f"{arch} 8 decode steps, batch {SERVE_BATCH}", prof, wall_us, top=top)
+    print_profile(f"{arch} 8 decode steps, batch {prompts.shape[0]}", prof, wall_us, top=top)
     del model, prompts, logits, cache, out
 
 
@@ -908,7 +948,7 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        model, prompts = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        model, prompts, _ = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                               reduced=False, device="cuda", seed=SEED)
         toks, st = generate(model, prompts, gen=SERVE_GEN)
         torch.cuda.synchronize()
@@ -1092,7 +1132,7 @@ def moe_lane(torch, dev, launches: dict) -> dict:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    (model, prompts), t_init = timed(lambda: load(
+    (model, prompts, _), t_init = timed(lambda: load(
         MOE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, reduced=False,
         device="cuda", seed=SEED))
     toks, st = generate(model, prompts, gen=SERVE_GEN)
@@ -1251,6 +1291,246 @@ def moe_lane(torch, dev, launches: dict) -> dict:
     for name, ok in held.items():
         require(ok, f"{MOE_ARCH}: {name} outside the serving bars")
     return b8
+
+
+# -- the VLM and encoder-decoder serving lanes (phase 3) ----------------------
+# internvl2-2b at its full config (24 layers, d_model 2048, 16 query heads on
+# 8 KV heads at head_dim 128; 1,891,244,032 parameters): the serving lanes'
+# traffic (SERVE_BATCH x SERVE_PROMPT tokens, SERVE_GEN greedy tokens) after
+# the config's 256 patch embeddings (the stub frontend's (B, 256, 1024), drawn
+# by ``launch.serve.load``), so B8 runs causal at VLM_FLASH.
+VLM_ARCH, VLM_PARAMS = "internvl2-2b", 1_891_244_032
+VLM_FLASH = (SERVE_BATCH, 16, 8, 256 + SERVE_PROMPT, 256 + SERVE_PROMPT, 128)
+# whisper-tiny (4 encoder + 4 decoder layers, d_model 384, 6 heads of 64, one
+# query head a KV head; 56,355,456 parameters) at its realistic shape:
+# WHISPER_BATCH requests of WHISPER_FRAMES frames (whisper's 30-s window after
+# its conv stack) and a WHISPER_PROMPT-token decoder prompt, SERVE_GEN greedy
+# tokens, through ``EncDec.prefill`` / ``decode_step``; its encoder runs B8
+# bidirectional at WHISPER_FLASH (s = t = 1500: 11 full 128-row tiles and one
+# of 92).  The launcher's semantics (frames = prompt length) run at
+# WHISPER_CLI_PROMPT.
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-tiny", 56_355_456
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_CLI_PROMPT = 32, 1500, 64, 448
+WHISPER_FLASH = (WHISPER_BATCH, 6, 6, WHISPER_FRAMES, WHISPER_FRAMES, 64)
+# B8 held bidirectional (causal=False) against its plain version: (label,
+# (b, hq, hkv, s, t, hd), dtype).  Whisper's encoder shape, ragged s = t at
+# 1, 17 and 129, s != t both ways (every query row sees every key; no row is
+# empty), head_dim 64 with groups 1 and 4, and head_dim 128.
+FLASH_BIDIR_CHECKS = (
+    ("whisper encoder (32, 6/6, 1500x1500, 64) bf16", WHISPER_FLASH, "bfloat16"),
+    ("ragged s=t=1 (2, 4/1, 1x1, 64) bf16", (2, 4, 1, 1, 1, 64), "bfloat16"),
+    ("ragged s=t=17 (1, 4/4, 17x17, 64) f32", (1, 4, 4, 17, 17, 64), "float32"),
+    ("ragged s=t=129 (2, 8/2, 129x129, 128) bf16", (2, 8, 2, 129, 129, 128), "bfloat16"),
+    ("ragged s<t (1, 4/1, 96x300, 64) bf16", (1, 4, 1, 96, 300, 64), "bfloat16"),
+    ("ragged s>t (1, 4/2, 300x96, 128) bf16", (1, 4, 2, 300, 96, 128), "bfloat16"),
+    ("ragged s>t (2, 6/6, 257x129, 64) f32", (2, 6, 6, 257, 129, 64), "float32"),
+)
+
+
+def whisper_inputs(torch, dev):
+    """whisper-tiny's full-config model from the seeded generator and its
+    realistic request: (model, WHISPER_BATCH x WHISPER_PROMPT tokens,
+    {"frames": (WHISPER_BATCH, WHISPER_FRAMES, 384) bf16})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config(WHISPER_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    frames = torch.randn(WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model, generator=gen,
+                         device=dev, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT), generator=gen,
+                           device=dev)
+    return model, tokens, {"frames": frames}
+
+
+def profile_whisper(torch, dev) -> None:
+    """One whisper-tiny prefill (the realistic request) and 8 decode steps
+    under torch.profiler, after a warm-up prefill."""
+    model, tokens, stub = whisper_inputs(torch, dev)
+    profile_serving(torch, dev, WHISPER_ARCH, model=model, prompts=tokens, stub=stub)
+
+
+def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
+    """internvl2-2b and whisper-tiny served at their full configs (see the
+    constants above), on ``[vlm]`` and ``[whisper]`` lines: exact B8
+    launches (24 in the VLM's prefill; 4 bidirectional in whisper's
+    encoder and 4 causal in its decoder; none in decode), the kernel
+    prefill against the plain prefill and a (prompt - 1) prefill plus one
+    decode step against the whole prefill, within SERVE_REL_L2 /
+    SERVE_MAX_ABS; prefill_s, ms a decode step and the peak memory; then
+    the serve launcher once with ``--arch whisper-tiny --full-config``.
+    Every check is printed before any is required.  Returns B8's served
+    numbers for phase 4."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate, load
+
+    held, served = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def bars(tag, label, got, want):
+        rel_l2, max_abs, agree = serving_gap(torch, got, want)
+        print(f"[{tag}] {label}: rel L2 {rel_l2:.3e} (bar {SERVE_REL_L2}), max abs "
+              f"{max_abs:.3e} of the largest logit {want.abs().max().item():.3f} (bar "
+              f"{SERVE_MAX_ABS}), argmax agree {agree}/{got.shape[0]}")
+        held[f"{tag} {label}"] = within_bars(torch, got, want)
+
+    def flash() -> int:
+        return kernels.launch_counts()["flash_attention"]
+
+    # internvl2-2b through launch.serve's load and generate.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (model, prompts, stub), t_init = timed(lambda: load(
+        VLM_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, reduced=False, device="cuda",
+        seed=SEED))
+    toks, st = generate(model, prompts, gen=SERVE_GEN, **stub)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cfg, pe = model.cfg, stub["patch_embeds"]
+    p, layers = pe.shape[1], cfg.num_layers
+    n_params = sum(q.numel() for q in model.parameters())
+    launches["flash_attention"] += counts["flash_attention"]
+    print(f"[vlm] {VLM_ARCH} full config (layers {layers}, d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}, {n_params} "
+          f"parameters with the padded vocab, patch_proj {tuple(model.patch_proj.shape)}), "
+          f"batch {SERVE_BATCH}, {p} patches + prompt {SERVE_PROMPT}, gen {SERVE_GEN}: "
+          f"prefill_s {st['prefill_s']:.4f}, decode_s {st['decode_s']:.4f} "
+          f"({st['decode_s'] / SERVE_GEN * 1e3:.2f} ms/step), prefill "
+          f"{SERVE_BATCH * (p + SERVE_PROMPT) / st['prefill_s']:.0f} tok/s, decode "
+          f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, weight init {t_init:.2f} s, "
+          f"attention blocks {st['attention_blocks']}, flash launches {st['flash_launches']}")
+    held["vlm launches"] = (st["flash_launches"] == {"prefill": layers, "decode": 0}
+                            and counts == expected_counts({"flash_attention": layers}))
+    held["vlm tokens"] = (tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+                          and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size)
+    vocab = cfg.vocab_size
+    (lk, _), t_kernel = timed(lambda: model.prefill(prompts, patch_embeds=pe))
+    (lp, _), t_plain = timed(lambda: model.prefill(prompts, patch_embeds=pe, use_kernel=False))
+    lk, lp = lk[:, :vocab], lp[:, :vocab]
+    held["vlm first tokens"] = bool((lk.argmax(-1).cpu() == toks[:, 0]).all())
+    print(f"[vlm] warm prefill through the kernel {t_kernel:.4f} s, through plain attention "
+          f"{t_plain:.4f} s; first served token from the kernel prefill "
+          f"{held['vlm first tokens']}")
+    bars("vlm", "kernel vs plain prefill, last-position logits", lk, lp)
+    del lp
+    kernels.reset_launch_counts()
+
+    def vlm_continued():
+        _, cache = model.prefill(prompts[:, :-1], patch_embeds=pe, cache_len=p + SERVE_PROMPT)
+        return model.decode_step(prompts[:, -1:], cache, p + SERVE_PROMPT - 1)[0][:, :vocab]
+
+    lc, t_cont = timed(vlm_continued)
+    held["vlm continuation launches"] = flash() == layers
+    launches["flash_attention"] += flash()
+    bars("vlm", f"prefill {p} + {SERVE_PROMPT - 1} + decode 1 ({t_cont:.4f} s) vs prefill "
+         f"{p} + {SERVE_PROMPT}", lc, lk)
+    served["vlm"] = {"prefill_s": st["prefill_s"], "decode_ms": st["decode_s"] / SERVE_GEN * 1e3,
+                     "launches": layers}
+    del model, prompts, stub, pe, lk, lc
+    torch.cuda.empty_cache()
+
+    # whisper-tiny at its realistic shape through EncDec.prefill / decode_step.
+    torch.cuda.reset_peak_memory_stats()
+    model, tokens, stub = whisper_inputs(torch, dev)
+    cfg, frames = model.cfg, stub.pop("frames")
+    enc_layers, dec_layers = cfg.num_encoder_layers, cfg.num_layers
+    n_params = sum(q.numel() for q in model.parameters())
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model.encode(frames)
+    torch.cuda.synchronize()
+    enc_launches = flash()
+    kernels.reset_launch_counts()
+    (logits, cache), t_prefill = timed(lambda: model.prefill(
+        frames, tokens, cache_len=WHISPER_PROMPT + SERVE_GEN))
+    pre_launches = flash()
+    tok = logits.argmax(-1)[:, None]
+    out = []
+
+    def decode():
+        nonlocal tok, cache
+        for i in range(SERVE_GEN):
+            out.append(tok[:, 0])
+            step, cache = model.decode_step(tok, cache, WHISPER_PROMPT + i)
+            tok = step.argmax(-1)[:, None]
+
+    _, t_decode = timed(decode)
+    dec_launches = flash() - pre_launches
+    launches["flash_attention"] += enc_launches + flash()
+    wtoks = torch.stack(out, dim=1)
+    print(f"[whisper] {WHISPER_ARCH} full config (encoder {enc_layers} + decoder {dec_layers} "
+          f"layers, d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}, {n_params} parameters with the padded "
+          f"vocab), batch {WHISPER_BATCH}, {WHISPER_FRAMES} frames + prompt {WHISPER_PROMPT}, "
+          f"gen {SERVE_GEN}: prefill_s {t_prefill:.4f}, decode_s {t_decode:.4f} "
+          f"({t_decode / SERVE_GEN * 1e3:.2f} ms/step), decode "
+          f"{WHISPER_BATCH * SERVE_GEN / t_decode:.1f} tok/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; flash launches: encoder alone "
+          f"{enc_launches} (bidirectional), prefill {pre_launches} ({enc_launches} encoder + "
+          f"{pre_launches - enc_launches} decoder causal), decode {dec_launches}")
+    held["whisper launches"] = (enc_launches == enc_layers
+                                and pre_launches == enc_layers + dec_layers
+                                and dec_launches == 0)
+    held["whisper tokens"] = (tuple(wtoks.shape) == (WHISPER_BATCH, SERVE_GEN)
+                              and 0 <= int(wtoks.min()) and int(wtoks.max()) < cfg.vocab_size)
+    vocab = cfg.vocab_size
+    (lk, _), t_kernel = timed(lambda: model.prefill(frames, tokens))
+    (lp, _), t_plain = timed(lambda: model.prefill(frames, tokens, use_kernel=False))
+    lk, lp = lk[:, :vocab], lp[:, :vocab]
+    held["whisper first tokens"] = bool((lk.argmax(-1) == wtoks[:, 0]).all())
+    print(f"[whisper] warm prefill through the kernel {t_kernel:.4f} s, through plain "
+          f"attention {t_plain:.4f} s; first served token from the kernel prefill "
+          f"{held['whisper first tokens']}")
+    bars("whisper", "kernel vs plain prefill, last-position logits", lk, lp)
+    kernels.reset_launch_counts()
+
+    def whisper_continued():
+        _, c = model.prefill(frames, tokens[:, :-1], cache_len=WHISPER_PROMPT)
+        return model.decode_step(tokens[:, -1:], c, WHISPER_PROMPT - 1)[0][:, :vocab]
+
+    lc, t_cont = timed(whisper_continued)
+    held["whisper continuation launches"] = flash() == enc_layers + dec_layers
+    launches["flash_attention"] += flash()
+    bars("whisper", f"prefill {WHISPER_PROMPT - 1} + decode 1 ({t_cont:.4f} s) vs prefill "
+         f"{WHISPER_PROMPT}", lc, lk)
+    served["whisper"] = {"prefill_s": t_prefill, "decode_ms": t_decode / SERVE_GEN * 1e3,
+                         "launches": {"encoder": enc_launches, "decoder": dec_launches}}
+    del model, frames, tokens, logits, cache, lk, lp, lc
+    torch.cuda.empty_cache()
+
+    # The serve launcher at whisper's reference semantics (frames = prompt).
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", WHISPER_ARCH,
+         "--full-config", "--batch", str(SERVE_BATCH), "--prompt-len",
+         str(WHISPER_CLI_PROMPT), "--gen", "8", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600, env={**os.environ, "PYTHONPATH": SRC})
+    require(cli.returncode == 0, f"serve launcher ({WHISPER_ARCH}) failed:\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.strip().splitlines()
+    stats = dict(line.split(": ", 1) for line in lines[2:])
+    blocks = enc_layers + dec_layers
+    print(f"[cli] repro_torch.launch.serve --arch {WHISPER_ARCH} --full-config --batch "
+          f"{SERVE_BATCH} --prompt-len {WHISPER_CLI_PROMPT} --gen 8 "
+          f"({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          + ", ".join(f"{k}={stats[k]}" for k in
+                      ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
+                       "attention_blocks", "flash_launches_prefill", "flash_launches_decode")))
+    held["whisper launcher"] = (lines[0] == f"generated token matrix: ({SERVE_BATCH}, 8)"
+                                and stats["attention_blocks"] == str(blocks)
+                                and stats["flash_launches_prefill"] == str(blocks)
+                                and stats["flash_launches_decode"] == "0")
+    for name, ok in held.items():
+        require(ok, f"{name}: failed (see the lines above)")
+    return served
 
 
 # -- the training lanes (phase 3) ---------------------------------------------
@@ -1543,11 +1823,16 @@ def device_batch(torch, pipe, step, where) -> dict:
     return {k: torch.from_numpy(v).to(where, torch.long) for k, v in pipe.batch(step).items()}
 
 
-def adamw_lane(torch, dev, cfg, batch: int) -> dict:
+def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1_LR,
+               stub=None, extra_step=None) -> dict:
     """T1's AdamW run of ``cfg`` (f32 master weights from the seeded
-    generator, T1_STEPS steps of ``batch`` x T1_SEQ tokens, T1's
-    schedule), each step timed to a synchronise, its launches counted.
-    Checks nothing; returns the numbers."""
+    generator, T1_STEPS steps of ``batch`` x ``seq`` tokens, T1's
+    schedule at peak ``lr``), each step timed to a synchronise, its
+    launches counted.  ``stub(step)`` adds inputs to every step's batch (an
+    encoder-decoder's frames); ``extra_step`` adds inputs to one step more
+    after the T1_STEPS (a VLM's patch embeddings after its text steps),
+    whose loss and ``patch_proj``'s first moment (before and after) are
+    returned.  Checks nothing; returns the numbers."""
     from repro_torch import kernels
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -1562,14 +1847,16 @@ def adamw_lane(torch, dev, cfg, batch: int) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     opt = adamw_init(dict(model.named_parameters()))
     step_fn = make_train_step(model, adamw_cfg=AdamWConfig(),
-                              schedule=warmup_cosine(T1_LR, T1_WARMUP, T1_STEPS))
-    pipe = TokenPipeline(cfg.vocab_size, T1_SEQ, batch, seed=SEED)
+                              schedule=warmup_cosine(lr, T1_WARMUP, T1_STEPS))
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
     losses, step_ms, norms, skipped = [], [], [], 0
     for s in range(T1_STEPS):
         b = device_batch(torch, pipe, s, dev)
+        if stub is not None:
+            b.update(stub(s))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step_fn(opt, b)
@@ -1578,20 +1865,30 @@ def adamw_lane(torch, dev, cfg, batch: int) -> dict:
         step_ms.append(1e3 * (time.perf_counter() - t0))
         norms.append(m["grad_norm"])
         skipped += int(m["step_skipped"])
+    extra = {}
+    if extra_step is not None:
+        def patch_m():
+            m = opt["m"].get("patch_proj")
+            return None if m is None else m.norm().item()
+
+        extra["patch_m_before"] = patch_m()
+        m = step_fn(opt, {**device_batch(torch, pipe, T1_STEPS, dev), **extra_step})
+        extra.update(extra_loss=float(m["loss"]), extra_skipped=int(m["step_skipped"]),
+                     patch_m_after=patch_m())
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() - held
     ms = sum(step_ms[1:]) / (len(step_ms) - 1)
     return {"params": n_params, "init_s": init_s, "step_ms": step_ms, "ms": ms,
-            "tokens_s": batch * T1_SEQ / (ms / 1e3), "peak_gb": peak / 1e9,
+            "tokens_s": batch * seq / (ms / 1e3), "peak_gb": peak / 1e9,
             "held_gb": held / 1e9, "losses": losses, "norms": norms, "skipped": skipped,
-            "counts": counts, "batch": batch}
+            "counts": counts, "batch": batch, "seq": seq, **extra}
 
 
 def print_adamw(label, cfg, r) -> None:
     print(f"[{label} {cfg.name} full config (layers {cfg.num_layers}, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, remat {cfg.remat}, compute "
           f"{cfg.dtype}, f32 master weights): {r['params']} parameters, batch {r['batch']} x "
-          f"{T1_SEQ} tokens, AdamW, {T1_STEPS} steps, warmup {T1_WARMUP}: init "
+          f"{r['seq']} tokens, AdamW, {T1_STEPS} steps, warmup {T1_WARMUP}: init "
           f"{r['init_s']:.2f} s, step 0 {r['step_ms'][0]:.1f} ms, ms/step after step 0 "
           f"{r['ms']:.2f} (each {[round(x, 1) for x in r['step_ms'][1:]]}), "
           f"{r['tokens_s']:.0f} tokens/s, peak memory {r['peak_gb']:.2f} GB "
@@ -1610,10 +1907,11 @@ def require_adamw(label, r) -> None:
     require(sum(losses[-2:]) / 2 < losses[0], f"{label}: the loss did not fall: {losses}")
 
 
-def card_vs_cpu(torch, dev, small) -> tuple:
+def card_vs_cpu(torch, dev, small, stub=None) -> tuple:
     """T1c: T1C_STEPS AdamW steps of the reduced config ``small`` on the
     CPU and on the card from the same parameters and batches (4 x 32
-    tokens).  Returns (worst relative loss gap, worst parameter relative
+    tokens, plus ``stub(step)``'s CPU tensors: patch embeddings or
+    frames).  Returns (worst relative loss gap, worst parameter relative
     L2, card losses, CPU losses)."""
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -1629,7 +1927,8 @@ def card_vs_cpu(torch, dev, small) -> tuple:
         opt = adamw_init(params)
         step_fn = make_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1C_LR))
         pipe = TokenPipeline(small.vocab_size, 32, 4, seed=SEED)
-        ls = [float(step_fn(opt, device_batch(torch, pipe, s, where))["loss"])
+        ls = [float(step_fn(opt, {**device_batch(torch, pipe, s, where), **(
+            {} if stub is None else {k: v.to(where) for k, v in stub(s).items()})})["loss"])
               for s in range(T1C_STEPS)]
         runs[str(where)] = (ls, {k: p.detach().cpu() for k, p in params.items()})
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
@@ -1676,7 +1975,8 @@ def eigen_lane(torch, dev, cfg) -> dict:
 
 def print_eigen(label, cfg, depth, r) -> None:
     print(f"[{label} eigen stacked, {cfg.name} at {depth}, full width ({r['params']} "
-          f"parameters), {T2_SHARDS} shards of {T1_BATCH // T2_SHARDS} x {T1_SEQ} tokens, "
+          f"parameters), {T2_SHARDS} shards of {T1_BATCH // T2_SHARDS} x "
+          f"{r.get('seq', T1_SEQ)} tokens{r.get('also', '')}, "
           f"rank {T2_RANK}, min_dim 64, refresh every {T2_REFRESH}, {T2_STEPS} steps: wall "
           f"{r['wall']:.2f} s, {r['leaves']} compressed leaves, launches "
           f"{ {k: c for k, c in r['counts'].items() if c} } (expected one B2 and one B4 a "
@@ -1878,6 +2178,156 @@ def recurrent_train_lanes(torch, dev, launches: dict) -> None:
         free_card(torch)
 
 
+# V1-V2: training the VLM and encoder-decoder families (ROADMAP A11-vlm,
+# A11-whisper), after R1-R2, on ``[train-vlm]`` / ``[train-whisper]`` lines.
+# V1: AdamW at each full config with T1's steps, lr and checks: internvl2-2b
+# on T1's text batches (the launcher's path: ``patch_proj`` only decayed),
+# then one step more with V1_PATCHES patch embeddings a row (its first
+# moment must leave zero); whisper-tiny on T1_BATCH x (WHISPER_FRAMES frames
+# + V1_WHISPER_SEQ tokens, its decoder's full context) at peak lr
+# V1_WHISPER_LR (a 56 M-parameter model: at T1's 5e-5 its 8 steps barely
+# move the loss; whisper-tiny was trained at 1.5e-3).  V1c: each reduced
+# config in f32 with its stub inputs, T1c's steps and bars, card vs CPU.  V2:
+# the eigen trainer stacked with T2's shards, rank, refresh and steps, both
+# uncut: internvl2-2b through ``launch.train.train`` (24 layers: f32 masters
+# 7.6 GB + 4 shards' error feedback 30.3 GB + one gradient 7.6 GB), whisper-
+# tiny through ``launch.steps``' step functions on batches with frames (the
+# launcher refuses it: its pipeline gives no frames).
+V1_PATCHES, V1_WHISPER_SEQ, V1_WHISPER_LR = 256, 448, 5e-4
+
+
+def vlm_whisper_train_lanes(torch, dev, launches: dict) -> None:
+    """V1, V1c and V2 (see the constants above).  Adds V2's kernel
+    launches to ``launches``."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import (
+        compressed_paths,
+        eigen_opt_init,
+        make_eigen_refresh_step,
+        make_eigen_train_step,
+        start_shapes,
+    )
+    from repro_torch.models import build
+    from repro_torch.optim import EigenCompressConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.eigen_compress import draw_starts
+    from repro_torch.optim.schedule import warmup_cosine
+
+    wcfg = get_config(WHISPER_ARCH)
+
+    def frames(step, batch=T1_BATCH, n=WHISPER_FRAMES, d=wcfg.d_model, where=dev):
+        g = torch.Generator(device=where).manual_seed(SEED + 100 + step)
+        return {"frames": torch.randn(batch, n, d, generator=g, device=where)}
+
+    # V1: AdamW at the full configs.
+    vlm = get_config(VLM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 99)
+    patches = {"patch_embeds": torch.randn(T1_BATCH, V1_PATCHES, vlm.patch_embed_dim,
+                                           generator=g, device=dev)}
+    r = adamw_lane(torch, dev, vlm, T1_BATCH, extra_step=patches)
+    del patches
+    print_adamw("train-vlm] V1", vlm, r)
+    print(f"[train-vlm] V1 one step more with {V1_PATCHES} patches a row: loss "
+          f"{r['extra_loss']:.4f}, skipped {r['extra_skipped']}, |m(patch_proj)| before "
+          f"{r['patch_m_before']:.3e} (text steps: zero gradient), after {r['patch_m_after']:.3e}")
+    require_adamw("V1 internvl2-2b", r)
+    require(r["patch_m_before"] == 0.0 and r["patch_m_after"] > 0.0
+            and math.isfinite(r["extra_loss"]) and not r["extra_skipped"],
+            f"V1 internvl2-2b: the patch step {r}")
+    require(not any(r["counts"].values()), f"V1 internvl2-2b: kernels launched: {r['counts']}")
+    free_card(torch)
+    r = adamw_lane(torch, dev, wcfg, T1_BATCH, seq=V1_WHISPER_SEQ, lr=V1_WHISPER_LR,
+                   stub=frames)
+    print_adamw("train-whisper] V1", wcfg, r)
+    print(f"[train-whisper] V1 each row also {WHISPER_FRAMES} frames into the encoder")
+    require_adamw("V1 whisper-tiny", r)
+    require(not any(r["counts"].values()), f"V1 whisper-tiny: kernels launched: {r['counts']}")
+    free_card(torch)
+
+    # V1c: the reduced configs in f32 with their stub inputs, card vs CPU.
+    f32 = dict(dtype="float32", attn_probs_bf16=False)
+    for arch, tag in ((VLM_ARCH, "train-vlm"), (WHISPER_ARCH, "train-whisper")):
+        small = dataclasses.replace(get_reduced_config(arch), **f32)
+        if small.num_patches:
+            def stub(s, c=small):
+                g = torch.Generator().manual_seed(SEED + s)
+                return {"patch_embeds": torch.randn(4, c.num_patches, c.patch_embed_dim,
+                                                    generator=g)}
+        else:
+            def stub(s, c=small):
+                return frames(s, batch=4, n=48, d=c.d_model, where="cpu")
+        loss_err, par_err, lg, lc = card_vs_cpu(torch, dev, small, stub)
+        print(f"[{tag}] V1c {small.name} reduced f32 with its stub inputs, {T1C_STEPS} AdamW "
+              f"steps, card vs CPU: losses {[round(x, 6) for x in lg]} vs "
+              f"{[round(x, 6) for x in lc]}, worst relative loss gap {loss_err:.2e} (bar "
+              f"{T1C_LOSS}), worst parameter rel L2 {par_err:.2e} (bar {T1C_PARAM})")
+        require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM,
+                f"V1c {arch}: card and CPU disagree")
+    free_card(torch)
+
+    # V2: the eigen trainer stacked, both uncut.
+    hold_refresh_shapes(torch, dev, (vlm.padded_vocab, vlm.d_ff, vlm.d_model,
+                                     vlm.patch_embed_dim, wcfg.padded_vocab, wcfg.d_ff,
+                                     wcfg.d_model))
+    r = eigen_lane(torch, dev, vlm)
+    print_eigen("train-vlm] V2", vlm, f"its {vlm.num_layers} layers", r)
+    require(all(math.isfinite(x) for x in r["losses"]), "V2 internvl2-2b: a loss is not finite")
+    require(r["counts"] == r["want"], f"V2 internvl2-2b: launches {r['counts']}, expected "
+                                      f"{r['want']}")
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    free_card(torch)
+
+    held = free_card(torch)
+    ecfg = EigenCompressConfig(rank=T2_RANK, refresh_every=T2_REFRESH, min_dim=64)
+    comp = compressed_paths(wcfg, ecfg)
+    model = build(wcfg, device=dev, param_dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    opt = eigen_opt_init(model, ecfg, T2_SHARDS)
+    sched = warmup_cosine(T1_LR, T1_WARMUP, T2_STEPS)
+    train_step = make_eigen_train_step(model, adamw_cfg=AdamWConfig(), schedule=sched,
+                                       shards=T2_SHARDS)
+    refresh = make_eigen_refresh_step(model, ecfg=ecfg, shards=T2_SHARDS)
+    pipe = TokenPipeline(wcfg.vocab_size, V1_WHISPER_SEQ, T1_BATCH, seed=SEED)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for step in range(T2_STEPS):
+        b = {**device_batch(torch, pipe, step, dev), **frames(step)}
+        if step % T2_REFRESH == 0:
+            refresh(opt, b, draw_starts(start_shapes(opt), seed=SEED + 1, step=step,
+                                        device=dev))
+        losses.append(float(train_step(opt, b)["loss"]))
+    torch.cuda.synchronize()
+    refreshes = len(range(0, T2_STEPS, T2_REFRESH))
+    r = {"wall": time.perf_counter() - t0,
+         "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "held_gb": held / 1e9,
+         "params": sum(p.numel() for p in model.parameters()),
+         "low": sum(min(T2_RANK, d, n) * n for d, n in comp.values()),
+         "full": sum(d * n for d, n in comp.values()),
+         "other": sum(p.numel() for k, p in model.named_parameters() if k not in comp),
+         "err_gb": sum(st["err"].numel() * 4 for st in opt["eigen"].values()) / 1e9,
+         "leaves": len(comp), "refreshes": refreshes, "losses": losses,
+         "counts": kernels.launch_counts(),
+         "want": expected_counts({"batched_gram": len(comp) * refreshes,
+                                  "align_average": len(comp) * refreshes}),
+         "seq": V1_WHISPER_SEQ, "also": f" and {WHISPER_FRAMES} frames a row"}
+    print_eigen("train-whisper] V2", wcfg, f"its {wcfg.num_encoder_layers} + "
+                f"{wcfg.num_layers} layers", r)
+    require(all(math.isfinite(x) for x in losses), "V2 whisper-tiny: a loss is not finite")
+    require(r["counts"] == r["want"], f"V2 whisper-tiny: launches {r['counts']}, expected "
+                                      f"{r['want']}")
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    del model, opt
+    free_card(torch)
+
+
 def profile_training(torch, dev, cfg=None) -> None:
     """One AdamW train step of ``cfg`` (T1's, llama3.2-3b's full config, by
     default) with T1's traffic under torch.profiler, after a warm-up
@@ -2014,6 +2464,10 @@ def main(argv=None) -> int:
         profile_serving(torch, dev, RECURRENT_ARCHS[0][0])
         torch.cuda.empty_cache()
         profile_serving(torch, dev, MOE_ARCH, top=24)
+        torch.cuda.empty_cache()
+        profile_serving(torch, dev, VLM_ARCH)
+        torch.cuda.empty_cache()
+        profile_whisper(torch, dev)
         torch.cuda.empty_cache()
         profile_training(torch, dev)
         from repro_torch.configs import get_config
@@ -2856,13 +3310,18 @@ def main(argv=None) -> int:
                      for sh in ((b, hq, s_, hd), (b, hkv, t_, hd), (b, hkv, t_, hd)))
 
     row_ratio = {}
-    for label, shape, dtype, window in FLASH_CHECKS:
+    causal_checks = [(label, shape, dtype, window, True)
+                     for label, shape, dtype, window in FLASH_CHECKS]
+    bidir_checks = [(f"bidirectional {label}", shape, dtype, None, False)
+                    for label, shape, dtype in FLASH_BIDIR_CHECKS]
+    for label, shape, dtype, window, causal in causal_checks + bidir_checks:
         q, k, v = qkv(shape, dtype)
-        got = flash_attention(q, k, v, causal=True, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         label = f"{label} [{flash_attention.last_form}]"
-        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
         got, want = got.float(), want.float()
+        require(bool(torch.isfinite(got).all()), f"flash_attention {label}: not finite")
         hold("flash_attention", label, got, want, FLASH_TOL[dtype])
         if dtype == "bfloat16":
             row_bar = FLASH_ROW_REL * want.abs().amax(-1) + FLASH_ROW_ABS
@@ -2874,7 +3333,7 @@ def main(argv=None) -> int:
             require(ratio <= 1, f"flash_attention disagrees with its plain "
                                 f"version on some query row at {label}")
         s_, t_ = shape[3], shape[4]
-        if s_ > t_:
+        if causal and s_ > t_:
             require(bool((got[:, :, : s_ - t_] == 0).all()),
                     f"flash_attention {label}: rows without keys are not zero")
         del q, k, v, got, want
@@ -2883,7 +3342,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    model, prompts = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    model, prompts, _ = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                           reduced=False, device="cuda", seed=SEED)
     toks, st = generate(model, prompts, gen=SERVE_GEN)
     serve_cfg = model.cfg
@@ -2978,6 +3437,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[moe] the lane and the launcher in {time.perf_counter() - t0:.1f} s")
 
+    # The VLM and encoder-decoder serving lanes (internvl2-2b, whisper-tiny).
+    t0 = time.perf_counter()
+    b8_vw = vlm_whisper_lanes(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[whisper] the VLM and whisper serving lanes and the launcher in "
+          f"{time.perf_counter() - t0:.1f} s")
+
     # The training lanes (T1-T4).  The card still holds the earlier phases'
     # tensors that phase 4 times (a few GB); each lane's peak leaves them out.
     train_lanes(torch, dev, launches)
@@ -2987,6 +3453,12 @@ def main(argv=None) -> int:
     recurrent_train_lanes(torch, dev, launches)
     torch.cuda.synchronize()
     print(f"[train-recur] R1, R1c and R2 in {time.perf_counter() - t0:.1f} s")
+    # Training the VLM and encoder-decoder families (V1, V1c, V2).
+    t0 = time.perf_counter()
+    vlm_whisper_train_lanes(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[train-whisper] V1, V1c and V2 of both families in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: times at the main path's shapes ---------------------------
     def time_ms(fn, reps):
@@ -3207,6 +3679,34 @@ def main(argv=None) -> int:
         "shape": list(FLASH_MOE), "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
         "bound_by": m_by, "library_ms": m_lib, "form": m_form, "served": b8_moe}
     del q, k_, v_
+    # B8 at whisper-tiny's encoder shape (bidirectional: every query row sees
+    # all t keys) and at internvl2-2b's prefill shape (causal, 256 patches +
+    # 4096 tokens), each beside SDPA on the same inputs.
+    for key, shape, causal, arch in (("whisper_encoder_bidirectional", WHISPER_FLASH, False,
+                                      "whisper"),
+                                     ("internvl2_prefill", VLM_FLASH, True, "vlm")):
+        b, hq, hkv, s_, t_, hd = shape
+        q, k_, v_ = qkv(shape, "bfloat16")
+        visible = s_ * t_ if not causal else sum(min(t_, t_ - s_ + i + 1) for i in range(s_))
+        x_flops = 4.0 * b * hq * hd * visible
+        x_bytes = 2 * (2 * b * hq * s_ * hd + 2 * b * hkv * t_ * hd)
+        x_bound = 1e3 * max(x_flops / peak_bf16, x_bytes / peak_bw)
+        x_by = "operations" if x_flops / peak_bf16 >= x_bytes / peak_bw else "bytes"
+        x_ms = time_ms(lambda: flash_attention(q, k_, v_, causal=causal), 10)
+        x_form = flash_attention.last_form
+        x_plain = time_ms(lambda: ref.flash_attention(q, k_, v_, causal=causal), 3)
+        x_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_, v_, is_causal=causal, enable_gqa=True), 10)
+        print(f"[time] flash_attention {key} {shape} bf16 causal={causal} [{x_form}] "
+              f"kernel_ms {x_ms:.4f} bound_ms {x_bound:.4f} ({x_by}, bf16 peak; "
+              f"{x_flops / 1e9:.1f} GFLOP, {x_bytes / 1e6:.1f} MB) plain_ms {x_plain:.4f} "
+              f"library_ms {x_lib:.4f} (SDPA is_causal={causal}, enable_gqa); "
+              f"{x_flops / (x_ms * 1e9):.2f} TFLOP/s")
+        by_name["flash_attention"][key] = {
+            "shape": list(shape), "causal": causal, "ms": x_ms, "plain_ms": x_plain,
+            "bound_ms": x_bound, "bound_by": x_by, "library_ms": x_lib, "form": x_form,
+            "served": b8_vw[arch]}
+        del q, k_, v_
     # B7, timed in the rank world (phase 3's processes): WORLD ranks share
     # the card, so the world's bound is WORLD ranks' work; each rank does
     # B6's operations and writes WORLD - 1 hops of d r f32 to its neighbour.

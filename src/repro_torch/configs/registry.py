@@ -1,11 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (port of
 ``repro/configs/registry.py``).
 
-All ten arch ids of the reference are known.  The port runs the dense,
-MoE, hybrid (RG-LRU + local attention) and SSM (Mamba2 SSD) families; asking
-for an arch of another family raises ``NotImplementedError`` naming the
-ROADMAP item that ports it, rather than falling through to something
-else.
+All ten arch ids of the reference are known, and the port runs every
+family: dense, MoE, hybrid (RG-LRU + local attention), SSM (Mamba2 SSD),
+VLM (the patch-stub prefix) and audio (the encoder-decoder).
 """
 
 from __future__ import annotations
@@ -14,7 +12,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "PORTED_FAMILIES", "family_of", "get_config", "get_reduced_config"]
+__all__ = ["ARCHS", "family_of", "get_config", "get_reduced_config"]
 
 # arch id -> (module name, family)
 ARCHS: dict[str, tuple[str, str]] = {
@@ -29,12 +27,6 @@ ARCHS: dict[str, tuple[str, str]] = {
     "whisper-tiny": ("whisper_tiny", "audio"),
     "mamba2-370m": ("mamba2_370m", "ssm"),
 }
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-# Family not ported yet -> the ROADMAP item that ports it.
-_PENDING = {
-    "vlm": "A11-vlm",
-    "audio": "A11-whisper",
-}
 
 
 def family_of(arch: str) -> str:
@@ -44,12 +36,7 @@ def family_of(arch: str) -> str:
 
 
 def _module(arch: str):
-    family = family_of(arch)
-    if family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{arch} ({family} family) is not ported to repro_torch yet: "
-            f"ROADMAP {_PENDING[family]}"
-        )
+    family_of(arch)
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch][0]}")
 
 

@@ -8,13 +8,15 @@ numpy arrays, so one set of inputs made from a numpy seed feeds both
 packages; a bf16 array (numpy's ``ml_dtypes`` bfloat16) crosses bit for
 bit.
 
-For the LM, ``lm_params_from_reference`` loads the reference's parameter
-tree (as numpy arrays) into the port's ``LM``, so both packages compute
-the same function in the parity tests.  ``reference_leaves`` is the one
-path map between the two, for every family the port runs: each port
-leaf name (``blocks.3.mixer.wq``) with the reference's key path
-(``['stages'][0]['block0']['mixer']['wq']``), its layer in that stacked
-leaf, and the reference leaf's full shape and logical axes.  The
+For the models, ``lm_params_from_reference`` loads the reference's
+parameter tree (as numpy arrays) into the port's ``LM`` or ``EncDec``, so
+both packages compute the same function in the parity tests.
+``reference_leaves`` is the one path map between the two, for every
+family: each port leaf name (``blocks.3.mixer.wq``,
+``decoder.1.cross_attn.wq``) with the reference's key path
+(``['stages'][0]['block0']['mixer']['wq']``,
+``['decoder']['cross_attn']['wq']``), its layer in that stacked leaf, and
+the reference leaf's full shape and logical axes.  The
 trainers decide weight decay (``decays``) and compressibility
 (``optim.eigen_compress`` via ``launch.steps``) from the reference leaf,
 not from the port's tensor: the reference stacks a
@@ -95,7 +97,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def lm_params_from_reference(values, cfg, *, device: str | torch.device,
                              param_dtype: torch.dtype | None = None):
-    """The port's ``LM`` for ``cfg`` holding the reference's parameters.
+    """The port's model for ``cfg`` (``LM``, or ``EncDec`` for an
+    encoder-decoder) holding the reference's parameters.
 
     ``values`` is the reference's tree (``init_split(cfg, key)[0]``) with
     numpy leaves; every port leaf is read from its reference path and
@@ -106,9 +109,9 @@ def lm_params_from_reference(values, cfg, *, device: str | torch.device,
     """
     # Function-level import: the models import the kernels, which this
     # module's other helpers must not pull in.
-    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import model_class
 
-    model = LM(cfg, device=resolve_device(device), param_dtype=param_dtype)
+    model = model_class(cfg)(cfg, device=resolve_device(device), param_dtype=param_dtype)
     params = dict(model.named_parameters())
     with torch.no_grad():
         for name, leaf in reference_leaves(cfg).items():
@@ -144,10 +147,65 @@ class ReferenceLeaf:
         return self.shape if self.layer is None else self.shape[1:]
 
 
+_ATTENTION_AXES = {
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+}
+
+
+def _attention_leaves(cfg) -> dict[str, tuple]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d)}
+    return {n: (shapes[n], _ATTENTION_AXES[n]) for n in shapes}
+
+
+def _mlp_leaves(cfg) -> dict[str, tuple]:
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"wi": ((d, f), ("embed", "mlp")), "wo": ((f, d), ("mlp", "embed"))}
+    if cfg.gated_mlp:
+        out["wg"] = ((d, f), ("embed", "mlp"))
+    return out
+
+
+def _encdec_leaves(cfg) -> dict[str, ReferenceLeaf]:
+    """``repro/models/encdec.py::init_encdec``: embed (V_pad, d), unembed
+    (d, V_pad), enc_norm / dec_norm (d,), and the encoder's and decoder's
+    layers stacked (L, ...): ``encoder/{norm1, attn, norm2, mlp}``,
+    ``decoder/{norm1, self_attn, norm_x, cross_attn, norm2, mlp}``."""
+    d, vp = cfg.d_model, cfg.padded_vocab
+    out = {"embed": ReferenceLeaf("['embed']", None, (vp, d), ("vocab", "embed")),
+           "unembed": ReferenceLeaf("['unembed']", None, (d, vp), ("embed", "vocab")),
+           "enc_norm": ReferenceLeaf("['enc_norm']", None, (d,), ("embed",)),
+           "dec_norm": ReferenceLeaf("['dec_norm']", None, (d,), ("embed",))}
+    norm = {"": ((d,), ("embed",))}
+    stacks = (
+        ("encoder", cfg.num_encoder_layers,
+         (("norm1", norm), ("attn", _attention_leaves(cfg)), ("norm2", norm),
+          ("mlp", _mlp_leaves(cfg)))),
+        ("decoder", cfg.num_layers,
+         (("norm1", norm), ("self_attn", _attention_leaves(cfg)), ("norm_x", norm),
+          ("cross_attn", _attention_leaves(cfg)), ("norm2", norm),
+          ("mlp", _mlp_leaves(cfg)))),
+    )
+    for stack, count, parts in stacks:
+        for layer in range(count):
+            for part, leaves in parts:
+                for leaf, (shape, axes) in leaves.items():
+                    name = f"{part}.{leaf}" if leaf else part
+                    keys = "".join(f"['{key}']" for key in name.split("."))
+                    out[f"{stack}.{layer}.{name}"] = ReferenceLeaf(
+                        f"['{stack}']{keys}", layer, (count, *shape), ("layers", *axes))
+    return out
+
+
 def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
-    """Port leaf name -> ``ReferenceLeaf`` for every parameter of the LM of
-    ``cfg`` (``repro/models/lm.py::init_lm`` and ``layers.init_*``):
-    embed (V_pad, d), unembed (d, V_pad), final_norm (d,), and per stage,
+    """Port leaf name -> ``ReferenceLeaf`` for every parameter of the model
+    of ``cfg``: an encoder-decoder's (``_encdec_leaves``), or the LM's
+    (``repro/models/lm.py::init_lm`` and ``layers.init_*``):
+    embed (V_pad, d), unembed (d, V_pad), a VLM's patch_proj
+    (patch_embed_dim, d), final_norm (d,), and per stage,
     stacked over its count L, each block's norm1 / norm2 (L, d), its
     mixer's leaves by kind and the MLP's wi / wg (L, d, f) and wo (L, f, d),
     or an MoE config's router (L, d, e), wi / wg (L, e, d, f) and wo
@@ -157,20 +215,19 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
     conv (L, K, w), wa / wi (L, w, w), wo (L, w, d), lam (L, w); SSD wx /
     wz (L, d, di), wb / wc (L, d, N), wdt (L, d, H), conv (L, K, di), wo
     (L, di, d), a_log / dt_bias / dskip (L, H)."""
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                       cfg.d_ff)
+    if cfg.is_encoder_decoder:
+        return _encdec_leaves(cfg)
+    d, f = cfg.d_model, cfg.d_ff
     out = {"embed": ReferenceLeaf("['embed']", None, (cfg.padded_vocab, d),
                                   ("vocab", "embed"))}
     if not cfg.tie_embeddings:
         out["unembed"] = ReferenceLeaf("['unembed']", None, (d, cfg.padded_vocab),
                                        ("embed", "vocab"))
+    if cfg.num_patches:
+        out["patch_proj"] = ReferenceLeaf("['patch_proj']", None,
+                                          (cfg.patch_embed_dim, d), (None, "embed"))
     out["final_norm"] = ReferenceLeaf("['final_norm']", None, (d,), ("embed",))
-    attention = {
-        "wq": ((d, h, hd), ("embed", "heads", "head_dim")),
-        "wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "wo": ((h, hd, d), ("heads", "head_dim", "embed")),
-    }
+    attention = _attention_leaves(cfg)
     w, k = cfg.lru_width or d, cfg.conv_width
     di, nh, ns = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state_dim
     mixers = {
@@ -208,10 +265,7 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
                "mlp.wo": ((e, f, d), ("experts", "mlp", "embed"))}
     elif f > 0:
         mlp = {"norm2": ((d,), ("embed",)),
-               "mlp.wi": ((d, f), ("embed", "mlp")),
-               "mlp.wo": ((f, d), ("mlp", "embed"))}
-        if cfg.gated_mlp:
-            mlp["mlp.wg"] = ((d, f), ("embed", "mlp"))
+               **{f"mlp.{n}": v for n, v in _mlp_leaves(cfg).items()}}
     b = 0
     for s_idx, (pattern, count) in enumerate(cfg.stages()):
         for layer in range(count):
@@ -228,13 +282,14 @@ def reference_leaves(cfg) -> dict[str, ReferenceLeaf]:
 
 
 def decays(cfg):
-    """The weight-decay rule for the LM of ``cfg``: ``decays(name, p)`` is
-    True when the reference's leaf has two or more dimensions (the
+    """The weight-decay rule for the model of ``cfg``: ``decays(name, p)``
+    is True when the reference's leaf has two or more dimensions (the
     reference's ``p.ndim >= 2``): every per-block leaf, norms and the
     recurrent mixers' vectors included (RG-LRU's ``lam`` and SSD's
     ``a_log``, ``dt_bias``, ``dskip`` are stacked (L, w) / (L, H) there,
-    even where a stage has L = 1), and the embeddings; not
-    ``final_norm``."""
+    even where a stage has L = 1; the enc-dec's layer norms (L, d)), the
+    embeddings and ``patch_proj``; not ``final_norm``, ``enc_norm`` or
+    ``dec_norm``."""
     leaves = reference_leaves(cfg)
     return lambda name, p=None: len(leaves[name].shape) >= 2
 

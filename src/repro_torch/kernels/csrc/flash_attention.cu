@@ -1,4 +1,7 @@
-// B8: causal / sliding-window GQA flash attention, forward.
+// B8: GQA flash attention, forward: causal, sliding-window, or
+// bidirectional (causal = 0: every query row sees all t keys, the enc-dec
+// encoder's form; kv_tiles then visits every key tile and tile_whole
+// masks only the ragged last tile past t).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (def :122, body _flash_kernel :40, pallas_call :174).
@@ -11,9 +14,10 @@
 //     probabilities P stay f32 (the reference rebinds v to f32, so
 //     p.astype(v.dtype) keeps P in f32);
 //   * queries are right-aligned, q_pos = (t - s) + i; causal mask
-//     q_pos >= k_pos, window mask q_pos - k_pos < window; keys past t are
-//     masked; masked probabilities are 0; a row with no visible key gives
-//     zeros (l == 0 guard), not the uniform mean of v.
+//     q_pos >= k_pos (none when causal = 0), window mask q_pos - k_pos <
+//     window; keys past t are masked; masked probabilities are 0; a row
+//     with no visible key gives zeros (l == 0 guard), not the uniform mean
+//     of v.
 //
 // What bounds it on an H100: operations.  At the serving shape (b 4,
 // hq 24, hkv 8, s = t = 4096, hd 128, causal) the two products are

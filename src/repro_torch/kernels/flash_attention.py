@@ -1,11 +1,13 @@
-"""Causal / sliding-window GQA flash attention (forward): wrapper over the
-B8 CUDA kernel.
+"""GQA flash attention, forward: causal, sliding-window (causal within the
+window), or bidirectional (``causal=False``, every query row sees all t
+keys: the enc-dec encoder); wrapper over the B8 CUDA kernel.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``.  The kernel (``csrc/flash_attention.cu``) runs one
 block per (128-row query tile, batch x query head), reads each query
 head's KV head in place, loops over only the key tiles that hold a
-visible key, and masks ragged s, t and head_dim itself.  bf16 inputs go
+visible key (all of them when bidirectional), and masks ragged s, t and
+head_dim itself.  bf16 inputs go
 through the tensor cores: a producer warpgroup streams Q, K and V tiles
 by TMA into a ring of shared-memory stages, two consumer warpgroups run
 ``wgmma`` on them (f32 accumulation, the probabilities split into two

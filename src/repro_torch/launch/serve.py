@@ -8,17 +8,26 @@ service::
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --full-config
     python -m repro_torch.launch.serve --arch mamba2-370m --full-config
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full-config
+    python -m repro_torch.launch.serve --arch internvl2-2b --full-config
+    python -m repro_torch.launch.serve --arch whisper-tiny --full-config
     python -m repro_torch.launch.serve --subspace --dim 8192 --subspace-rank 128
 
-LM lane (the dense, MoE, hybrid and SSM families): builds the model from a
-seeded ``torch.Generator`` (random weights, as the reference), draws
-``batch`` prompts of ``prompt_len`` tokens from the next seed, prefills
-them in one batch, then decodes ``gen`` greedy tokens for every row in
-lockstep.  Prefill runs the flash kernel (B8) in every attention block
-(full or local) on a Hopper card, so once per layer for the dense and
-MoE families (48 times for qwen3-moe-30b-a3b), 8 times for
-recurrentgemma-2b and never for mamba2-370m; decode steps take the plain
-grouped product and the recurrences' one step.
+LM lane (every family): builds the model from a seeded
+``torch.Generator`` (random weights, as the reference), draws ``batch``
+prompts of ``prompt_len`` tokens from the next seed, and from the same
+generator the stub frontend's inputs in the config's dtype, as the
+reference draws them from the prompts' key: a VLM's patch embeddings
+(batch, num_patches, patch_embed_dim), which go ahead of the prompt, and
+an encoder-decoder's frames (batch, prompt_len, d_model), which the
+encoder takes.  It prefills them in one batch, then decodes ``gen``
+greedy tokens for every row in lockstep (a VLM's cache and decode
+positions offset by its patches).  Prefill runs the flash kernel (B8) in
+every self-attention block on a Hopper card, so once per layer for the
+dense, MoE and VLM families (48 times for qwen3-moe-30b-a3b, 24 for
+internvl2-2b), 8 times for recurrentgemma-2b and for whisper-tiny (4
+bidirectional in its encoder, 4 causal in its decoder) and never for
+mamba2-370m; decode steps take the plain grouped product, whisper's
+plain cross-attention and the recurrences' one step.
 Prints the reference's lines (the token matrix's shape and the timings)
 and adds tokens per second, the attention blocks and the flash launches
 of prefill and decode.  One process, one device: the reference's mesh,
@@ -48,9 +57,10 @@ from repro_torch import kernels
 from repro_torch.configs import ARCHS, get_config, get_reduced_config
 from repro_torch.interop import resolve_device, strict_fp32
 from repro_torch.launch.mesh import under_torchrun
-from repro_torch.models import LM, build
+from repro_torch.models import LM, EncDec, build
+from repro_torch.models.lm import dtype_of
 
-__all__ = ["load", "generate", "serve", "serve_subspace", "main"]
+__all__ = ["load", "prefill", "generate", "serve", "serve_subspace", "main"]
 
 
 def _flash_launches() -> int:
@@ -65,10 +75,13 @@ def load(
     reduced: bool = True,
     device: str | torch.device = "cuda",
     seed: int = 0,
-) -> tuple[LM, torch.Tensor]:
-    """The served model and its prompts: weights from a generator on
-    ``device`` seeded ``seed``, ``batch`` prompts of ``prompt_len`` tokens
-    from one seeded ``seed + 1``."""
+) -> tuple[LM | EncDec, torch.Tensor, dict[str, torch.Tensor]]:
+    """The served model, its prompts and its stub frontend's inputs:
+    weights from a generator on ``device`` seeded ``seed``; ``batch``
+    prompts of ``prompt_len`` tokens from one seeded ``seed + 1``, then
+    from that generator ``{"patch_embeds"}`` (VLM) or ``{"frames"}``
+    (encoder-decoder, ``prompt_len`` frames) in the config's dtype, or
+    ``{}``."""
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     dev = resolve_device(device)
     model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
@@ -76,12 +89,44 @@ def load(
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), generator=pgen, device=dev
     )
-    return model, prompts
+    kw = dict(generator=pgen, device=dev, dtype=dtype_of(cfg))
+    stub = {}
+    if cfg.is_encoder_decoder:
+        stub["frames"] = torch.randn(batch, prompt_len, cfg.d_model, **kw)
+    if cfg.num_patches:
+        stub["patch_embeds"] = torch.randn(batch, cfg.num_patches, cfg.patch_embed_dim, **kw)
+    return model, prompts, stub
 
 
-def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tensor, dict]:
-    """Prefill ``prompts`` (batch, prompt_len) into a cache of
-    ``prompt_len + gen`` slots, then ``gen`` greedy decode steps.
+def prefill(
+    model: LM | EncDec,
+    prompts: torch.Tensor,
+    *,
+    patch_embeds: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
+    **kw,
+):
+    """``model.prefill`` of ``prompts`` with the stub frontend's inputs
+    (``load``'s third value): an encoder-decoder's ``frames``, a VLM's
+    ``patch_embeds``, or neither; ``kw`` (``cache_len``, ``use_kernel``)
+    passes through."""
+    if frames is not None:
+        return model.prefill(frames, prompts, **kw)
+    return model.prefill(prompts, patch_embeds=patch_embeds, **kw)
+
+
+def generate(
+    model: LM | EncDec,
+    prompts: torch.Tensor,
+    *,
+    gen: int,
+    patch_embeds: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill ``prompts`` (batch, prompt_len), after a VLM's P
+    ``patch_embeds`` or with an encoder-decoder's ``frames``, into a cache
+    of ``P + prompt_len + gen`` slots (the reference's ``cache_len``),
+    then ``gen`` greedy decode steps from position ``P + prompt_len``.
 
     Returns the (batch, gen) token matrix (CPU, int64: the prefill's
     token, then one per decode step but the last) and ``{"prefill_s",
@@ -92,6 +137,7 @@ def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tenso
     """
     dev = prompts.device
     prompt_len = prompts.shape[1]
+    start = prompt_len + (0 if patch_embeds is None else patch_embeds.shape[1])
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -100,7 +146,8 @@ def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tenso
     sync()
     n0 = _flash_launches()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, cache_len=prompt_len + gen)
+    logits, cache = prefill(model, prompts, patch_embeds=patch_embeds, frames=frames,
+                            cache_len=start + gen)
     sync()
     t_prefill = time.perf_counter() - t0
     n1 = _flash_launches()
@@ -110,7 +157,7 @@ def generate(model: LM, prompts: torch.Tensor, *, gen: int) -> tuple[torch.Tenso
     t0 = time.perf_counter()
     for i in range(gen):
         out.append(tok[:, 0])
-        logits, cache = model.decode_step(tok, cache, prompt_len + i)
+        logits, cache = model.decode_step(tok, cache, start + i)
         tok = torch.argmax(logits, dim=-1)[:, None]
     sync()
     t_decode = time.perf_counter() - t0
@@ -133,11 +180,12 @@ def serve(
     device: str | torch.device = "cuda",
     seed: int = 0,
 ) -> tuple[torch.Tensor, dict]:
-    """``load`` the model and prompts, then ``generate``: ``batch`` random
-    prompts prefilled, then ``gen`` greedy decode steps."""
-    model, prompts = load(arch, batch=batch, prompt_len=prompt_len,
-                          reduced=reduced, device=device, seed=seed)
-    return generate(model, prompts, gen=gen)
+    """``load`` the model, prompts and stub inputs, then ``generate``:
+    ``batch`` random prompts prefilled, then ``gen`` greedy decode
+    steps."""
+    model, prompts, stub = load(arch, batch=batch, prompt_len=prompt_len,
+                                reduced=reduced, device=device, seed=seed)
+    return generate(model, prompts, gen=gen, **stub)
 
 
 def serve_subspace(
@@ -278,10 +326,7 @@ def main(argv=None) -> int:
         return 0
     if not args.arch:
         ap.error("--arch is required (or pass --subspace)")
-    try:  # an arch of an unported family names its ROADMAP item
-        cfg = get_config(args.arch) if args.full_config else get_reduced_config(args.arch)
-    except NotImplementedError as err:
-        ap.error(str(err))
+    cfg = get_config(args.arch) if args.full_config else get_reduced_config(args.arch)
     dev = resolve_device(args.device)
     strict_fp32()
     toks, stats = serve(

@@ -27,12 +27,18 @@ compressed leaf, as the reference's.  Weight decay of the other leaves
 and compressibility follow the reference's leaf (``interop.decays``,
 ``compressed_paths``).
 
-The steps train the dense, hybrid (RG-LRU + local attention) and SSM
-(Mamba2 SSD) families, whose gradients through the causal conv, the
-scans and the tied embedding are held against the reference's.  The MoE
-family serves but does not train yet (``refuse_untrained``, ROADMAP
-A11-moe-train): its gradient through the routing has not been held
-against the reference's.
+The steps train the dense, hybrid (RG-LRU + local attention), SSM
+(Mamba2 SSD), VLM and audio (encoder-decoder) families, whose gradients
+are held against the reference's.  The batch carries a VLM's optional
+``patch_embeds`` (B, P, patch_embed_dim) or an encoder-decoder's
+``frames`` (B, S_enc, d_model) beside its tokens and labels; the model's
+loss takes them (``models.registry.loss``) and ``shard_rows`` splits them
+with the rows.  A leaf the batch does not reach (a VLM's ``patch_proj``
+on a text batch) gets a zero gradient, as the reference's ``jax.grad``
+gives: AdamW then only decays it, and the eigen refresh takes its local
+basis of a zero matrix.  The MoE family serves but does not train yet
+(``refuse_untrained``, ROADMAP A11-moe-train): its gradient through the
+routing has not been held against the reference's.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ import torch.distributed as dist
 
 from repro_torch.comm import transport
 from repro_torch.interop import decays, reference_leaves
-from repro_torch.models.lm import LM, loss_fn
+from repro_torch.models import EncDec, LM
+from repro_torch.models.registry import loss as loss_fn
 from repro_torch.optim import eigen_compress as EC
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -83,8 +90,17 @@ def refuse_untrained(cfg) -> None:
             f"repro_torch yet: ROADMAP {item}")
 
 
+Model = LM | EncDec
+
+
+def _grads(loss: torch.Tensor, leaves: list) -> tuple:
+    """d loss / d leaves, zeros for a leaf the loss does not reach."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
+
 def shard_rows(batch: Batch, shard: int, m: int) -> Batch:
-    """Rows [shard b/m, (shard + 1) b/m) of every array of ``batch``."""
+    """Rows [shard b/m, (shard + 1) b/m) of every array of ``batch``
+    (tokens, labels, and patch embeddings or frames)."""
     b = batch["tokens"].shape[0]
     if b % m:
         raise ValueError(f"batch {b} does not split into {m} shards")
@@ -108,7 +124,7 @@ def _mean_loss(losses: list, m: int, group) -> torch.Tensor:
 
 
 # ----------------------------------------------------------- baseline step --
-def make_train_step(model: LM, *, adamw_cfg: AdamWConfig, schedule, group=None):
+def make_train_step(model: Model, *, adamw_cfg: AdamWConfig, schedule, group=None):
     """AdamW train step (clip, decay by the reference leaf, NaN guard).
     With ``group`` each rank runs its rows and the gradients and loss are
     all-reduced / m: the data-parallel baseline the eigen step
@@ -121,7 +137,7 @@ def make_train_step(model: LM, *, adamw_cfg: AdamWConfig, schedule, group=None):
         m, mine = _world(None, group)
         b = batch if group is None else shard_rows(batch, mine[0], m)
         loss, metrics = loss_fn(model, b)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = dict(zip(params, _grads(loss, list(params.values()))))
         if group is not None:
             for g in grads.values():
                 transport.all_reduce(g, group=group).div_(m)
@@ -142,7 +158,10 @@ def compressed_paths(cfg, ecfg: EC.EigenCompressConfig) -> Dict[str, tuple]:
     dims, (L, d, h, hd) -> (L, d, h hd) for wq and (L, h, hd, d) ->
     (L, h hd, d) for wo (wk / wv, whose axes name kv_heads, are not
     compressed); then d >= min_dim, n >= rank and d >= rank.  The port's
-    tensors are those views already."""
+    tensors are those views already.  Like the reference's trainer it
+    reads no config flag: whisper-tiny's ``eigen_compress=False`` changes
+    nothing, and its embeddings, the three attentions' wq / wo and the
+    MLPs are compressed."""
     out = {}
     for name, leaf in reference_leaves(cfg).items():
         shape, axes = leaf.shape, leaf.axes
@@ -167,7 +186,7 @@ def compressed_paths(cfg, ecfg: EC.EigenCompressConfig) -> Dict[str, tuple]:
     return out
 
 
-def eigen_opt_init(model: LM, ecfg: EC.EigenCompressConfig, n_data_shards: int, *,
+def eigen_opt_init(model: Model, ecfg: EC.EigenCompressConfig, n_data_shards: int, *,
                    group=None) -> dict:
     """Optimizer state: full f32 Adam moments for the uncompressed leaves,
     the low-rank state for the compressed ones (``err`` with a leading
@@ -189,7 +208,7 @@ def eigen_opt_init(model: LM, ecfg: EC.EigenCompressConfig, n_data_shards: int, 
 
 
 def make_eigen_train_step(
-    model: LM,
+    model: Model,
     *,
     adamw_cfg: AdamWConfig,
     schedule,
@@ -212,7 +231,7 @@ def make_eigen_train_step(
         losses = []
         for i in mine:
             loss, _ = loss_fn(model, shard_rows(batch, i, m))
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = _grads(loss, list(params.values()))
             losses.append(loss.detach())
             for name, g in zip(params, grads):
                 if name in eig:
@@ -254,7 +273,7 @@ def make_eigen_train_step(
 
 
 def make_eigen_refresh_step(
-    model: LM,
+    model: Model,
     *,
     ecfg: EC.EigenCompressConfig,
     shards: Optional[int] = None,
@@ -275,7 +294,7 @@ def make_eigen_refresh_step(
         local: Dict[str, list] = {n: [] for n in names}
         for i in mine:
             loss, _ = loss_fn(model, shard_rows(batch, i, m))
-            grads = torch.autograd.grad(loss, [params[n] for n in names])
+            grads = _grads(loss, [params[n] for n in names])
             with torch.no_grad():
                 for name, g in zip(names, grads):
                     r = eig[name]["basis"].shape[1]

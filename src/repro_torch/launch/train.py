@@ -18,14 +18,21 @@ seeded ``TokenPipeline``.  One process holds ``--shards`` data-parallel
 shards stacked; under ``torchrun`` each rank is one shard
 (``launch.mesh.make_aggregation_mesh``) and takes its rows of the global
 batch.  Runs on the card unless ``--device cpu``; without a card it
-refuses to start.  The dense, hybrid and SSM families train; the MoE
+refuses to start.  The dense, hybrid, SSM and VLM families train; a VLM
+(internvl2-2b) trains on the pipeline's text batches, as the
+reference's launcher trains it (its pipeline gives no patch embeddings,
+so ``patch_proj`` gets a zero gradient and is only decayed).  The MoE
 family is refused (``launch.steps.refuse_untrained``, ROADMAP
-A11-moe-train).  Examples::
+A11-moe-train), and so is an encoder-decoder (whisper-tiny): the
+pipeline gives no frames, which its loss needs, and the reference's
+launcher fails on it too (``KeyError: 'frames'``); ``launch.steps``
+trains it on batches that carry frames.  Examples::
 
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8 \\
         --eigen --shards 4
     python -m repro_torch.launch.train --device cpu --arch mamba2-370m --steps 8 --eigen
+    python -m repro_torch.launch.train --device cpu --arch internvl2-2b --steps 8 --eigen
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
         --arch granite-3-2b --steps 8 --eigen
 """
@@ -62,9 +69,20 @@ from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import FailureInjector, SimulatedPreemption
 from repro_torch.runtime.straggler import StepTimer, StragglerMonitor
 
-__all__ = ["train", "main"]
+__all__ = ["train", "main", "refuse_encdec"]
 
 log = logging.getLogger("repro_torch.train")
+
+
+def refuse_encdec(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an encoder-decoder config: the token
+    pipeline has no frames (see the module docstring)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the launcher's token pipeline gives "
+            "no frames, which its loss needs (the reference's launcher fails on it "
+            "with KeyError: 'frames'); train it through repro_torch.launch.steps on "
+            "batches that carry frames")
 
 
 def _device_batch(batch: dict, dev: torch.device) -> dict:
@@ -117,6 +135,7 @@ def train(
     cfg = arch if isinstance(arch, ModelConfig) else (
         get_reduced_config(arch) if reduced else get_config(arch))
     refuse_untrained(cfg)
+    refuse_encdec(cfg)
     dev = resolve_device(device)
     strict_fp32()
     if group is not None and shards is not None:
@@ -245,6 +264,10 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=None,
                     help="data-parallel shards stacked in this process (not under torchrun)")
     args = ap.parse_args(argv)
+    try:
+        refuse_encdec(get_config(args.arch))
+    except ValueError as err:
+        ap.error(str(err))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     group, device, rank = None, args.device, 0
     if under_torchrun():

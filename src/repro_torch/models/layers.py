@@ -1,6 +1,7 @@
-"""Model-layer primitives of the port's LM: RMS norm, RoPE, GQA attention
-(full and local), the MLP, the routed MoE MLP, the causal conv, the
-RG-LRU and Mamba2 SSD mixers (port of ``repro/models/layers.py``).
+"""Model-layer primitives of the port's models: RMS norm, RoPE, GQA
+self-attention (causal full and local, or bidirectional), cross-attention,
+the MLP, the routed MoE MLP, the causal conv, the RG-LRU and Mamba2 SSD
+mixers (port of ``repro/models/layers.py``).
 
 Layouts follow the reference so weights cross unchanged in meaning:
 activations are (B, S, M); the attention's projections hold the
@@ -27,8 +28,6 @@ the config's dtype to serve, f32 master weights to train) and cast to the
 activations' dtype at every use, as the reference casts its f32
 parameters; a cast to the dtype a weight already has is a no-op, so
 serving's bf16 weights are used as they are.
-
-Not ported here: cross-attention (ROADMAP A11-whisper).
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "apply_rope", "Attention", "MLP", "MoE", "Routing", "moe_capacity",
+__all__ = ["rms_norm", "apply_rope", "Attention", "CrossAttention", "MLP", "MoE", "Routing", "moe_capacity",
            "causal_conv", "RGLRU", "SSD", "doubling_scan", "silu_ref", "gelu_tanh_ref",
            "cross_entropy"]
 
@@ -97,8 +96,8 @@ def apply_rope(
 
 class Attention(nn.Module):
     """GQA self-attention, full (causal) or local (causal within the last
-    ``window`` positions): ``apply_attention`` of the reference without
-    its cross-attention branch.
+    ``window`` positions), or bidirectional with ``causal=False`` (the
+    enc-dec encoder): ``apply_attention`` of the reference.
 
     train:   causal (windowed) attention over the sequence, no cache.
     prefill: the same, and the block's K/V written in place into the
@@ -116,17 +115,19 @@ class Attention(nn.Module):
 
     Prefill goes through ``kernels.ops.attention``: the flash kernel (B8)
     for CUDA tensors, the plain ``ref.attention`` for CPU tensors or when
-    ``use_kernel=False``.  Train always takes the plain ``ref.attention``:
-    B8 has no backward (the reference trains through XLA too), so its
+    ``use_kernel=False``.  Train takes the plain ``ref.attention`` unless
+    the caller passes ``use_kernel=True`` with no gradient taken (the
+    encoder while serving, ``EncDec.encode``): B8 has no backward, so its
     output would carry no gradient to wq, wk and wv.  Decode always takes
     the plain product, as the reference keeps it in XLA.
     """
 
-    def __init__(self, cfg: ModelConfig, *, window: int | None = None, device=None,
-                 dtype=None):
+    def __init__(self, cfg: ModelConfig, *, window: int | None = None,
+                 causal: bool = True, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.window = window
+        self.causal = causal
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype)
         self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
@@ -193,11 +194,11 @@ class Attention(nn.Module):
             new_cache = cache
         elif mode in ("train", "prefill"):
             if mode == "train":
-                if use_kernel:
+                if use_kernel and torch.is_grad_enabled():
                     raise ValueError("train takes plain attention: B8 has no backward")
-                use_kernel = False
+                use_kernel = bool(use_kernel)
             out = kops.attention(
-                qt, kt, vt, causal=True, window=window, use_kernel=use_kernel,
+                qt, kt, vt, causal=self.causal, window=window, use_kernel=use_kernel,
                 probs_bf16=cfg.attn_probs_bf16,
             )
             new_cache = None
@@ -218,9 +219,47 @@ class Attention(nn.Module):
         return y @ self.wo.to(cdt), new_cache
 
 
+class CrossAttention(Attention):
+    """Cross-attention of the enc-dec decoder (``apply_cross_attention``):
+    queries from x (B, S, M), keys and values projected from the
+    encoder's output (B, T_enc, M), no RoPE, every query seeing every
+    key.  Without a cache it projects ``enc_out`` and returns the
+    (B, KV, T_enc, D) K/V as the cache (prefill builds it once); with one
+    it reuses it (decode).  Plain attention with f32 probabilities, as
+    the reference's ``use_kernel=False`` call.  ``Attention``'s leaves
+    (``init_cross_attention`` is ``init_attention``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__(cfg, causal=False, device=device, dtype=dtype)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        enc_out: torch.Tensor | None = None,
+        cache: dict[str, torch.Tensor] | None = None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        cdt = x.dtype
+        q = (x @ self.wq.to(cdt)).view(b, s, h, hd).transpose(1, 2)
+        if cache is None:
+            t = enc_out.shape[1]
+            k = (enc_out @ self.wk.to(cdt)).view(b, t, kv, hd).transpose(1, 2)
+            v = (enc_out @ self.wv.to(cdt)).view(b, t, kv, hd).transpose(1, 2)
+            cache = {"k": k.contiguous(), "v": v.contiguous()}
+        out = kops.attention(q, cache["k"], cache["v"], causal=False, use_kernel=False)
+        y = out.transpose(1, 2).reshape(b, s, h * hd)
+        return y @ self.wo.to(cdt), cache
+
+
 class MLP(nn.Module):
     """SwiGLU MLP (``silu(x wg) * (x wi)``, then ``wo``), or the plain
-    tanh-approximate GELU MLP when ``cfg.gated_mlp`` is off (whisper)."""
+    tanh-approximate GELU MLP when ``cfg.gated_mlp`` is off (whisper):
+    ``F.gelu`` rounds once where the reference's ``jax.nn.gelu`` rounds
+    every op, within one bf16 step of the input, which whisper's bf16
+    parity bars absorb (``tests/test_torch_encdec.py``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()

@@ -1,5 +1,6 @@
-"""Decoder-only LM of the dense, MoE, hybrid and SSM families (port of
-``repro/models/lm.py``).
+"""Decoder-only LM of the dense, MoE, hybrid, SSM and VLM families (port
+of ``repro/models/lm.py``; the audio family's encoder-decoder is
+``models/encdec.py``).
 
 The depth follows ``cfg.stages()``, the remainder stage included: one
 ``Block`` per mixer of each stage's pattern, repeated ``count`` times, in
@@ -8,6 +9,15 @@ reference's ``jax.lax.scan`` over stacked parameters.  A block's kind
 picks its mixer: ``attn`` (full attention), ``local_attn`` (windowed,
 ``cfg.window_size``), ``rglru`` or ``ssd``; its MLP is the routed
 ``MoE`` when ``cfg.is_moe``, else the dense ``MLP``.
+
+A VLM config (``cfg.num_patches``) has the reference's patch stub: its
+``patch_embeds`` (B, P, patch_embed_dim), the stand-in for the vision
+tower's output, are projected by ``patch_proj`` (patch_embed_dim, d) in
+the compute dtype and put ahead of the token embeddings; positions run
+over all P + S, ``loss_fn`` keeps the text positions' logits only, and a
+served prompt's decode positions start at P + S.  Without
+``patch_embeds`` the model is a text LM (``patch_proj`` unused), as the
+reference's trainer runs it on its token batches.
 
 Modes of ``LM.forward``:
   train   - causal forward over the whole sequence, (B, S, V_pad) logits;
@@ -74,20 +84,6 @@ Cache = list[dict[str, torch.Tensor]]
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _refuse_unported(cfg: ModelConfig) -> None:
-    """The port's LM runs the dense, MoE, hybrid and SSM families; name
-    the ROADMAP item of the rest rather than run something else."""
-    pending = []
-    if cfg.num_patches:
-        pending.append("VLM patch stub: ROADMAP A11-vlm")
-    if cfg.is_encoder_decoder:
-        pending.append("encoder-decoder: ROADMAP A11-whisper")
-    if pending:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet ({'; '.join(pending)})"
-        )
 
 
 ATTENTION_KINDS = ("attn", "local_attn")
@@ -162,7 +158,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, param_dtype=None):
         super().__init__()
         cfg.validate()
-        _refuse_unported(cfg)
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build models.EncDec")
         self.cfg = cfg
         dtype = param_dtype or dtype_of(cfg)
         d, vp = cfg.d_model, cfg.padded_vocab
@@ -170,6 +167,10 @@ class LM(nn.Module):
         self.unembed = None
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(torch.empty(d, vp, device=device, dtype=dtype))
+        self.patch_proj = None
+        if cfg.num_patches:
+            self.patch_proj = nn.Parameter(
+                torch.empty(cfg.patch_embed_dim, d, device=device, dtype=dtype))
         self.final_norm = nn.Parameter(torch.zeros(d, device=device))
         self.blocks = nn.ModuleList(
             Block(cfg, kind, device=device, dtype=dtype)
@@ -192,6 +193,7 @@ class LM(nn.Module):
         self,
         tokens: torch.Tensor,
         *,
+        patch_embeds: torch.Tensor | None = None,
         mode: str = "train",
         cache: Cache | None = None,
         pos: int | None = None,
@@ -199,18 +201,21 @@ class LM(nn.Module):
     ) -> tuple[torch.Tensor, Cache | None]:
         """tokens (B, S) -> (f32 logits, cache).  decode: S == 1 at
         position ``pos``; prefill with a ``cache`` writes into it.
-        ``use_kernel`` picks the prefill's attention path
+        ``patch_embeds`` (B, P, patch_embed_dim) go ahead of the tokens
+        (VLM).  ``use_kernel`` picks the prefill's attention path
         (``kernels.ops.attention``: None = the flash kernel for CUDA
         tensors); train always takes plain attention, decode the plain
         grouped product."""
         logits, new_cache, _ = self.forward_with_aux(
-            tokens, mode=mode, cache=cache, pos=pos, use_kernel=use_kernel)
+            tokens, patch_embeds=patch_embeds, mode=mode, cache=cache, pos=pos,
+            use_kernel=use_kernel)
         return logits, new_cache
 
     def forward_with_aux(
         self,
         tokens: torch.Tensor,
         *,
+        patch_embeds: torch.Tensor | None = None,
         mode: str = "train",
         cache: Cache | None = None,
         pos: int | None = None,
@@ -223,6 +228,10 @@ class LM(nn.Module):
         cdt = dtype_of(cfg)
         # Gather, then cast: the reference's take of the cast table.
         x = F.embedding(tokens, self.embed).to(cdt)  # (B, S, M)
+        if patch_embeds is not None:
+            if self.patch_proj is None:
+                raise ValueError(f"{cfg.name} takes no patch embeddings")
+            x = torch.cat([patch_embeds.to(cdt) @ self.patch_proj.to(cdt), x], dim=1)
         s = x.shape[1]
         if mode == "decode":
             positions = torch.full((1,), pos, device=x.device)
@@ -264,18 +273,22 @@ class LM(nn.Module):
         self,
         tokens: torch.Tensor,
         *,
+        patch_embeds: torch.Tensor | None = None,
         cache_len: int | None = None,
         use_kernel: bool | None = None,
     ) -> tuple[torch.Tensor, Cache]:
-        """Build the serving cache from a prompt (B, S): returns the last
-        position's logits (B, V_pad) f32 and the cache for a serving
-        length of ``max(cache_len, S)``: full-attention K/V in its first S
+        """Build the serving cache from a prompt (B, S), after its P patch
+        embeddings if given: returns the last position's logits
+        (B, V_pad) f32 and the cache for a serving length of
+        ``max(cache_len, P + S)``: full-attention K/V in its first P + S
         slots, local rings holding the last ``window`` keys, recurrent
         states after the prompt's last token."""
         b, s = tokens.shape
+        s += 0 if patch_embeds is None else patch_embeds.shape[1]
         cache = self.init_cache(b, max(cache_len or s, s))
         logits, cache = self.forward(
-            tokens, mode="prefill", cache=cache, use_kernel=use_kernel
+            tokens, patch_embeds=patch_embeds, mode="prefill", cache=cache,
+            use_kernel=use_kernel,
         )
         return logits[:, -1], cache
 
@@ -293,10 +306,13 @@ def loss_fn(
     model: LM, batch: dict[str, torch.Tensor], *, aux_coef: float = 0.01
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token CE of ``batch`` (tokens (B, S), labels (B, S), optional
-    loss_mask) in f32 plus ``aux_coef`` times the MoE layers' aux loss
-    summed over the blocks, and ``{"ce", "aux"}``.  The aux loss is 0 for
-    the families without MoE layers, so their loss is the CE (the
-    reference adds ``aux_coef * 0``)."""
-    logits, _, aux = model.forward_with_aux(batch["tokens"], mode="train")
+    loss_mask, optional patch_embeds) in f32 plus ``aux_coef`` times the
+    MoE layers' aux loss summed over the blocks, and ``{"ce", "aux"}``.
+    The aux loss is 0 for the families without MoE layers, so their loss
+    is the CE (the reference adds ``aux_coef * 0``).  With patches the
+    CE is over the text positions' logits (the last S)."""
+    logits, _, aux = model.forward_with_aux(
+        batch["tokens"], patch_embeds=batch.get("patch_embeds"), mode="train")
+    logits = logits[:, -batch["labels"].shape[1]:]  # patches are context only
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

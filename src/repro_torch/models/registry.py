@@ -1,9 +1,11 @@
 """Building the port's model from a config (port of
-``repro/models/registry.py``, the LM lane).
+``repro/models/registry.py``).
 
-``build(cfg, device=..., generator=...)`` returns the ``LM`` module,
-whose ``prefill`` / ``decode_step`` / ``init_cache`` are the serving
-surface of the reference's ``ModelApi``.  ``init_params`` fills it from a
+``build(cfg, device=..., generator=...)`` returns the ``LM`` module, or
+the ``EncDec`` one for an encoder-decoder config, as the reference's
+``ModelApi`` picks ``lm`` or ``encdec``; their ``prefill`` /
+``decode_step`` / ``init_cache`` are its serving surface and ``loss``
+its loss (``lm.loss_fn`` or ``encdec.loss_fn``).  ``init_params`` fills it from a
 ``torch.Generator`` with the reference's distributions
 (``repro/models/layers.py:70-81``): every projection, the embedding and
 the unembedding a standard normal truncated to [-2, 2] times
@@ -12,7 +14,10 @@ the unembedding a standard normal truncated to [-2, 2] times
 use, the same values; f32 master weights to train); a causal conv's fan-in
 is its kernel width K; an MoE layer's ``router`` (d, e), ``wi`` and ``wg``
 (e, d, f) have fan-in d and its ``wo`` (e, f, d) fan-in f (the
-reference's ``in_axis=1``), each drawn one leaf at a time on the model's
+reference's ``in_axis=1``); the VLM's ``patch_proj`` has fan-in
+patch_embed_dim; the enc-dec's attention (self and cross: the
+reference's ``init_cross_attention`` is ``init_attention``) and MLP
+leaves are drawn as the decoder-only model's, each drawn one leaf at a time on the model's
 device, so a full MoE config is never held in f32; norm scales zero.
 RG-LRU's ``lam`` is
 ``linspace(2.2, 6.9, w)``; SSD's ``a_log`` is ``log(linspace(1, 16, H))``,
@@ -27,10 +32,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.interop import resolve_device
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import ATTENTION_KINDS, LM
 
-__all__ = ["build", "init_params"]
+__all__ = ["build", "init_params", "loss", "model_class"]
 
 
 def _trunc_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -40,22 +47,58 @@ def _trunc_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     w.copy_(x.mul_(std))
 
 
+def _init_attention(mix, cfg: ModelConfig, gen: torch.Generator) -> None:
+    for w in (mix.wq, mix.wk, mix.wv):
+        _trunc_normal_(w, cfg.d_model, gen)
+    _trunc_normal_(mix.wo, cfg.num_heads * cfg.head_dim, gen)
+
+
+def _init_mlp(mlp, cfg: ModelConfig, gen: torch.Generator) -> None:
+    _trunc_normal_(mlp.wi, cfg.d_model, gen)
+    _trunc_normal_(mlp.wo, cfg.d_ff, gen)
+    if mlp.gated:
+        _trunc_normal_(mlp.wg, cfg.d_model, gen)
+
+
 @torch.no_grad()
-def init_params(model: LM, generator: torch.Generator) -> LM:
+def _init_encdec(model: EncDec, gen: torch.Generator) -> EncDec:
+    cfg = model.cfg
+    _trunc_normal_(model.embed, cfg.d_model, gen)
+    _trunc_normal_(model.unembed, cfg.d_model, gen)
+    for p in (model.enc_norm, model.dec_norm):
+        p.zero_()
+    for layer in model.encoder:
+        layer.norm1.zero_()
+        layer.norm2.zero_()
+        _init_attention(layer.attn, cfg, gen)
+        _init_mlp(layer.mlp, cfg, gen)
+    for layer in model.decoder:
+        for p in (layer.norm1, layer.norm_x, layer.norm2):
+            p.zero_()
+        _init_attention(layer.self_attn, cfg, gen)
+        _init_attention(layer.cross_attn, cfg, gen)
+        _init_mlp(layer.mlp, cfg, gen)
+    return model
+
+
+@torch.no_grad()
+def init_params(model: LM | EncDec, generator: torch.Generator) -> LM | EncDec:
     """Draw every parameter of ``model`` in place (see module docstring)."""
+    if isinstance(model, EncDec):
+        return _init_encdec(model, generator)
     cfg = model.cfg
     d = cfg.d_model
     _trunc_normal_(model.embed, d, generator)
     if model.unembed is not None:
         _trunc_normal_(model.unembed, d, generator)
+    if model.patch_proj is not None:
+        _trunc_normal_(model.patch_proj, cfg.patch_embed_dim, generator)
     model.final_norm.zero_()
     for blk in model.blocks:
         blk.norm1.zero_()
         mix = blk.mixer
         if blk.kind in ATTENTION_KINDS:
-            for w in (mix.wq, mix.wk, mix.wv):
-                _trunc_normal_(w, d, generator)
-            _trunc_normal_(mix.wo, cfg.num_heads * cfg.head_dim, generator)
+            _init_attention(mix, cfg, generator)
         elif blk.kind == "rglru":
             w = mix.width
             for p_, fan_in in ((mix.wx, d), (mix.wgate, d), (mix.conv, cfg.conv_width),
@@ -78,11 +121,20 @@ def init_params(model: LM, generator: torch.Generator) -> LM:
                                    (blk.mlp.wg, d), (blk.mlp.wo, cfg.d_ff)):
                     _trunc_normal_(p_, fan_in, generator)
             else:
-                _trunc_normal_(blk.mlp.wi, d, generator)
-                _trunc_normal_(blk.mlp.wo, cfg.d_ff, generator)
-                if blk.mlp.gated:
-                    _trunc_normal_(blk.mlp.wg, d, generator)
+                _init_mlp(blk.mlp, cfg, generator)
     return model
+
+
+def model_class(cfg: ModelConfig) -> type:
+    """``EncDec`` for an encoder-decoder config, else ``LM``."""
+    return EncDec if cfg.is_encoder_decoder else LM
+
+
+def loss(model: LM | EncDec, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The model's training loss on ``batch`` and ``{"ce", "aux"}``:
+    ``encdec.loss_fn`` (the batch carries ``frames``) or ``lm.loss_fn``
+    (optionally ``patch_embeds``)."""
+    return (encdec.loss_fn if isinstance(model, EncDec) else lm.loss_fn)(model, batch)
 
 
 def build(
@@ -91,12 +143,13 @@ def build(
     device: str | torch.device = "cuda",
     generator: torch.Generator | None = None,
     param_dtype: torch.dtype | None = None,
-) -> LM:
-    """The LM of ``cfg`` on ``device`` (the card unless the caller names
-    the CPU), initialised from ``generator`` (a generator on that device;
-    seeded 0 if None), parameters stored in ``param_dtype`` (default the
-    config's dtype; ``torch.float32`` for training)."""
+) -> LM | EncDec:
+    """The model of ``cfg`` on ``device`` (the card unless the caller
+    names the CPU), initialised from ``generator`` (a generator on that
+    device; seeded 0 if None), parameters stored in ``param_dtype``
+    (default the config's dtype; ``torch.float32`` for training)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return init_params(LM(cfg, device=dev, param_dtype=param_dtype), generator)
+    model = model_class(cfg)(cfg, device=dev, param_dtype=param_dtype)
+    return init_params(model, generator)

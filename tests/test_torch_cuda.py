@@ -66,6 +66,14 @@ the same greedy tokens); one MoE layer at qwen3's full width (d_model
 2048, 128 experts top-8, d_ff 768) at (1, 512) tokens on the card against
 the CPU in f32 (the same experts and drops, 1e-5 of the largest output);
 qwen3's 48 blocks at head_dim 64 launch B8 48 times in one prefill.
+VLM and encoder-decoder families: B8 bidirectional (``causal=False``)
+against its plain version at s = t in {1, 17, 129, 1500} and s != t both
+ways, head_dim 64 (groups 1 and 4) and 128, f32 and bf16; whisper's
+encoder launches B8 once a layer under ``torch.no_grad()`` and never with
+a gradient; the reduced internvl2-2b (with patches) and whisper-tiny
+(with frames) on the card against the CPU in f32 (every serving step
+within 1e-4, one AdamW step's loss within 1e-5 and parameters within
+1e-4 relative L2).
 """
 
 import copy
@@ -564,6 +572,45 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
         assert bool((got[:, :, : s - t] == 0).all())
 
 
+# B8 bidirectional (causal=False: the enc-dec encoder): s = t at 1, 17, 129
+# and whisper's 1500 (11 full 128-row tiles and one of 92), s != t both
+# ways, head_dim 64 with groups 1 (whisper) and 4, and head_dim 128.
+_BIDIR_CASES = [
+    (2, 6, 6, s, s, 64) for s in (1, 17, 129, 1500)
+] + [
+    (1, 4, 1, 96, 300, 64), (1, 4, 1, 300, 96, 64),
+    (2, 8, 2, 129, 257, 128), (2, 8, 2, 257, 129, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd", _BIDIR_CASES)
+def test_flash_attention_bidirectional_kernel(dev, b, hq, hkv, s, t, hd, dtype):
+    """B8 with ``causal=False`` against its plain version: FLASH_TOL over the
+    whole output, bf16 also per query row (2^-7 max|want_row| + 1e-4);
+    every row sees every key, so no row is zero where s > t."""
+    g = torch.Generator(device=dev).manual_seed(s * t + hd + 1)
+    q, k, v = (torch.randn(*sh, generator=g, device=dev).to(dtype)
+               for sh in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.last_form.startswith(
+        "wgmma" if dtype == torch.bfloat16 else "f32")
+    want = tref.flash_attention(q, k, v, causal=False)
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        bar = 2.0**-7 * want.abs().amax(-1) + 1e-4
+        assert ((got - want).abs().amax(-1) <= bar).all()
+    assert bool((got.abs().amax(-1) > 0).all())
+    causal = tfa.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), causal=True)
+    if s > 1:  # the causal form differs: the mask is not ignored
+        assert not torch.equal(causal.float(), got)
+
+
 def test_flash_attention_heads_do_not_bleed(dev):
     """A multi-head batch with s and t off every tile edge, and every other
     KV head holding V = 1e3: a box or tile that read across a head's edge
@@ -780,6 +827,104 @@ def test_reduced_recurrent_lm_on_the_card_matches_the_cpu(dev, arch):
         lc, cc = models["cpu"].decode_step(tok, cc, 40 + i)
         lg, cg = models["cuda"].decode_step(tok.to(dev), cg, 40 + i)
     assert kernels.launch_counts()["flash_attention"] == blocks
+
+
+def test_encoder_launches_b8_only_without_a_gradient(dev):
+    """whisper's encoder (reduced, on the card): under ``torch.no_grad()``
+    one B8 launch a layer (bidirectional), in train mode with a gradient
+    none (plain attention, B8 has no backward), and the two agree; a
+    prefill launches one B8 per encoder and per decoder layer, decode
+    none."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build
+
+    cfg = get_reduced_config("whisper-tiny")
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    frames = torch.randn(2, 300, cfg.d_model, device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        served = model.encode(frames)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_encoder_layers
+    trained = model.encode(frames)
+    assert trained.requires_grad
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_encoder_layers
+    rel = ((served.float() - trained.float()).norm() / trained.float().norm()).item()
+    assert rel <= 0.05, rel
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20), device=dev)
+    kernels.reset_launch_counts()
+    logits, cache = model.prefill(frames, tokens, cache_len=24)
+    assert kernels.launch_counts()["flash_attention"] == (cfg.num_encoder_layers
+                                                         + cfg.num_layers)
+    model.decode_step(logits.argmax(-1)[:, None], cache, 20)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == (cfg.num_encoder_layers
+                                                         + cfg.num_layers)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-tiny"])
+def test_reduced_vlm_and_encdec_on_the_card_match_the_cpu(dev, arch):
+    """The reduced VLM (patches ahead of the prompt) and encoder-decoder
+    (frames into the encoder) in f32 with f32 probabilities, the same
+    seeded weights on both devices: the prefill and 6 decode steps fed the
+    CPU's tokens, logits within 1e-4 of the CPU's at every step; then one
+    AdamW step from the same parameters, the loss within 1e-5 relative
+    and every parameter within 1e-4 relative L2."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                              attn_probs_bf16=False)
+    models = {"cpu": build(cfg, device="cpu", param_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to(dev)
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+    if cfg.is_encoder_decoder:
+        stub = {"frames": torch.randn(2, 150, cfg.d_model, generator=g)}
+    else:
+        stub = {"patch_embeds": torch.randn(2, cfg.num_patches, cfg.patch_embed_dim,
+                                            generator=g)}
+    p = stub["patch_embeds"].shape[1] if "patch_embeds" in stub else 0
+
+    def prefill(where):
+        m, x = models[where], {k: v.to(dev if where == "cuda" else "cpu")
+                               for k, v in stub.items()}
+        toks = prompts.to(x[next(iter(x))].device)
+        if "frames" in x:
+            return m.prefill(x["frames"], toks, cache_len=46)
+        return m.prefill(toks, patch_embeds=x["patch_embeds"], cache_len=p + 46)
+
+    kernels.reset_launch_counts()
+    lc, cc = prefill("cpu")
+    lg, cg = prefill("cuda")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == models["cuda"].attention_blocks
+    for i in range(7):
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4, i
+        if i == 6:
+            break
+        tok = lc.argmax(-1)[:, None]
+        lc, cc = models["cpu"].decode_step(tok, cc, p + 40 + i)
+        lg, cg = models["cuda"].decode_step(tok.to(dev), cg, p + 40 + i)
+    assert kernels.launch_counts()["flash_attention"] == models["cuda"].attention_blocks
+    out = {}
+    for where, m in models.items():
+        params = dict(m.named_parameters())
+        opt = adamw_init(params)
+        w = dev if where == "cuda" else "cpu"
+        batch = {"tokens": prompts.to(w), "labels": prompts.roll(-1, 1).to(w),
+                 **{k: v.to(w) for k, v in stub.items()}}
+        met = make_train_step(m, adamw_cfg=AdamWConfig(), schedule=lambda s: 1e-3)(opt, batch)
+        out[where] = (float(met["loss"]), {k: v.detach().cpu() for k, v in params.items()})
+    (l_c, p_c), (l_g, p_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) / abs(l_c) <= 1e-5
+    assert max(((p_g[k] - p_c[k]).norm() / p_c[k].norm()).item() for k in p_c) <= 1e-4
 
 
 def test_hybrid_prefill_launches_b8_per_local_block(dev):

@@ -75,7 +75,8 @@ from repro_torch.interop import (
 )
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
-from repro_torch.models import LM, loss_fn
+from repro_torch.models import LM, loss_fn, model_class
+from repro_torch.models import loss as model_loss
 from repro_torch.optim import EigenCompressConfig
 from repro_torch.optim import eigen_compress as EC
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -286,9 +287,10 @@ def _under(ref, prefix) -> dict:
 
 
 def _model_at(ref, cfg, prefix) -> LM:
-    """The port's LM holding the reference's f32 parameters under ``prefix``."""
+    """The port's model (``LM`` or ``EncDec``) holding the reference's f32
+    parameters under ``prefix``."""
     named = split_reference(_under(ref, prefix), cfg)
-    model = LM(cfg, device="cpu", param_dtype=torch.float32)
+    model = model_class(cfg)(cfg, device="cpu", param_dtype=torch.float32)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(named[name]))
@@ -533,8 +535,9 @@ def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
     names = sorted(opt["eigen"])
     grads, local, gap = [], {n: [] for n in names}, dict.fromkeys(names, 0.0)
     for i in range(4):
-        loss, _ = loss_fn(model, tsteps.shard_rows(batch, i, 4))
-        shard = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
+        loss, _ = model_loss(model, tsteps.shard_rows(batch, i, 4))
+        shard = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names],
+                                                    allow_unused=True, materialize_grads=True)))
         grads.append(shard)
         with torch.no_grad():
             for n, g in shard.items():
@@ -552,12 +555,14 @@ def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
     if ref_grads is not None:
         theirs = _refresh64(ref_grads, starts, opt, ecfg)
         for n in names:
-            out[n].update(grads=subspace_dist64(theirs[n], exact[n]), gap=gap[n])
+            out[n].update(grads=subspace_dist64(theirs[n], exact[n]), gap=gap[n],
+                          ref64=theirs[n])
     return out
 
 
 def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
-                    ill_posed=ILL_POSED, ref_grads=False, readings=None) -> dict:
+                    ill_posed=ILL_POSED, ref_grads=False, readings=None,
+                    stub=None, ref_own=False) -> dict:
     """Every refresh and train step of the reference's eigen run on the
     pipeline's own batches of ``seq`` tokens (each shard its rows), each
     started from the reference's own state before it.  Returns the worst
@@ -570,8 +575,20 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
     ``ill_posed``; a step's loss (1e-5 relative), error feedback (each
     shard's), low-rank and full moments after it (1e-4 of the largest
     magnitude), every leaf.  A ``readings`` list gets, for each refresh
-    and held leaf, its probes and its basis's ratio to the bar of the f32
-    probe alone."""
+    and held leaf, its probes, its basis's distance to the reference's
+    (and with ``ref_own`` the reference's own f32 error) and its ratio to
+    the bar of the f32 probe alone.  ``stub(t)`` gives the numpy arrays a step's batch
+    carries beside its tokens (patch embeddings or frames).  With
+    ``ref_own`` (and ``ref_grads``) the probe also counts the reference's
+    own f32 error: how far its refreshed basis lies from the f64 refresh
+    of its own per-shard gradients.  The port's basis is then held to
+    what the triangle through the two f64 refreshes allows (the port's
+    f32 error, the gradients' difference, the reference's f32 error),
+    where the reference's f32 refresh strays further from its f64 one
+    than the port's does (an ill-conditioned leaf: a small gap after the
+    r-th singular value, which 4 local steps do not resolve); the
+    rotated moment P m, which moves with the subspace, is then held to
+    the same probe (at least 1e-4)."""
     shards = None if group is not None else 4
     ecfg = EigenCompressConfig(rank=EIGEN["eigen_rank"], refresh_every=EIGEN["eigen_refresh"],
                                min_dim=64)
@@ -590,6 +607,8 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
 
     for t in range(EIGEN["steps"]):
         batch = {k: torch.from_numpy(v).long() for k, v in pipe.batch(t).items()}
+        if stub is not None:
+            batch.update({k: torch.from_numpy(v) for k, v in stub(t).items()})
         prefix = f"distinct/state{t}/"
         if t % ecfg.refresh_every == 0:
             model, opt = _ref_state(ref, cfg, prefix)
@@ -607,15 +626,24 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
                 want_b = pick(ref[f"{prefix}eigen/basis/{path}"], name)
                 got_b = st["basis"].numpy()
                 probe = max(probes[name]["f32"], probes[name].get("grads", 0.0))
+                own = {}
+                if ref_own:
+                    own["ref_own"] = subspace_dist64(want_b, probes[name]["ref64"])
+                    probe = max(probe, own["ref_own"])
                 gap = subspace_dist64(got_b, want_b)
                 worst["basis"] = max(worst["basis"], gap / max(1e-5, 4 * probe))
                 if readings is not None:
-                    readings.append({"step": t, "leaf": name, **probes[name],
+                    readings.append({"step": t, "leaf": name,
+                                     **{k: v for k, v in probes[name].items() if k != "ref64"},
+                                     "basis_gap": gap, **own,
                                      "ratio_f32": gap / max(1e-5, 4 * probes[name]["f32"])})
                 # P m, the rotated moment in the parameter space, which does
-                # not depend on the basis's column frame.
+                # not depend on the basis's column frame.  It moves with the
+                # subspace (by its distance times |m|): with ``ref_own`` its
+                # bar follows the basis's.
                 hold("m_rotated", got_b @ st["m"].numpy(),
-                     want_b @ pick(ref[f"{prefix}eigen/m/{path}"], name), 1e-4)
+                     want_b @ pick(ref[f"{prefix}eigen/m/{path}"], name),
+                     max(1e-4, 4 * probe) if ref_own else 1e-4)
         model, opt = _ref_state(ref, cfg, prefix, shard=rank)
         metrics = tsteps.make_eigen_train_step(
             model, adamw_cfg=AdamWConfig(), schedule=sched, shards=shards,
