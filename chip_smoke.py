@@ -188,6 +188,15 @@ of JAX or of the reference package.  Phases, each ending in
    uncut (``launch.train.train``) and on whisper-tiny with frames
    (``launch.steps``' step functions: the launcher refuses an encoder-decoder),
    one B2 and one B4 a compressed leaf a refresh, exactly.
+   Then the MoE training lanes (``moe_train_lanes``, ``[train-moe]``;
+   constants M1_* .. M2_*): M1, T1's AdamW at qwen3-moe-30b-a3b's full
+   width (d_model 2048, 128 experts top-8, vocab 151936, the einsum form)
+   at 6 of its 48 layers, then one step more whose pre-hooks give each
+   layer's drop share and the routing decisions the remat recompute
+   changed (none allowed); M1c, both MoE archs' reduced configs in both
+   forms, card vs CPU; M2, T2's eigen trainer stacked at 4 layers, one B2
+   and one B4 a compressed leaf a refresh, exactly, and the words a step
+   at that depth and reckoned at 48 layers.
 4. Time each kernel at the main path's shapes (CUDA events) beside its
    bound, its plain version and one PyTorch call computing the same
    function (none for B3, B5, B6, B7; the einsum for B2 and B4; SDPA for
@@ -228,7 +237,8 @@ warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
 decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``,
 ``qwen3-moe-30b-a3b``, ``internvl2-2b`` (256 patches + 4096 tokens) and
 ``whisper-tiny`` (32 x 1500 frames + 64 tokens), then one T1 train step after a
-warm-up step, and one R1 step of recurrentgemma-2b and of mamba2-370m:
+warm-up step, one R1 step of recurrentgemma-2b and of mamba2-370m, and
+one M1 step of qwen3-moe-30b-a3b (6 layers):
 it prints each run's wall time, the device's busy share
 and the kernels that took the most device time.  ``--rank K`` and
 ``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
@@ -1824,7 +1834,7 @@ def device_batch(torch, pipe, step, where) -> dict:
 
 
 def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1_LR,
-               stub=None, extra_step=None) -> dict:
+               stub=None, extra_step=None, after=None) -> dict:
     """T1's AdamW run of ``cfg`` (f32 master weights from the seeded
     generator, T1_STEPS steps of ``batch`` x ``seq`` tokens, T1's
     schedule at peak ``lr``), each step timed to a synchronise, its
@@ -1832,7 +1842,9 @@ def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1
     encoder-decoder's frames); ``extra_step`` adds inputs to one step more
     after the T1_STEPS (a VLM's patch embeddings after its text steps),
     whose loss and ``patch_proj``'s first moment (before and after) are
-    returned.  Checks nothing; returns the numbers."""
+    returned.  ``after(model, opt, step_fn, batch)`` runs after the timed
+    steps (and their launch count) on the next step's batch and returns
+    numbers to add.  Checks nothing; returns the numbers."""
     from repro_torch import kernels
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.steps import make_train_step
@@ -1877,6 +1889,8 @@ def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1
                      patch_m_after=patch_m())
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() - held
+    if after is not None:
+        extra.update(after(model, opt, step_fn, device_batch(torch, pipe, T1_STEPS, dev)))
     ms = sum(step_ms[1:]) / (len(step_ms) - 1)
     return {"params": n_params, "init_s": init_s, "step_ms": step_ms, "ms": ms,
             "tokens_s": batch * seq / (ms / 1e3), "peak_gb": peak / 1e9,
@@ -1884,8 +1898,9 @@ def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1
             "counts": counts, "batch": batch, "seq": seq, **extra}
 
 
-def print_adamw(label, cfg, r) -> None:
-    print(f"[{label} {cfg.name} full config (layers {cfg.num_layers}, d_model "
+def print_adamw(label, cfg, r, depth=None) -> None:
+    at = f"at {depth}, full width" if depth else "full config"
+    print(f"[{label} {cfg.name} {at} (layers {cfg.num_layers}, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, remat {cfg.remat}, compute "
           f"{cfg.dtype}, f32 master weights): {r['params']} parameters, batch {r['batch']} x "
           f"{r['seq']} tokens, AdamW, {T1_STEPS} steps, warmup {T1_WARMUP}: init "
@@ -2328,6 +2343,135 @@ def vlm_whisper_train_lanes(torch, dev, launches: dict) -> None:
     free_card(torch)
 
 
+# M1-M2: training the MoE family (ROADMAP A11-moe-train), after V1-V2, on
+# ``[train-moe]`` lines.  M1: AdamW at qwen3-moe-30b-a3b's full width
+# (d_model 2048, 128 experts top-8, vocab 151936, the config's einsum form,
+# remat per block) with T1's traffic, lr and checks, at M1_LAYERS of its 48
+# layers: a layer holds 613.7 M parameters (experts 604.0 M), 9.82 GB at 16
+# bytes a parameter (f32 master, gradient, two moments), the two embeddings
+# 9.96 GB; M1_LAYERS is the most whose measured peak left room on the
+# card's 85.02 GB (``tools/moe_train_depth.py`` measures each depth's
+# peak; PERF.md §6).  After the timed steps one more step runs with a
+# forward pre-hook on every MoE layer (``moe_routing_step``): the drop
+# share of each layer, and the routing decisions the remat recompute of
+# the backward changed (required none).  M1c: both MoE archs' reduced
+# configs in f32, both dispatch forms, T1c's steps and bars, card vs CPU.
+# M2: T2's eigen trainer stacked at M2_LAYERS layers (four shards' error
+# feedback on the two embeddings take ~10 GB, a layer's worth; 5 layers
+# would leave under 4 GB of the card beside the 3.31 GB the earlier phases
+# hold), one B2 and one B4 a compressed leaf a refresh, exactly; the words
+# a step at that depth and reckoned at all 48 layers (the experts, 96.4 %
+# of the parameters, are never compressed, as in the reference).
+MOE_TRAIN_ARCHS = (MOE_ARCH, "kimi-k2-1t-a32b")
+M1_LAYERS, M2_LAYERS = 6, 4
+
+
+def moe_routing_step(torch, model, opt, step_fn, batch) -> dict:
+    """One more AdamW step of ``model`` with a forward pre-hook on every
+    MoE layer that routes the layer's input again (``MoE.routing``) at each
+    call: under remat the backward calls each block's forward a second
+    time.  Returns each layer's calls, its drop share in the step's
+    forward, and the routing decisions (each pair's expert and whether it
+    was kept) that differ between a layer's two calls."""
+    calls = [[] for _ in model.blocks]
+
+    def hook_of(i):
+        def hook(mod, inp):
+            rt = mod.routing(inp[0])
+            calls[i].append((rt.experts, rt.keep))
+        return hook
+
+    # A pre-hook: the recompute stops once it has the tensors the backward
+    # needs, before the layer's forward returns.
+    handles = [blk.mlp.register_forward_pre_hook(hook_of(i))
+               for i, blk in enumerate(model.blocks)]
+    try:
+        loss = float(step_fn(opt, batch)["loss"])
+    finally:
+        for h in handles:
+            h.remove()
+    flips = sum(int((c[0][0] != c[-1][0]).sum()) + int((c[0][1] != c[-1][1]).sum())
+                for c in calls)
+    return {"routing_calls": [len(c) for c in calls], "routing_flips": flips,
+            "drop_shares": [(~c[0][1]).float().mean().item() for c in calls],
+            "routing_loss": loss}
+
+
+def moe_words(torch, cfg, comp) -> tuple:
+    """(compressed words, those leaves' full words, the other leaves' words)
+    a step for ``cfg``'s model (counted on the meta device)."""
+    from repro_torch.models import LM
+
+    model = LM(cfg, device="meta")
+    other = sum(p.numel() for k, p in model.named_parameters() if k not in comp)
+    return (sum(min(T2_RANK, d, n) * n for d, n in comp.values()),
+            sum(d * n for d, n in comp.values()), other)
+
+
+def moe_train_lanes(torch, dev, launches: dict) -> None:
+    """M1, M1c and M2 (see the constants above).  Adds M2's kernel
+    launches to ``launches``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.launch.steps import compressed_paths
+    from repro_torch.optim import EigenCompressConfig
+
+    full = get_config(MOE_ARCH)
+
+    # M1: AdamW at full width, M1_LAYERS layers.
+    cfg = dataclasses.replace(full, num_layers=M1_LAYERS)
+    r = adamw_lane(torch, dev, cfg, T1_BATCH,
+                   after=lambda *a: moe_routing_step(torch, *a))
+    depth = f"{M1_LAYERS} of {full.num_layers} layers"
+    print_adamw("train-moe] M1", cfg, r, depth)
+    print(f"[train-moe] M1 {full.num_experts} experts top-{full.num_experts_per_token}, "
+          f"{cfg.moe_impl} form, capacity factor {cfg.capacity_factor}; one step more with "
+          f"routing hooks (loss {r['routing_loss']:.4f}): drop share a layer "
+          f"{[round(x, 4) for x in r['drop_shares']]}, calls a layer {r['routing_calls']} "
+          f"(forward + the remat recompute), routing decisions the recompute changed "
+          f"{r['routing_flips']}")
+    require_adamw("M1", r)
+    require(not any(r["counts"].values()), f"M1: kernels launched in training: {r['counts']}")
+    require(r["routing_calls"] == [2] * M1_LAYERS and r["routing_flips"] == 0,
+            f"M1: remat recompute routing {r['routing_calls']}, {r['routing_flips']} flips")
+    free_card(torch)
+
+    # M1c: both archs' reduced configs in f32, both forms, card vs CPU.
+    for arch in MOE_TRAIN_ARCHS:
+        for impl in ("einsum", "sort"):
+            small = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                                        attn_probs_bf16=False, moe_impl=impl)
+            loss_err, par_err, lg, lc = card_vs_cpu(torch, dev, small)
+            print(f"[train-moe] M1c {small.name} reduced f32, {impl} form, {T1C_STEPS} AdamW "
+                  f"steps, card vs CPU: losses {[round(x, 6) for x in lg]} vs "
+                  f"{[round(x, 6) for x in lc]}, worst relative loss gap {loss_err:.2e} (bar "
+                  f"{T1C_LOSS}), worst parameter rel L2 {par_err:.2e} (bar {T1C_PARAM})")
+            require(loss_err <= T1C_LOSS and par_err <= T1C_PARAM,
+                    f"M1c {arch} {impl}: card and CPU disagree")
+    free_card(torch)
+
+    # M2: the eigen trainer stacked at M2_LAYERS layers; first B2 and B4 at
+    # its refresh shapes.
+    hold_refresh_shapes(torch, dev, (full.padded_vocab, full.d_model))
+    cfg2 = dataclasses.replace(full, num_layers=M2_LAYERS)
+    r = eigen_lane(torch, dev, cfg2)
+    print_eigen("train-moe] M2", cfg2, f"{M2_LAYERS} of {full.num_layers} layers", r)
+    ecfg = EigenCompressConfig(rank=T2_RANK, min_dim=64)
+    low, comp_full, other = moe_words(torch, full, compressed_paths(full, ecfg))
+    print(f"[train-moe] M2 words a step against the uncompressed baseline (computed from the "
+          f"leaves' shapes, not a gain): at {M2_LAYERS} layers {r['low'] + r['other']} against "
+          f"{r['full'] + r['other']} ({(r['full'] + r['other']) / (r['low'] + r['other']):.3f}x "
+          f"fewer); reckoned at all {full.num_layers} layers {low + other} against "
+          f"{comp_full + other} ({(comp_full + other) / (low + other):.3f}x fewer; the "
+          f"uncompressed experts and the rest {other})")
+    require(all(math.isfinite(x) for x in r["losses"]), "M2: a loss is not finite")
+    require(r["counts"] == r["want"], f"M2: launches {r['counts']}, expected {r['want']}")
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    free_card(torch)
+
+
 def profile_training(torch, dev, cfg=None) -> None:
     """One AdamW train step of ``cfg`` (T1's, llama3.2-3b's full config, by
     default) with T1's traffic under torch.profiler, after a warm-up
@@ -2470,11 +2614,16 @@ def main(argv=None) -> int:
         profile_whisper(torch, dev)
         torch.cuda.empty_cache()
         profile_training(torch, dev)
+        import dataclasses
+
         from repro_torch.configs import get_config
 
         for arch in RECUR_TRAIN:
             free_card(torch)
             profile_training(torch, dev, get_config(arch))
+        free_card(torch)
+        profile_training(torch, dev, dataclasses.replace(get_config(MOE_ARCH),
+                                                         num_layers=M1_LAYERS))
         return 0
 
     # -- phase 2: each kernel against its plain version --------------------
@@ -3459,6 +3608,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[train-whisper] V1, V1c and V2 of both families in "
           f"{time.perf_counter() - t0:.1f} s")
+    # Training the MoE family (M1, M1c, M2).
+    t0 = time.perf_counter()
+    moe_train_lanes(torch, dev, launches)
+    torch.cuda.synchronize()
+    print(f"[train-moe] M1, M1c and M2 in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4: times at the main path's shapes ---------------------------
     def time_ms(fn, reps):

@@ -14,8 +14,9 @@ With the paper's gradient compression over 4 stacked data shards:
   PYTHONPATH=src python -m repro_torch.examples.train_lm --small --steps 60 --eigen --shards 4
 
 The example trains its own two dense configs and takes no arch id.  A
-registered arch of the dense, hybrid or SSM family trains through the
-launcher: ``python -m repro_torch.launch.train --arch mamba2-370m``.
+registered arch of the dense, MoE, hybrid, SSM or VLM family trains
+through the launcher: ``python -m repro_torch.launch.train --arch
+mamba2-370m`` or ``--arch qwen3-moe-30b-a3b``.
 """
 
 import argparse

@@ -27,18 +27,21 @@ compressed leaf, as the reference's.  Weight decay of the other leaves
 and compressibility follow the reference's leaf (``interop.decays``,
 ``compressed_paths``).
 
-The steps train the dense, hybrid (RG-LRU + local attention), SSM
-(Mamba2 SSD), VLM and audio (encoder-decoder) families, whose gradients
-are held against the reference's.  The batch carries a VLM's optional
+The steps train every family: dense, MoE (both dispatch forms, the
+Switch aux loss in the loss), hybrid (RG-LRU + local attention), SSM
+(Mamba2 SSD), VLM and audio (encoder-decoder), whose gradients are held
+against the reference's.  The batch carries a VLM's optional
 ``patch_embeds`` (B, P, patch_embed_dim) or an encoder-decoder's
 ``frames`` (B, S_enc, d_model) beside its tokens and labels; the model's
 loss takes them (``models.registry.loss``) and ``shard_rows`` splits them
 with the rows.  A leaf the batch does not reach (a VLM's ``patch_proj``
 on a text batch) gets a zero gradient, as the reference's ``jax.grad``
 gives: AdamW then only decays it, and the eigen refresh takes its local
-basis of a zero matrix.  The MoE family serves but does not train yet
-(``refuse_untrained``, ROADMAP A11-moe-train): its gradient through the
-routing has not been held against the reference's.
+basis of a zero matrix.  An MoE layer's gradient reaches its router
+through the renormalised gates and the aux loss's mean probabilities,
+and its experts through the kept pairs only; its expert leaves (L, E, d,
+f) / (L, E, f, d) are never compressed (``compressed_paths``), its
+router (L, d, e) is where e >= rank, as the reference's.
 """
 
 from __future__ import annotations
@@ -64,7 +67,6 @@ from repro_torch.optim.adamw import (
 )
 
 __all__ = [
-    "refuse_untrained",
     "make_train_step",
     "compressed_paths",
     "eigen_opt_init",
@@ -75,20 +77,6 @@ __all__ = [
 ]
 
 Batch = Dict[str, torch.Tensor]
-
-# Families the port serves but does not train yet -> the ROADMAP item.
-_UNTRAINED = {"moe": "A11-moe-train"}
-
-
-def refuse_untrained(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    whose family the trainers do not take yet."""
-    item = _UNTRAINED.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family): training is not ported to "
-            f"repro_torch yet: ROADMAP {item}")
-
 
 Model = LM | EncDec
 
@@ -129,7 +117,6 @@ def make_train_step(model: Model, *, adamw_cfg: AdamWConfig, schedule, group=Non
     With ``group`` each rank runs its rows and the gradients and loss are
     all-reduced / m: the data-parallel baseline the eigen step
     compresses."""
-    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
 
@@ -219,7 +206,6 @@ def make_eigen_train_step(
     optimizer state.  Collectives per step (collective form): an
     all-reduce of r n words per compressed leaf (d n in the baseline), of
     every uncompressed gradient, and of the loss."""
-    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
 
@@ -284,7 +270,6 @@ def make_eigen_refresh_step(
     ``starts[name]``), then per leaf the Procrustes-fixed average
     (``eigen_compress.refresh_basis``), and the low-rank moments rotated
     into the new basis with R = P_newᵀ P_old: m <- R m, v <- |R|^2 v."""
-    refuse_untrained(model.cfg)
     params = dict(model.named_parameters())
 
     def refresh_step(opt_state, batch: Batch, starts: Dict[str, torch.Tensor]) -> dict:

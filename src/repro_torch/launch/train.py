@@ -18,21 +18,23 @@ seeded ``TokenPipeline``.  One process holds ``--shards`` data-parallel
 shards stacked; under ``torchrun`` each rank is one shard
 (``launch.mesh.make_aggregation_mesh``) and takes its rows of the global
 batch.  Runs on the card unless ``--device cpu``; without a card it
-refuses to start.  The dense, hybrid, SSM and VLM families train; a VLM
-(internvl2-2b) trains on the pipeline's text batches, as the
+refuses to start.  The dense, MoE, hybrid, SSM and VLM families train;
+a VLM (internvl2-2b) trains on the pipeline's text batches, as the
 reference's launcher trains it (its pipeline gives no patch embeddings,
-so ``patch_proj`` gets a zero gradient and is only decayed).  The MoE
-family is refused (``launch.steps.refuse_untrained``, ROADMAP
-A11-moe-train), and so is an encoder-decoder (whisper-tiny): the
-pipeline gives no frames, which its loss needs, and the reference's
-launcher fails on it too (``KeyError: 'frames'``); ``launch.steps``
-trains it on batches that carry frames.  Examples::
+so ``patch_proj`` gets a zero gradient and is only decayed).  An MoE
+config (qwen3-moe-30b-a3b, kimi-k2-1t-a32b) trains in its config's
+dispatch form, its loss the CE plus 0.01 times the layers' aux loss.  An
+encoder-decoder (whisper-tiny) is refused: the pipeline gives no frames,
+which its loss needs, and the reference's launcher fails on it too
+(``KeyError: 'frames'``); ``launch.steps`` trains it on batches that
+carry frames.  Examples::
 
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8
     python -m repro_torch.launch.train --device cpu --arch granite-3-2b --steps 8 \\
         --eigen --shards 4
     python -m repro_torch.launch.train --device cpu --arch mamba2-370m --steps 8 --eigen
     python -m repro_torch.launch.train --device cpu --arch internvl2-2b --steps 8 --eigen
+    python -m repro_torch.launch.train --device cpu --arch qwen3-moe-30b-a3b --steps 8 --eigen
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
         --arch granite-3-2b --steps 8 --eigen
 """
@@ -58,7 +60,6 @@ from repro_torch.launch.steps import (
     make_eigen_refresh_step,
     make_eigen_train_step,
     make_train_step,
-    refuse_untrained,
     start_shapes,
 )
 from repro_torch.models import build, param_count
@@ -134,7 +135,6 @@ def train(
     the same on every shard and after a resume."""
     cfg = arch if isinstance(arch, ModelConfig) else (
         get_reduced_config(arch) if reduced else get_config(arch))
-    refuse_untrained(cfg)
     refuse_encdec(cfg)
     dev = resolve_device(device)
     strict_fp32()

@@ -353,6 +353,18 @@ class MoE(nn.Module):
     the CPU (``F.silu`` moves ~half of the outputs by up to a bf16 step).
     Leaves (the reference's layouts): ``router`` (d, e) in f32, ``wi`` /
     ``wg`` (e, d, f) and ``wo`` (e, f, d) in the parameter dtype.
+
+    Gradients (``jax.grad`` of the reference's forms): a dropped pair
+    sends none to x or the experts (it holds no slot, and its combine
+    weight is a zero that blocks its gate's); the router's comes through
+    the renormalised gates of the top k and the aux loss's mean
+    probabilities (f_e is one-hot, constant); the sort's backward is a
+    gather, so the gradients land on the experts the stable sort chose.
+    x's gradient sums its kept pairs' rows and the router's in f32 and
+    rounds once (the dispatch gathers from the router's f32 copy of x);
+    with ``silu_ref``'s backward that holds a bf16 layer's gradients no
+    further from the reference's f32 ones than the reference's own bf16
+    gradients lie.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
@@ -392,15 +404,21 @@ class MoE(nn.Module):
         cfg, cdt = self.cfg, x.dtype
         b, s, m = x.shape
         e, k = cfg.num_experts, cfg.num_experts_per_token
-        rt = self.routing(x)
+        # Under a gradient the dispatch gathers from the router's f32 copy
+        # of x and casts back (the same values), so x's gradient sums the
+        # kept pairs' rows and the router's in f32 and rounds once, as the
+        # reference's dot with f32 accumulation does; a dropped pair sends
+        # none.  Serving gathers x itself (half the bytes in bf16).
+        rows = x.to(torch.float32) if torch.is_grad_enabled() else x
+        rt = self.routing(rows)
         n_slots = e * rt.groups * rt.cap
         # Dispatch: the token each slot holds; empty slots read a zero row.
         tok = torch.arange(b * s, device=x.device).view(b, s, 1).expand(b, s, k)
         src = torch.full((n_slots + 1,), b * s, dtype=torch.long, device=x.device)
         src.scatter_(0, torch.where(rt.keep, rt.slots, n_slots).reshape(-1),
                      tok.reshape(-1))  # dropped pairs all land in the last slot
-        xs = torch.cat([x.reshape(b * s, m), x.new_zeros(1, m)])
-        buf = xs[src[:n_slots]].view(e, rt.groups * rt.cap, m)
+        xs = torch.cat([rows.reshape(b * s, m), rows.new_zeros(1, m)])
+        buf = xs[src[:n_slots]].to(cdt).view(e, rt.groups * rt.cap, m)
         h = torch.bmm(buf, self.wi.to(cdt))
         h = silu_ref(torch.bmm(buf, self.wg.to(cdt))) * h
         out = torch.bmm(h, self.wo.to(cdt)).view(n_slots, m)
@@ -421,11 +439,33 @@ class MoE(nn.Module):
         return y.to(cdt).view(b, s, m), rt.aux
 
 
+class _SiluRef(torch.autograd.Function):
+    """``silu_ref``: forward and backward rounded where the reference's are."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        # jax.nn.silu = x * logistic(x): the product's two cotangents, the
+        # logistic's through ans * (1 - ans), added last.
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
 def silu_ref(x: torch.Tensor) -> torch.Tensor:
     """``x * (1 / (1 + exp(-x)))`` one op at a time in x's dtype: the
     reference's ``jax.nn.silu``, which rounds each step to bf16 in a bf16
-    model (``F.silu`` rounds once, and differs in ~40 % of bf16 values)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    model (``F.silu`` rounds once, and differs in ~40 % of bf16 values).
+    Its gradient, ``g s + (g x)(s (1 - s))`` with s the logistic, rounds
+    each op as ``jax.grad`` of ``jax.nn.silu`` does (a bf16 MoE's ``wg``
+    gradient is the reference's, bit for bit on the CPU); autograd through
+    the forward's ops would round elsewhere.  It keeps x and s for the
+    backward."""
+    return _SiluRef.apply(x)
 
 
 def gelu_tanh_ref(x: torch.Tensor) -> torch.Tensor:

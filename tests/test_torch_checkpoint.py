@@ -172,14 +172,18 @@ def one_thread():
 
 @pytest.mark.parametrize("arch,kw", [("granite-3-2b", {}), ("granite-3-2b", EIGEN_STACKED),
                                      ("mamba2-370m", EIGEN_STACKED),
-                                     ("internvl2-2b", EIGEN_STACKED)],
+                                     ("internvl2-2b", EIGEN_STACKED),
+                                     ("qwen3-moe-30b-a3b", {}),
+                                     ("qwen3-moe-30b-a3b", EIGEN_STACKED)],
                          ids=["baseline", "eigen-stacked", "mamba2-eigen-stacked",
-                              "internvl2-eigen-stacked"])
+                              "internvl2-eigen-stacked", "moe-baseline", "moe-eigen-stacked"])
 def test_resume_after_preemption_reproduces_the_run(tmp_path, arch, kw, one_thread):
     """Preempted at step 5, resumed from the step-4 checkpoint, the run
     ends at the straight run's loss: the dense family, the SSM family
-    (the tied embedding's error feedback, the SSD leaves' moments) and
-    the VLM on text batches (``patch_proj``'s zero-gradient state)."""
+    (the tied embedding's error feedback, the SSD leaves' moments), the
+    VLM on text batches (``patch_proj``'s zero-gradient state) and the MoE
+    family (the experts' 4-D moments; at rank 8 the router (64, 8) is
+    compressed)."""
     _, _, straight = train(arch, checkpoint_dir=str(tmp_path / "a"),
                            checkpoint_every=2, **TRAIN, **kw)
     _, opt, crashed = train(arch, checkpoint_dir=str(tmp_path / "b"),

@@ -66,6 +66,11 @@ the same greedy tokens); one MoE layer at qwen3's full width (d_model
 2048, 128 experts top-8, d_ff 768) at (1, 512) tokens on the card against
 the CPU in f32 (the same experts and drops, 1e-5 of the largest output);
 qwen3's 48 blocks at head_dim 64 launch B8 48 times in one prefill.
+Training it (A11-moe-train): the reduced LMs' loss and gradients on the
+card against the CPU in both forms with drops (f32: loss 1e-5 relative,
+every gradient 1e-4 relative L2, the same routing); one full-width MoE
+block under remat in a train step routes its input the same in the
+forward and in the backward's recompute (no decision changed).
 VLM and encoder-decoder families: B8 bidirectional (``causal=False``)
 against its plain version at s = t in {1, 17, 129, 1500} and s != t both
 ways, head_dim 64 (groups 1 and 4) and 128, f32 and bf16; whisper's
@@ -1019,6 +1024,78 @@ def test_moe_layer_at_full_width_on_the_card_matches_the_cpu(dev):
     assert torch.equal(rg.keep.cpu(), rc.keep)
     assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     assert abs(aux_g.item() - aux_c.item()) <= 1e-6
+
+
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_reduced_moe_gradients_on_the_card_match_the_cpu(dev, arch, impl):
+    """The reduced MoE LM's training loss (CE + 0.01 aux) and every
+    gradient in f32, at capacity factor 0.5 (both forms drop), 4 x 32
+    tokens, the same seeded weights on both devices: the same experts and
+    drops in every layer, the loss within 1e-5 relative, each gradient
+    within 1e-4 relative L2 of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build, loss_fn
+
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32",
+                              attn_probs_bf16=False, moe_impl=impl, capacity_factor=0.5)
+    cpu = build(cfg, device="cpu", param_dtype=torch.float32,
+                generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    out, routes = {}, {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        seen = routes.setdefault(name, [])
+        hooks = [blk.mlp.register_forward_pre_hook(
+            lambda m, i, seen=seen: seen.append(m.routing(i[0]))) for blk in model.blocks]
+        b = {k: v.to(model.embed.device) for k, v in batch.items()}
+        loss, _ = loss_fn(model, b)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        for h in hooks:
+            h.remove()
+        out[name] = (loss.item(), [g.cpu() for g in grads])
+    assert any((~rt.keep).any() for rt in routes["cpu"])
+    for rc, rg in zip(routes["cpu"], routes["cuda"]):
+        assert torch.equal(rg.experts.cpu(), rc.experts) and torch.equal(rg.keep.cpu(), rc.keep)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for (name, _), a, b in zip(cpu.named_parameters(), gc, gg):
+        assert ((b - a).norm() / a.norm().clamp_min(1e-30)).item() <= 1e-4, name
+
+
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+def test_moe_remat_recompute_routes_the_same_on_the_card(dev, impl):
+    """One block of qwen3-moe-30b-a3b at full width (d_model 2048, 128
+    experts top-8, bf16 compute on f32 masters, ``remat == "full"``) in a
+    train step over 2 x 512 tokens: a pre-hook on the MoE layer routes its
+    input at each call, the forward's and the backward's recompute; the
+    two give the same experts and the same kept pairs, and the gradient
+    is finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, loss_fn
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=1, vocab_size=1024,
+                              moe_impl=impl)
+    assert cfg.remat == "full"
+    model = build(cfg, device=dev, param_dtype=torch.float32,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    calls = []
+    model.blocks[0].mlp.register_forward_pre_hook(lambda m, i: calls.append(m.routing(i[0])))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+             for k in ("tokens", "labels")}
+    loss, _ = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert len(calls) == 2
+    assert torch.equal(calls[0].experts, calls[1].experts)
+    assert torch.equal(calls[0].keep, calls[1].keep) and not calls[0].keep.all()
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_moe_prefill_launches_b8_per_block_at_head_dim_64(dev):

@@ -432,13 +432,44 @@ def test_reference_leaves_cover_the_model(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_trainer_refuses_moe(arch):
+def test_trainer_trains_moe(arch):
+    """The trainers take the MoE family: AdamW through ``launch.train.train``
+    (a warm-up step at lr 0, then one step) and one eigen refresh and step
+    through the step
+    builders (2 stacked shards, rank 4: the router compressed), each with a
+    finite loss, and every MoE leaf (router and experts) moved."""
     from repro_torch.launch import steps
     from repro_torch.launch.train import train
+    from repro_torch.optim import EigenCompressConfig
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.eigen_compress import draw_starts
 
-    with pytest.raises(NotImplementedError, match="A11-moe-train"):
-        train(arch, steps=1, device="cpu")
-    model = build(get_reduced_config(arch), device="cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A11-moe-train"):
-        steps.make_train_step(model, adamw_cfg=AdamWConfig(), schedule=lambda s: 1e-3)
+    fresh = build(get_reduced_config(arch), device="cpu", param_dtype=torch.float32,
+                  generator=torch.Generator().manual_seed(0))
+    # warmup 1: step 0 takes lr 0, step 1 the peak
+    model, opt, losses = train(arch, steps=2, warmup=1, batch=2, seq=16, device="cpu")
+    assert len(losses) == 2 and all(map(math.isfinite, losses)) and int(opt["step"]) == 2
+    moved = dict(model.named_parameters())
+    moe = [n for n in moved if ".mlp." in n]
+    assert len(moe) == 4 * model.cfg.num_layers
+    for name, p in fresh.named_parameters():
+        if name in moe:
+            assert not torch.equal(p, moved[name]), name
+
+    model = build(get_reduced_config(arch), device="cpu", param_dtype=torch.float32,
+                  generator=torch.Generator().manual_seed(0))
+    ecfg = EigenCompressConfig(rank=4, min_dim=64)
+    opt = steps.eigen_opt_init(model, ecfg, 2)
+    assert "blocks.0.mlp.router" in opt["eigen"] and "blocks.0.mlp.wi" not in opt["eigen"]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, model.cfg.vocab_size, (2, 16), generator=gen)
+             for k in ("tokens", "labels")}
+    steps.make_eigen_refresh_step(model, ecfg=ecfg, shards=2)(
+        opt, batch, draw_starts(steps.start_shapes(opt), seed=1, step=0, device="cpu"))
+    metrics = steps.make_eigen_train_step(model, adamw_cfg=AdamWConfig(),
+                                          schedule=lambda s: 1e-3, shards=2)(opt, batch)
+    assert math.isfinite(float(metrics["loss"]))
+    for name, p in model.named_parameters():
+        if name in moe:
+            assert not torch.equal(p, before[name]), name

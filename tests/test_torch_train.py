@@ -562,7 +562,7 @@ def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
 
 def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
                     ill_posed=ILL_POSED, ref_grads=False, readings=None,
-                    stub=None, ref_own=False) -> dict:
+                    stub=None, ref_own=False, eigen_rank=None) -> dict:
     """Every refresh and train step of the reference's eigen run on the
     pipeline's own batches of ``seq`` tokens (each shard its rows), each
     started from the reference's own state before it.  Returns the worst
@@ -588,10 +588,11 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
     than the port's does (an ill-conditioned leaf: a small gap after the
     r-th singular value, which 4 local steps do not resolve); the
     rotated moment P m, which moves with the subspace, is then held to
-    the same probe (at least 1e-4)."""
+    the same probe (at least 1e-4).  ``eigen_rank`` is the run's rank
+    (default ``EIGEN``'s)."""
     shards = None if group is not None else 4
-    ecfg = EigenCompressConfig(rank=EIGEN["eigen_rank"], refresh_every=EIGEN["eigen_refresh"],
-                               min_dim=64)
+    ecfg = EigenCompressConfig(rank=eigen_rank or EIGEN["eigen_rank"],
+                               refresh_every=EIGEN["eigen_refresh"], min_dim=64)
     sched = warmup_cosine(EIGEN["lr"], EIGEN["warmup"], EIGEN["steps"])
     pipe = TokenPipeline(cfg.vocab_size, seq, B, seed=SEED)
     leaves = reference_leaves(cfg)
