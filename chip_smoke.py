@@ -109,6 +109,31 @@ of JAX or of the reference package.  Phases, each ending in
    last-position logits within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``; and
    the serve launcher once in its own process at the full config with a
    short prompt.
+   Then the sharded lanes (``sharded_lanes``): [sharded] serves the same
+   model, prompts and traffic through ``launch.sharding`` on a (1, 1)
+   mesh (a world of one over gloo; every parameter and cache a DTensor,
+   B8 through ``local_map``): exactly 28 flash launches in the prefill and
+   none in decode, the unsharded lane's tokens, last-position logits
+   within the serving bars of the unsharded kernel prefill's, prefill_s,
+   decode ms a step and peak beside the unsharded lane's;
+   [sharded-ranks] runs the same model on SHARD_RANKS rank processes
+   (``--shard-rank K``) over a (1, 2) mesh: NCCL with a card a rank, or
+   gloo with the card shared.  Each rank first probes every collective
+   kind through DTensor on CUDA tensors and names any that is refused (a
+   rank process that dies in a probe names it too); below two cards a
+   refusal the layout needs prints ``skipped: needs 2 cards (gloo refuses
+   ... on CUDA)``.  Otherwise each rank's B8 runs on (4, 12/4, 4096, 128),
+   28 launches a rank, the rank-0 logits within the serving bars, and the
+   collectives a rank with their bytes are printed.  [dryrun], after the
+   MoE training lanes, joins the dry run started in its own process right
+   after the sharded lanes, at the lowest priority
+   (``launch/dryrun.py`` on fake process groups: paper-pca at (16, 16) on
+   the ring and as a 4-step stream, and at (2, 16, 16) on hier, backend
+   cuda; llama3.2-3b x {train_4k, prefill_32k, decode_32k} and
+   qwen3-moe-30b-a3b x train_4k at 256 ranks) and prints one line a
+   record; paper-pca's collective bytes a device must equal
+   ``comm_cost(...).bits / 8`` and the stream query's be 0; the numbers
+   are reckoned on fake tensors, not card times.
    Then the recurrent serving lane (``recurrent_lanes``): recurrentgemma-2b
    (26 blocks: 18 RG-LRU, 8 local attention with window 2048, head_dim
    256, 10 query heads on 1 KV head, through B8's wide form) and
@@ -227,7 +252,8 @@ of JAX or of the reference package.  Phases, each ending in
    platform "h100").
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's,
-   the recurrent lane's, the MoE lane's and the VLM and whisper lanes'),
+   the sharded lanes' (summed over ranks), the recurrent lane's, the MoE
+   lane's and the VLM and whisper lanes'),
    then, last,
    ``{"ok": true, "device": ...}``.
 
@@ -261,8 +287,24 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# Production width of the paper-pca config (src/repro/configs/paper_pca.py).
-D, R, N_PER_SHARD, SHARDS, N_ITER, ITERS = 8192, 128, 65536, 8, 2, 30
+# Production width of the paper-pca config (src/repro_torch/configs/paper_pca.py,
+# a copy of the reference's), read in place when the checkout is beside
+# this script; SHARDS machines.
+SHARDS = 8
+
+
+def _pca_config():
+    sys.path.insert(0, SRC)
+    try:
+        from repro_torch.configs.paper_pca import CONFIG
+    except ImportError:  # not beside a checkout: main() refuses to run
+        return 8192, 128, 65536, 2, 30
+    finally:
+        sys.path.remove(SRC)
+    return CONFIG.d, CONFIG.r, CONFIG.n_per_shard, CONFIG.n_iter, CONFIG.solver_iters
+
+
+D, R, N_PER_SHARD, N_ITER, ITERS = _pca_config()
 DELTA = 0.2
 SEED = 0
 # Ragged shape of the reference's kernel tests: block-misaligned d, r < 8.
@@ -2497,6 +2539,301 @@ def profile_training(torch, dev, cfg=None) -> None:
                   wall_us, top=20)
 
 
+# -- the sharded lanes and the dry run (phase 3) -------------------------------
+SHARD_RANKS = 2  # ranks of [sharded-ranks], sharing the card over gloo
+DRYRUN_RANKS = 256
+# The dry-run cells [dryrun] counts: paper-pca (multi_pod, topology,
+# stream_steps) and the LM cells (arch, shape).
+DRYRUN_PCA = [(False, "ring", None), (True, "hier", None), (False, "ring", 4)]
+DRYRUN_LM = [("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"),
+             ("llama3.2-3b", "decode_32k"), ("qwen3-moe-30b-a3b", "train_4k")]
+
+
+def dryrun_worker(out: str) -> int:
+    """``--dryrun-out FILE``: count the [dryrun] cells on fake process
+    groups (no card work) and write their records.  It runs beside the
+    card's phases at the lowest priority, so it takes host time only
+    where they leave it."""
+    os.nice(19)
+    sys.path.insert(0, SRC)
+    from repro_torch.launch.dryrun import dryrun_cell, dryrun_paper_pca
+
+    recs = []
+    for mp, topo, steps in DRYRUN_PCA:
+        recs.append(dryrun_paper_pca(multi_pod=mp, topology=topo, stream_steps=steps,
+                                     backend="cuda", verbose=False))
+    for arch, shape in DRYRUN_LM:
+        recs.append(dryrun_cell(arch, shape, device_count=DRYRUN_RANKS, verbose=False))
+    with open(out, "w") as f:
+        json.dump(recs, f, default=str)
+    return 0
+
+
+def start_dryrun(out: str):
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-out", out],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_phase(proc, out: str) -> None:
+    """[dryrun]: join the dry-run process started in phase 1, print one
+    line a record and hold paper-pca's bytes to ``comm_cost``."""
+    log, _ = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"dry run failed:\n{log[-4000:]}")
+    with open(out) as f:
+        recs = json.load(f)
+    for r in recs:
+        if r["arch"] == "paper-pca":
+            want = r["predicted_collective_bits"] / 8
+            q = (f", query {r['query_collective_bytes_per_device']:.0f} B"
+                 if "stream_steps" in r else "")
+            print(f"[dryrun] paper-pca mesh {r['mesh']['shape']} {r['topology']} "
+                  f"({r['kind']}, backend {r['backend']}): collective bytes a device "
+                  f"{r['collective_bytes_per_device']:.0f} (comm_cost bits / 8: {want:.0f})"
+                  f"{q}, FLOPs a device {r['flops_per_device']:.4e}, peak "
+                  f"{r['memory']['peak_bytes'] / 1e9:.2f} GB, roofline {r['bottleneck']}"
+                  f" (reckoned on fake tensors, not card times)")
+            require(r["collective_bytes_per_device"] == want,
+                    f"dry run: paper-pca bytes {r['collective_bytes_per_device']} != {want}")
+            require(r.get("query_collective_bytes_per_device", 0) == 0,
+                    "dry run: the stream query moved bytes")
+        else:
+            m = r["memory"]
+            print(f"[dryrun] {r['arch']} x {r['shape']} mesh {r['mesh']['shape']}: FLOPs a "
+                  f"device {r['flops_per_device']:.4e} (model {r['model_flops_per_device']:.4e}),"
+                  f" args {m['argument_bytes'] / 1e9:.2f} GB (params "
+                  f"{m['param_bytes'] / 1e9:.2f}, opt {m['opt_state_bytes'] / 1e9:.2f}), peak "
+                  f"{m['peak_bytes'] / 1e9:.2f} GB, collectives "
+                  f"{ {k: f'{v:.3e}' for k, v in r['collective_breakdown'].items()} }, roofline "
+                  f"compute {r['compute_s'] * 1e3:.2f} ms / memory {r['memory_s'] * 1e3:.2f} ms"
+                  f" / collective {r['collective_s'] * 1e3:.2f} ms (reckoned on fake tensors,"
+                  f" not card times)")
+            # Sanity, not a bound: the count holds the bulk of the model's
+            # products (6 N D counts the embedding lookup's parameters too),
+            # and AdamW keeps two f32 moments a parameter.
+            require(r["flops_per_device"] >= 0.5 * r["model_flops_per_device"] > 0,
+                    f"dry run: {r['arch']} x {r['shape']} counted too few FLOPs")
+            require(r["kind"] != "train" or m["opt_state_bytes"] == 2 * m["param_bytes"],
+                    f"dry run: {r['arch']} x {r['shape']} optimizer bytes")
+
+
+def shard_rank_worker(rank: int, init: str, out: str) -> int:
+    """``--shard-rank K``: one rank of [sharded-ranks], llama3.2-3b at full
+    width on a (1, SHARD_RANKS) mesh (NCCL with a card a rank, else gloo
+    on the shared card).  Probes each collective kind on CUDA tensors
+    first, then prefills the serving prompts through the sharded model;
+    rank 0 writes the logits."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import kernels
+    from repro_torch.interop import strict_fp32
+    from repro_torch.launch import counting
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import load
+
+    strict_fp32()
+    # A card a rank over NCCL where there are enough cards; else the ranks
+    # share card 0 over gloo.
+    nccl = torch.cuda.device_count() >= SHARD_RANKS
+    dev = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if nccl else "gloo", init_method=init, rank=rank,
+                            world_size=SHARD_RANKS)
+    report = {"refused": {}, "backend": dist.get_backend()}
+    path = os.path.join(out, f"shard{rank}.json")
+
+    def mark(**kw):
+        report.update(kw)
+        with open(path, "w") as f:
+            json.dump(report, f)
+
+    try:
+        mesh = make_mesh((1, SHARD_RANKS), ("data", "model"), device="cuda")
+        x = torch.ones(8, 16, device=dev)
+        # Each collective kind as DTensor issues it: a redistribution of the
+        # model axis from one placement to another.
+        probes = {"all-reduce": (Partial(), Replicate()), "all-gather": (Shard(0), Replicate()),
+                  "reduce-scatter": (Partial(), Shard(0)), "all-to-all": (Shard(0), Shard(1))}
+        for kind, (src, dst) in probes.items():
+            mark(probing=kind)  # a collective that kills the process is named here
+            try:
+                DTensor.from_local(x, mesh, [Replicate(), src]).redistribute(
+                    mesh, [Replicate(), dst]).to_local()
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 -- reported by name
+                report["refused"][kind] = f"{type(e).__name__}: {str(e)[:200]}"
+        mark(probing=None)
+        model, prompts, _ = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                 reduced=False, device=dev, seed=SEED)
+        S.shard_model(model, model.cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        comms = counting.LocalComms()
+        try:
+            with S.sharded(mesh), CommDebugMode() as cdm, comms:
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(S.shard_batch({"t": prompts}, mesh)["t"])
+                whole = logits.full_tensor()
+                torch.cuda.synchronize()
+                report["prefill_s"] = time.perf_counter() - t0
+            report["launches"] = kernels.launch_counts()["flash_attention"]
+            report["collectives"] = {k: [int(comms.counts[k]), int(v)]
+                                     for k, v in comms.by_kind.items()}
+            report["comm_counts"] = {str(k): int(v) for k, v in cdm.get_comm_counts().items()}
+            report["local_heads"] = [model.blocks[0].mixer.wq.to_local().shape[1]
+                                     // model.cfg.head_dim,
+                                     model.blocks[0].mixer.wk.to_local().shape[1]
+                                     // model.cfg.head_dim]
+            report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if rank == 0:
+                torch.save(whole[:, :model.cfg.vocab_size].cpu(),
+                           os.path.join(out, "logits.pt"))
+        except Exception as e:  # noqa: BLE001 -- reported with the probes
+            report["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    finally:
+        dist.destroy_process_group()
+    mark()
+    return 0
+
+
+def sharded_lanes(torch, dev, launches: dict, unsharded: dict) -> None:
+    """[sharded]: llama3.2-3b served through ``launch.sharding`` on a (1, 1)
+    mesh (a world of one: every parameter and cache a DTensor), held to
+    the unsharded lane (``unsharded``: its tokens, kernel-prefill logits,
+    prefill_s, decode ms a step, peak GB); [sharded-ranks]: the same model
+    on SHARD_RANKS rank processes sharing the card over gloo, each rank's
+    B8 on its local heads."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate, load
+
+    t_lane = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, prompts, _ = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                 reduced=False, device="cuda", seed=SEED)
+        S.shard_model(model, model.cfg, mesh)
+        from torch.distributed.tensor import DTensor
+        require(all(isinstance(p, DTensor) for p in model.parameters()),
+                "sharded: a parameter is not a DTensor")
+        kernels.reset_launch_counts()
+        toks, st = generate(model, prompts, gen=SERVE_GEN, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches["flash_attention"] += counts["flash_attention"]
+        layers = model.cfg.num_layers
+        require(st["flash_launches"] == {"prefill": layers, "decode": 0}
+                and counts == expected_counts({"flash_attention": layers}),
+                f"sharded: flash launches {st['flash_launches']}, {counts}")
+        with S.sharded(mesh):
+            logits, cache = model.prefill(S.shard_batch({"t": prompts}, mesh)["t"])
+            got = logits.full_tensor()[:, :model.cfg.vocab_size]
+        require(all(isinstance(t, DTensor) for blk in cache for t in blk.values()),
+                "sharded: a cache tensor is not a DTensor")
+        rel_l2, max_abs, agree = serving_gap(torch, got, unsharded["logits"])
+        same = bool((toks == unsharded["toks"]).all())
+        dec_ms = st["decode_s"] / SERVE_GEN * 1e3
+        print(f"[sharded] {SERVE_ARCH} full config on a (1, 1) mesh (every parameter and "
+              f"cache a DTensor): prefill_s {st['prefill_s']:.4f} (unsharded "
+              f"{unsharded['prefill_s']:.4f}), decode {dec_ms:.2f} ms/step (unsharded "
+              f"{unsharded['decode_ms']:.2f}), peak {peak:.2f} GB (unsharded "
+              f"{unsharded['peak_gb']:.2f}); flash launches {st['flash_launches']}; tokens "
+              f"equal the unsharded lane's {same}; last logits vs the unsharded kernel "
+              f"prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e} of the largest "
+              f"(bars {SERVE_REL_L2}, {SERVE_MAX_ABS}), argmax agree {agree}/{SERVE_BATCH}")
+        require(same, "sharded: tokens differ from the unsharded lane's")
+        require(within_bars(torch, got, unsharded["logits"]),
+                "sharded: logits outside the serving bars")
+        del model, prompts, logits, cache, got
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[sharded] one-rank lane in {time.perf_counter() - t_lane:.1f} s")
+    sharded_ranks(torch, dev, launches, unsharded)
+
+
+def sharded_ranks(torch, dev, launches: dict, unsharded: dict) -> None:
+    """[sharded-ranks]: llama3.2-3b on SHARD_RANKS rank processes over a
+    (1, SHARD_RANKS) mesh (``--shard-rank K``), the rank-0 prefill logits
+    held to the unsharded lane's (see ``sharded_lanes``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        init = f"tcp://127.0.0.1:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank", str(k),
+             "--init", init, "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in range(SHARD_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        reps = [json.load(open(os.path.join(out, f"shard{k}.json")))
+                for k in range(SHARD_RANKS)]
+        for p, r in zip(procs, reps):
+            if p.returncode and r.get("probing"):
+                # The process died inside a probe: that collective is refused.
+                r["refused"][r["probing"]] = f"the rank process died (exit {p.returncode})"
+                r["error"] = f"died probing {r['probing']}"
+        require(all(p.returncode == 0 or r.get("probing") for p, r in zip(procs, reps)),
+                f"sharded-ranks workers failed: "
+                f"{[(p.returncode, lg[-3000:]) for p, lg in zip(procs, logs)]}")
+        refused = reps[0]["refused"]
+        print(f"[sharded-ranks] {reps[0]['backend']} on CUDA tensors, each collective kind "
+              f"probed through DTensor: refused {refused or 'none'}")
+        if "error" in reps[0] or any("error" in r for r in reps):
+            errs = [r.get("error") for r in reps]
+            require(bool(refused), f"sharded-ranks failed with no gloo refusal: {errs}")
+            kinds = ", ".join(sorted(refused))
+            require(reps[0]["backend"] == "gloo" and torch.cuda.device_count() < 2,
+                    f"sharded-ranks: {reps[0]['backend']} refuses {kinds}: {errs}")
+            print(f"[sharded-ranks] skipped: needs 2 cards (gloo refuses {kinds} on "
+                  f"CUDA); {errs[0]}")
+            return
+        got = torch.load(os.path.join(out, "logits.pt")).to(dev)
+    rel_l2, max_abs, agree = serving_gap(torch, got, unsharded["logits"])
+    n = sum(r["launches"] for r in reps)
+    launches["flash_attention"] += n
+    r0 = reps[0]
+    print(f"[sharded-ranks] {SERVE_ARCH} full width on a (1, {SHARD_RANKS}) mesh, "
+          f"{SHARD_RANKS} ranks over {r0['backend']}: local heads (q, kv) "
+          f"{r0['local_heads']}, prefill_s {r0['prefill_s']:.4f} / "
+          f"{reps[1]['prefill_s']:.4f} (rank 0 / 1), peak {r0['peak_gb']:.2f} GB a rank, "
+          f"flash launches {[r['launches'] for r in reps]}; rank-0 last logits vs the "
+          f"unsharded kernel prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e} "
+          f"(bars {SERVE_REL_L2}, {SERVE_MAX_ABS}), argmax agree {agree}/{SERVE_BATCH}")
+    print(f"[sharded-ranks] collectives a rank in the prefill (kind: [count, bytes of "
+          f"local operands]): {r0['collectives']}; CommDebugMode {r0['comm_counts']}")
+    from repro_torch.configs import get_config
+
+    layers = get_config(SERVE_ARCH).num_layers
+    require(all(r["launches"] == layers for r in reps),
+            f"sharded-ranks: flash launches {[r['launches'] for r in reps]}")
+    require(within_bars(torch, got, unsharded["logits"]),
+            "sharded-ranks: rank-0 logits outside the serving bars")
+    print(f"[sharded-ranks] lane in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2505,6 +2842,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2523,6 +2862,10 @@ def main(argv=None) -> int:
         return rank_worker(args.rank, args.init, args.out)
     if args.train_rank is not None:
         return train_rank_worker(args.train_rank, args.init, args.out)
+    if args.shard_rank is not None:
+        return shard_rank_worker(args.shard_rank, args.init, args.out)
+    if args.dryrun_out is not None:
+        return dryrun_worker(args.dryrun_out)
     sys.path.insert(0, SRC)
 
     from repro_torch import kernels
@@ -2578,6 +2921,7 @@ def main(argv=None) -> int:
     _build.build()
     _build.load()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3547,7 +3891,9 @@ def main(argv=None) -> int:
             "serve: kernel and plain prefill disagree")
     require(bool((lk.argmax(-1).cpu() == toks[:, 0]).all()),
             "serve: the served first tokens are not the kernel prefill's argmax")
-    del model, lk, lp, prompts
+    unsharded = {"toks": toks, "logits": lk, "prefill_s": st["prefill_s"],
+                 "decode_ms": st["decode_s"] / SERVE_GEN * 1e3, "peak_gb": peak_gb}
+    del model, lp, prompts
     torch.cuda.empty_cache()
 
     # The serve launcher, once in its own process, at the full config.
@@ -3573,6 +3919,18 @@ def main(argv=None) -> int:
             and stats["flash_launches_decode"] == "0",
             "serve launcher: wrong token matrix or flash launches")
     torch.cuda.synchronize()
+
+    # The sharded lanes ([sharded], [sharded-ranks]).  Then the dry run
+    # starts: it counts on fake tensors, CPU work alone, in its own process
+    # beside the card's next phases, and is joined at [dryrun].
+    t_new = time.perf_counter()
+    sharded_lanes(torch, dev, launches, unsharded)
+    del unsharded, lk
+    torch.cuda.empty_cache()
+    new_s = time.perf_counter() - t_new
+    dry_dir = tempfile.mkdtemp()
+    dry_out = os.path.join(dry_dir, "dryrun.json")
+    dry_proc = start_dryrun(dry_out)
 
     # The recurrent serving lane (recurrentgemma-2b, mamba2-370m).
     t0 = time.perf_counter()
@@ -3613,6 +3971,12 @@ def main(argv=None) -> int:
     moe_train_lanes(torch, dev, launches)
     torch.cuda.synchronize()
     print(f"[train-moe] M1, M1c and M2 in {time.perf_counter() - t0:.1f} s")
+    # [dryrun]: the dry run started after the sharded lanes.
+    t0 = time.perf_counter()
+    dryrun_phase(dry_proc, dry_out)
+    new_s += time.perf_counter() - t0
+    print(f"[sharded] new phases in {new_s:.1f} s (the sharded lanes, and the wait for the "
+          f"dry run's process, started after them)")
 
     # -- phase 4: times at the main path's shapes ---------------------------
     def time_ms(fn, reps):

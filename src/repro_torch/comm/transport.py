@@ -17,6 +17,11 @@ send/recv), and it is the only backend when several ranks share one card
 is copied to host memory, moved there, and copied back; the bytes copied
 in both directions are counted in ``staged_bytes()``.  Under NCCL and for
 CPU tensors nothing is staged.
+
+``handed_bytes()`` tallies the payload bytes this rank hands to
+``torch.distributed``, by kind (``all_reduce``, ``broadcast``,
+``all_gather``, ``send``): the wire a device puts on per step, which the
+dry run (``launch/counting.py``) holds against ``comm_cost(...).bits``.
 """
 
 from __future__ import annotations
@@ -32,10 +37,13 @@ __all__ = [
     "barrier",
     "staged_bytes",
     "reset_staged_bytes",
+    "handed_bytes",
+    "reset_handed_bytes",
 ]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _staged = [0]
+_handed: dict[str, int] = {}
 
 
 def staged_bytes() -> int:
@@ -45,6 +53,19 @@ def staged_bytes() -> int:
 
 def reset_staged_bytes() -> None:
     _staged[0] = 0
+
+
+def handed_bytes() -> dict[str, int]:
+    """Payload bytes handed to ``torch.distributed`` so far, by kind."""
+    return dict(_handed)
+
+
+def reset_handed_bytes() -> None:
+    _handed.clear()
+
+
+def _hand(kind: str, t: torch.Tensor) -> None:
+    _handed[kind] = _handed.get(kind, 0) + t.numel() * t.element_size()
 
 
 def _staged_for(t: torch.Tensor, group) -> bool:
@@ -83,12 +104,14 @@ def _in_place(t: torch.Tensor, group, op) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, *, group, op: str = "sum") -> torch.Tensor:
     """Reduce ``t`` over the group in place (``op`` "sum" or "max")."""
+    _hand("all_reduce", t)
     return _in_place(
         t, group, lambda w: dist.all_reduce(w, op=_OPS[op], group=group))
 
 
 def broadcast(t: torch.Tensor, *, src: int, group) -> torch.Tensor:
     """Overwrite ``t`` on every rank with group rank ``src``'s ``t``."""
+    _hand("broadcast", t)
     return _in_place(
         t, group, lambda w: dist.broadcast(w, src=_global(group, src), group=group))
 
@@ -98,6 +121,7 @@ def all_gather(t: torch.Tensor, *, group) -> torch.Tensor:
     world = dist.get_world_size(group)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     t = t.contiguous()
+    _hand("all_gather", t)
     flat = (world * t.shape[0], *t.shape[1:])  # gloo wants the flat form
     if _staged_for(t, group):
         out = torch.empty(flat, dtype=t.dtype)
@@ -123,6 +147,8 @@ def ring_shift(
     right = _global(group, ranks[(pos + 1) % len(ranks)])
     left = _global(group, ranks[pos - 1])
     staged = _staged_for(chunks[0], group)
+    for c in chunks:
+        _hand("send", c)
     sends = [_to_host(c.contiguous()) if staged else c.contiguous() for c in chunks]
     recvs = [torch.empty_like(s) for s in sends]
     ops = [dist.P2POp(dist.isend, s, right, group=group) for s in sends]

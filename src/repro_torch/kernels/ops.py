@@ -12,6 +12,12 @@ included), so CUDA work never falls back to the plain version quietly.
 ``backend=`` vocabulary: ``BACKENDS = ("torch", "cuda", "auto")``.
 "torch" is plain PyTorch, "cuda" the hand-written kernels, and "auto"
 means "cuda" for tensors on a CUDA device and "torch" on the CPU.
+
+The kernel route calls the kernels' ``torch.library`` custom ops
+(``kernels.library``) when no input needs a gradient: the same wrappers
+run, and a dry run under ``FakeTensorMode`` traces them and counts their
+operations.  ``attention`` takes DTensor q, k, v (a sharded model): it
+runs the same call on each rank's local heads through ``local_map``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.kernels import covariance as _cov
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import library as _lib
 from repro_torch.kernels import procrustes_align as _pa
 from repro_torch.kernels import ref as _ref
 
@@ -37,6 +44,7 @@ __all__ = [
     "fused_ring_round",
     "fused_ring_round_remote",
     "attention",
+    "head_placements",
 ]
 
 BACKENDS = ("torch", "cuda", "auto")
@@ -57,14 +65,22 @@ def resolve_backend(backend: str, device: torch.device | str) -> str:
     return backend
 
 
-def _dispatch(kernel_fn, plain_fn, use_kernel: bool | None, *args, **kw):
+def _dispatch(kernel_fn, plain_fn, use_kernel: bool | None, *args, op=None, **kw):
     """Shared kernel/plain dispatch: ``None`` -> kernel iff the first
-    tensor is on a CUDA device."""
+    tensor is on a CUDA device.  The kernel route takes ``op`` (the custom
+    op, positional arguments) when no input needs a gradient."""
     if use_kernel is None:
         use_kernel = args[0].is_cuda
     if use_kernel:
+        if op is not None and not _needs_grad(args):
+            return op()
         return kernel_fn(*args, **kw)
     return plain_fn(*args, **kw)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def gram(
@@ -73,14 +89,16 @@ def gram(
     """X^T X (f32).  ``symmetric`` is the reference's option; the result is
     the same either way (the kernel always mirrors its upper tiles)."""
     return _dispatch(
-        lambda x: _cov.gram(x, symmetric=symmetric), _ref.gram, use_kernel, x
+        lambda x: _cov.gram(x, symmetric=symmetric), _ref.gram, use_kernel, x,
+        op=lambda: _lib.gram(x),
     )
 
 
 def batched_gram(
     vs: torch.Tensor, ref: torch.Tensor, *, use_kernel: bool | None = None
 ) -> torch.Tensor:
-    return _dispatch(_pa.batched_gram, _ref.batched_gram, use_kernel, vs, ref)
+    return _dispatch(_pa.batched_gram, _ref.batched_gram, use_kernel, vs, ref,
+                     op=lambda: _lib.batched_gram(vs, ref))
 
 
 def batched_gram_polar(
@@ -88,14 +106,17 @@ def batched_gram_polar(
 ) -> torch.Tensor:
     """Gram + Newton-Schulz polar: Z_i = polar(V_i^T @ ref), (m, r, r)."""
     return _dispatch(
-        _pa.batched_gram_polar, _ref.batched_gram_polar, use_kernel, vs, ref, **kw
+        _pa.batched_gram_polar, _ref.batched_gram_polar, use_kernel, vs, ref,
+        op=lambda: _lib.batched_gram_polar(vs, ref, kw.get("ns_iters", _pa.DEFAULT_NS_ITERS)),
+        **kw,
     )
 
 
 def align_average(
     vs: torch.Tensor, zs: torch.Tensor, *, use_kernel: bool | None = None
 ) -> torch.Tensor:
-    return _dispatch(_pa.align_average, _ref.align_average, use_kernel, vs, zs)
+    return _dispatch(_pa.align_average, _ref.align_average, use_kernel, vs, zs,
+                     op=lambda: _lib.align_average(vs, zs))
 
 
 def align_one(
@@ -139,7 +160,11 @@ def fused_round(
     """Whole Algorithm-1 round(s), one launch each: Gram + Newton-Schulz
     polar + aligned average + CholeskyQR2 (the cuda backend's
     ``polar="newton-schulz", orth="cholesky-qr2"`` cell)."""
-    return _dispatch(_pa.fused_round, _ref.fused_round, use_kernel, vs, ref, **kw)
+    return _dispatch(
+        _pa.fused_round, _ref.fused_round, use_kernel, vs, ref,
+        op=lambda: _lib.fused_round(vs, ref, kw.get("n_iter", 1),
+                                    kw.get("ns_iters", _pa.DEFAULT_NS_ITERS)),
+        **kw)
 
 
 def fused_ring_round(
@@ -156,7 +181,10 @@ def fused_ring_round(
     stages the wire and loops the rounds)."""
     return _dispatch(
         _pa.fused_ring_round, _ref.fused_ring_round, use_kernel,
-        vs, ref, scales, **kw,
+        vs, ref, scales,
+        op=lambda: _lib.fused_ring_round(vs, ref, scales, kw.get("ring_chunk"),
+                                         kw.get("ns_iters", _pa.DEFAULT_NS_ITERS)),
+        **kw,
     )
 
 
@@ -196,11 +224,61 @@ def attention(
     path, as the reference keeps it in XLA.  ``use_kernel=True`` forces
     the wrapper (its plain version on CPU tensors), ``False`` the plain
     path.  ``probs_bf16`` applies to the plain path only: the kernel keeps
-    the probabilities in f32, as the reference's kernel does."""
+    the probabilities in f32, as the reference's kernel does.
+
+    DTensor q, k, v (a sharded model) go through ``local_map``: each rank
+    makes this same call on its local (b / data, hq / model, s, d) and
+    (b / data, hkv / model, t, d) blocks, so the kernel runs on each
+    rank's own heads (nothing is gathered).  The heads shard over 'model'
+    only when both hq and hkv divide by it, else every rank runs all the
+    heads (the reference keeps such heads replicated); the batch shards
+    over the data axes when it divides by them."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, window=window,
+                                  use_kernel=use_kernel, probs_bf16=probs_bf16)
     if use_kernel is None:
         use_kernel = q.is_cuda and q.shape[2] > 1
     if use_kernel:
+        if not _needs_grad((q, k, v)):
+            return _lib.flash_attention(q, k, v, causal, window or 0)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
     return _ref.attention(
         q, k, v, causal=causal, window=window, probs_bf16=probs_bf16
     )
+
+
+def head_placements(q, k) -> list:
+    """Placements of a sharded model's (b, h, s, d) attention tensors: the
+    batch over the data axes when it divides by them, the heads over
+    'model' when both q's and k's head counts divide by it, every other
+    mesh axis replicated."""
+    import math
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    data = [a for a in ("pod", "data") if a in sizes]
+    place = [Replicate() for _ in names]
+    if data and q.shape[0] % math.prod(sizes[a] for a in data) == 0:
+        for a in data:
+            place[names.index(a)] = Shard(0)
+    if "model" in sizes and q.shape[1] % sizes["model"] == 0 \
+            and k.shape[1] % sizes["model"] == 0:
+        place[names.index("model")] = Shard(1)
+    return place
+
+
+def _sharded_attention(q, k, v, **kw):
+    """``attention`` on each rank's local blocks of DTensor q, k, v."""
+    from torch.distributed.tensor.experimental import local_map
+
+    place = head_placements(q, k)
+    mesh = q.device_mesh
+    run = local_map(lambda ql, kl, vl: attention(ql, kl, vl, **kw),
+                    out_placements=place, in_placements=(place, place, place),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k, v)

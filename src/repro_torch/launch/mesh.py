@@ -19,6 +19,14 @@ Transport rule, explicit and printed by the launcher:
 ``pods=p`` adds the two-level (pod, local) groups of the hier topology,
 pod-major (rank q·local + l is slot l of pod q): each pod's local group
 and each slot's pod group, created by every rank in the same order.
+
+The model meshes (``make_production_mesh``, ``make_mesh``,
+``make_host_mesh``, ``data_axes``; ``repro/launch/mesh.py:22-84``) are
+``torch.distributed.device_mesh.DeviceMesh``es over the process group
+that is already up (``torchrun``'s, a gloo world, or the dry run's fake
+group): the same shapes, axis names and factorisation rules as the
+reference's.  They are functions, and importing this module starts no
+process group.
 """
 
 from __future__ import annotations
@@ -29,7 +37,12 @@ import os
 import torch
 import torch.distributed as dist
 
-__all__ = ["AggregationGroup", "transport_rule", "make_aggregation_mesh", "under_torchrun"]
+__all__ = ["AggregationGroup", "transport_rule", "make_aggregation_mesh", "under_torchrun",
+           "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "make_production_mesh", "make_mesh",
+           "make_host_mesh", "data_axes"]
+
+# The reference's mesh-axis names (``repro/comm/topology.py``).
+DATA_AXIS, MODEL_AXIS, POD_AXIS = "data", "model", "pod"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +148,66 @@ def make_aggregation_mesh(
         device=dev, backend=dist.get_backend(), rule=rule, pods=pods,
         local_groups=local_groups, pod_groups=pod_groups,
     )
+
+
+def _mesh_device(device: str | None) -> str:
+    if device is not None:
+        return torch.device(device).type
+    return "cuda" if dist.get_backend() == "nccl" or (
+        torch.cuda.is_available() and dist.get_backend() != "fake") else "cpu"
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device: str | None = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the ranks of the
+    default process group (which must be up and hold ``prod(shape)``
+    ranks), row-major as the reference's ``jax.make_mesh``.  ``device``
+    is the mesh's device type: default "cuda" when the group runs on
+    cards, else "cpu"."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: start one first "
+                           "(torchrun, make_aggregation_mesh, or the dry run's fake group)")
+    return init_device_mesh(_mesh_device(device), tuple(int(x) for x in shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str | None = None):
+    """The target deployment mesh: (16, 16) over ``(data, model)``, or two
+    pods (2, 16, 16) with a leading ``pod`` axis; needs 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = (POD_AXIS, DATA_AXIS, MODEL_AXIS) if multi_pod else (DATA_AXIS, MODEL_AXIS)
+    return make_mesh(shape, axes, device=device)
+
+
+def host_mesh_shape(n: int, *, model: int | None = None,
+                    data: int | None = None) -> tuple[int, int]:
+    """(data, model) of ``make_host_mesh`` over ``n`` ranks: model 8, 4 or
+    2, whichever first divides n (1 for one rank), data the rest."""
+    if model is None:
+        model = 1
+        for cand in (8, 4, 2):
+            if n % cand == 0 and cand <= n:
+                model = cand
+                break
+        if n == 1:
+            model = 1
+    data = data or (n // model)
+    if data * model != n:
+        raise ValueError(f"data {data} x model {model} is not the world of {n} ranks")
+    return data, model
+
+
+def make_host_mesh(*, model: int | None = None, data: int | None = None,
+                   device: str | None = None):
+    """Best-effort (data, model) mesh over every rank of the default group
+    (``host_mesh_shape``), data-major."""
+    shape = host_mesh_shape(dist.get_world_size(), model=model, data=data)
+    return make_mesh(shape, (DATA_AXIS, MODEL_AXIS), device=device)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The axes carrying batch parallelism (``pod`` included when present).
+    ``mesh`` is a ``DeviceMesh`` or a {axis name: size} mapping."""
+    names = tuple(mesh) if isinstance(mesh, dict) else tuple(mesh.mesh_dim_names)
+    return tuple(a for a in (POD_AXIS, DATA_AXIS) if a in names)

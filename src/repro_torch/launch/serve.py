@@ -30,10 +30,17 @@ mamba2-370m; decode steps take the plain grouped product, whisper's
 plain cross-attention and the recurrences' one step.
 Prints the reference's lines (the token matrix's shape and the timings)
 and adds tokens per second, the attention blocks and the flash launches
-of prefill and decode.  One process, one device: the reference's mesh,
-parameter shardings and jitted, donated decode step are no-ops there and
-have no counterpart here; serving over several cards is later work
-(ROADMAP A11).
+of prefill and decode.  One process serves on one device.  Under
+``torchrun`` with more than one rank, an LM of the dense, MoE or VLM
+family is served sharded, as the reference's ``serve.py:52,76``: every
+rank joins the process group (``make_aggregation_mesh``: NCCL with a card
+a rank, gloo when ranks share a card), builds ``make_host_mesh()`` over
+the world, and serves the ``launch.sharding.shard_model`` copy of the
+same seeded model (B8 on each rank's local heads in prefill); rank 0
+prints.  A world of one changes nothing::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch llama3.2-3b --full-config --batch 4 --prompt-len 4096 --gen 32
 
 ``--subspace`` serves the streaming eigenspace estimate instead
 (``serve_subspace``, ``repro_torch.stream.SubspaceService``): a seeded
@@ -48,6 +55,7 @@ in a form ``torchrun``'s parser leaves to the script.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -122,6 +130,7 @@ def generate(
     gen: int,
     patch_embeds: torch.Tensor | None = None,
     frames: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """Prefill ``prompts`` (batch, prompt_len), after a VLM's P
     ``patch_embeds`` or with an encoder-decoder's ``frames``, into a cache
@@ -134,7 +143,15 @@ def generate(
     "attention_blocks"}``, times on a host clock around synchronised
     work; on the card the prefill's flash launches equal the model's
     attention blocks.
+
+    ``mesh``: the model is sharded on it (``launch.sharding.shard_model``):
+    the prompts and stub inputs are placed batch-sharded, the work runs
+    under ``launch.sharding.sharded``, and each step's (batch, V) logits
+    are gathered to pick the greedy tokens.
     """
+    if mesh is not None:
+        return _generate_sharded(model, prompts, gen=gen, patch_embeds=patch_embeds,
+                                 frames=frames, mesh=mesh)
     dev = prompts.device
     prompt_len = prompts.shape[1]
     start = prompt_len + (0 if patch_embeds is None else patch_embeds.shape[1])
@@ -170,6 +187,39 @@ def generate(
     }
 
 
+def _generate_sharded(model, prompts, *, gen, patch_embeds, frames, mesh):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import shard_batch, sharded
+
+    class _Placed:
+        """The model as ``generate`` sees it: tokens placed on the mesh
+        going in, whole logits coming out."""
+
+        attention_blocks = model.attention_blocks
+
+        @staticmethod
+        def _whole(logits):
+            return logits.full_tensor() if isinstance(logits, DTensor) else logits
+
+        def prefill(self, tokens, **kw):
+            kw = {k: v for k, v in kw.items() if v is not None}
+            placed = shard_batch({"tokens": tokens, **{k: kw.pop(k) for k in
+                                  ("patch_embeds",) if k in kw}}, mesh)
+            logits, cache = model.prefill(placed.pop("tokens"), **placed, **kw)
+            return self._whole(logits), cache
+
+        def decode_step(self, tokens, cache, pos):
+            logits, cache = model.decode_step(shard_batch({"t": tokens}, mesh)["t"], cache, pos)
+            return self._whole(logits), cache
+
+    if frames is not None:
+        raise ValueError("the encoder-decoder's sharded serving is the next slice "
+                         "(ROADMAP A11-sharded)")
+    with sharded(mesh):
+        return generate(_Placed(), prompts, gen=gen, patch_embeds=patch_embeds)
+
+
 def serve(
     arch: str,
     *,
@@ -179,13 +229,20 @@ def serve(
     reduced: bool = True,
     device: str | torch.device = "cuda",
     seed: int = 0,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
     """``load`` the model, prompts and stub inputs, then ``generate``:
     ``batch`` random prompts prefilled, then ``gen`` greedy decode
-    steps."""
+    steps.  ``mesh``: serve the model sharded on it
+    (``launch.sharding.shard_model``; every rank loads the same seeded
+    model and keeps its blocks)."""
     model, prompts, stub = load(arch, batch=batch, prompt_len=prompt_len,
                                 reduced=reduced, device=device, seed=seed)
-    return generate(model, prompts, gen=gen, **stub)
+    if mesh is not None:
+        from repro_torch.launch.sharding import shard_model
+
+        shard_model(model, model.cfg, mesh)
+    return generate(model, prompts, gen=gen, mesh=mesh, **stub)
 
 
 def serve_subspace(
@@ -327,12 +384,29 @@ def main(argv=None) -> int:
     if not args.arch:
         ap.error("--arch is required (or pass --subspace)")
     cfg = get_config(args.arch) if args.full_config else get_reduced_config(args.arch)
-    dev = resolve_device(args.device)
+    agg = mesh = None
+    if under_torchrun() and int(os.environ["WORLD_SIZE"]) > 1:
+        from repro_torch.launch.mesh import make_aggregation_mesh, make_host_mesh
+
+        agg = make_aggregation_mesh(device=args.device)
+        mesh = make_host_mesh(device=agg.device.type)
+    dev = agg.device if agg is not None else resolve_device(args.device)
     strict_fp32()
-    toks, stats = serve(
-        args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-        reduced=not args.full_config, device=dev,
-    )
+    try:
+        toks, stats = serve(
+            args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+            reduced=not args.full_config, device=dev, mesh=mesh,
+        )
+    finally:
+        if agg is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if agg is not None and agg.rank != 0:
+        return 0
+    if mesh is not None:
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {agg.world} "
+              f"ranks ({agg.rule})")
     print("generated token matrix:", tuple(toks.shape))
     print({k: stats[k] for k in ("prefill_s", "decode_s")})
     print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")

@@ -56,6 +56,7 @@ from repro_torch.interop import decays, reference_leaves
 from repro_torch.models import EncDec, LM
 from repro_torch.models.registry import loss as loss_fn
 from repro_torch.optim import eigen_compress as EC
+from repro_torch.optim.grad_utils import host_value
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adam_direction,
@@ -129,7 +130,7 @@ def make_train_step(model: Model, *, adamw_cfg: AdamWConfig, schedule, group=Non
             for g in grads.values():
                 transport.all_reduce(g, group=group).div_(m)
         loss = _mean_loss([loss.detach()], m, group)
-        lr = schedule(int(opt_state["step"]))
+        lr = schedule(int(host_value(opt_state["step"])))
         om = adamw_update(grads, opt_state, params, lr=lr, cfg=adamw_cfg, decays=decay)
         return {"loss": loss, "lr": lr, "aux": metrics["aux"].detach(), **om}
 
@@ -237,7 +238,7 @@ def make_eigen_train_step(
             for t in full.values():
                 transport.all_reduce(t, group=group)
         loss = _mean_loss(losses, m, group)
-        step = int(opt_state["step"]) + 1
+        step = int(host_value(opt_state["step"])) + 1
         lr = schedule(step - 1)
         c1, c2 = bias_corrections(step, adamw_cfg.b1, adamw_cfg.b2)
         wd = adamw_cfg.weight_decay

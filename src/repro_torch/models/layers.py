@@ -32,6 +32,7 @@ serving's bf16 weights are used as they are.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,8 +42,9 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding_ctx import constrain_batch_heads, constrain_weight
 
-__all__ = ["rms_norm", "apply_rope", "Attention", "CrossAttention", "MLP", "MoE", "Routing", "moe_capacity",
+__all__ = ["rms_norm", "linear", "embed_lookup", "cache_write", "apply_rope", "Attention", "CrossAttention", "MLP", "MoE", "Routing", "moe_capacity",
            "causal_conv", "RGLRU", "SSD", "doubling_scan", "silu_ref", "gelu_tanh_ref",
            "cross_entropy"]
 
@@ -65,6 +67,77 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and a (K, N) weight.  DTensor operands (a
+    sharded model) are folded to one (rows, K) x (K, N) product, as torch
+    folds plain tensors: DTensor's own decomposition would run a batched
+    product over a broadcast weight, a different cuBLAS kernel that rounds
+    otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x @ w
+    lead = x.shape[:-1]
+    return (x.reshape(-1, x.shape[-1]) @ w).view(*lead, w.shape[-1])
+
+
+def cache_write(dst: torch.Tensor, at: tuple, src: torch.Tensor) -> None:
+    """``dst[at] = src`` in place.  A DTensor cache (a sharded model) is
+    written on each rank's block: ``src`` is pinned to the cache's own
+    placements (the reference's constraint on the updated cache, the batch
+    over the data axes and the KV heads where ``shard_cache`` put them),
+    then each rank writes its local rows (``at`` indexes no sharded
+    dim)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+        dst = dst.to_local()
+    dst[at] = src
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  A DTensor table (a sharded model)
+    is looked up on each rank's block (``local_map``): its FSDP shards of
+    the embed dim gathered, each rank's vocab rows answering the tokens
+    that fall in them and zeros elsewhere, summed over 'model' (a
+    ``Partial`` result), the batch kept where ``tokens`` has it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    names = list(mesh.mesh_dim_names)
+    vocab = names.index("model") if "model" in names else None
+    split = vocab is not None and table.placements[vocab] == Shard(0)
+    tok_place = list(tokens.placements)
+    if vocab is not None:
+        tok_place[vocab] = Replicate()
+    tab_place = [Replicate() for _ in names]
+    out_place = [Shard(0) if p == Shard(0) else Replicate() for p in tok_place]
+    if split:
+        tab_place[vocab] = Shard(0)
+        out_place[vocab] = Partial()
+    rows = table.shape[0] // (mesh.size(vocab) if split else 1)
+
+    def local(tok, tab):
+        if not split:
+            return F.embedding(tok, tab)
+        lo = mesh.get_local_rank("model") * rows
+        inside = (tok >= lo) & (tok < lo + rows)
+        out = F.embedding(torch.where(inside, tok - lo, 0), tab)
+        return out * inside[..., None].to(out.dtype)
+
+    # Each data rank looks up its own rows: the table's gradient is a
+    # partial sum over the data axes.
+    tab_grad = [Partial() if p == Shard(0) and i != vocab else q
+                for i, (p, q) in enumerate(zip(tok_place, tab_place))]
+    return local_map(local, out_placements=out_place, in_placements=(tok_place, tab_place),
+                     in_grad_placements=(tok_place, tab_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
 
 
 def apply_rope(
@@ -154,9 +227,9 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         cdt = x.dtype
-        q = (x @ self.wq.to(cdt)).view(b, s, h, hd)
-        k = (x @ self.wk.to(cdt)).view(b, s, kv, hd)
-        v = (x @ self.wv.to(cdt)).view(b, s, kv, hd)
+        q = _split_heads(linear(x, constrain_weight(self.wq.to(cdt))), h)
+        k = _split_heads(linear(x, constrain_weight(self.wk.to(cdt))), kv)
+        v = _split_heads(linear(x, constrain_weight(self.wv.to(cdt))), kv)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
         qt = q.transpose(1, 2).contiguous()  # (B, H, S, D)
@@ -170,53 +243,96 @@ class Attention(nn.Module):
                 raise ValueError("decode takes one token and its position")
             ck, cv = cache["k"], cache["v"]
             slot = pos if window is None else pos % window
-            ck[:, :, slot] = kt[:, :, 0].to(ck.dtype)
-            cv[:, :, slot] = vt[:, :, 0].to(cv.dtype)
-            idx = torch.arange(ck.shape[2], device=x.device)
-            if window is None:
-                valid = idx <= pos
-            else:
-                p_j = pos - torch.remainder(pos - idx, window)
-                valid = (p_j >= 0) & (p_j > pos - window)
-            qg = qt.reshape(b, kv, h // kv, 1, hd)
-            # Operands in their dtype, products accumulated in f32 (the
-            # reference's preferred_element_type): upcast, then multiply.
-            logits = torch.einsum(
-                "bkgsd,bktd->bkgst", qg.to(torch.float32), ck.to(torch.float32)
-            ) * _f32(1.0 / hd**0.5)
-            logits = torch.where(valid, logits, _NEG_INF)
-            probs = torch.softmax(logits, dim=-1)
-            if cfg.attn_probs_bf16:
-                probs = probs.to(cv.dtype)
-            out = torch.einsum(
-                "bkgst,bktd->bkgsd", probs.to(torch.float32), cv.to(torch.float32)
-            ).reshape(b, h, 1, hd).to(x.dtype)
+            cache_write(ck, (slice(None), slice(None), slot), kt[:, :, 0].to(ck.dtype))
+            cache_write(cv, (slice(None), slice(None), slot), vt[:, :, 0].to(cv.dtype))
+            out = _decode_attention(qt, ck, cv, pos, window, cfg.attn_probs_bf16)
             new_cache = cache
         elif mode in ("train", "prefill"):
             if mode == "train":
                 if use_kernel and torch.is_grad_enabled():
                     raise ValueError("train takes plain attention: B8 has no backward")
                 use_kernel = bool(use_kernel)
-            out = kops.attention(
+            qt, kt, vt = (constrain_batch_heads(t) for t in (qt, kt, vt))
+            out = constrain_batch_heads(kops.attention(
                 qt, kt, vt, causal=self.causal, window=window, use_kernel=use_kernel,
                 probs_bf16=cfg.attn_probs_bf16,
-            )
+            ))
             new_cache = None
             if mode == "prefill":
                 if window is None:
-                    cache["k"][:, :, :s] = kt
-                    cache["v"][:, :, :s] = vt
+                    cache_write(cache["k"], (slice(None), slice(None), slice(None, s)), kt)
+                    cache_write(cache["v"], (slice(None), slice(None), slice(None, s)), vt)
                 else:
                     w = min(window, s)
                     slots = torch.remainder(positions[-w:], window)
-                    cache["k"][:, :, slots] = kt[:, :, -w:].to(cache["k"].dtype)
-                    cache["v"][:, :, slots] = vt[:, :, -w:].to(cache["v"].dtype)
+                    at = (slice(None), slice(None), slots)
+                    cache_write(cache["k"], at, kt[:, :, -w:].to(cache["k"].dtype))
+                    cache_write(cache["v"], at, vt[:, :, -w:].to(cache["v"].dtype))
                 new_cache = cache
         else:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
         y = out.transpose(1, 2).reshape(b, s, h * hd)
-        return y @ self.wo.to(cdt), new_cache
+        return linear(y, constrain_weight(self.wo.to(cdt))), new_cache
+
+
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, heads * D) -> (B, S, heads, D).  A DTensor (a sharded model)
+    whose last dim a mesh axis splits into pieces that are not whole heads
+    is first replicated over that axis (the reference keeps such heads
+    replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(t, DTensor):
+        place = [Replicate() if p == Shard(2) and heads % t.device_mesh.size(i) else p
+                 for i, p in enumerate(t.placements)]
+        if place != list(t.placements):
+            t = t.redistribute(t.device_mesh, place)
+    b, s, _ = t.shape
+    return t.view(b, s, heads, -1)
+
+
+def _decode_attend(qt, ck, cv, *, pos: int, window, probs_bf16: bool):
+    """One query a row against the cache: the valid slots, the grouped GQA
+    product (K/V never repeated), products of the operands' dtype
+    accumulated in f32 (the reference's preferred_element_type)."""
+    b, h, _, hd = qt.shape
+    kv = ck.shape[1]
+    idx = torch.arange(ck.shape[2], device=qt.device)
+    if window is None:
+        valid = idx <= pos
+    else:
+        p_j = pos - torch.remainder(pos - idx, window)
+        valid = (p_j >= 0) & (p_j > pos - window)
+    qg = qt.reshape(b, kv, h // kv, 1, hd)
+    # Operands in their dtype, products accumulated in f32: upcast, then
+    # multiply.
+    logits = torch.einsum(
+        "bkgsd,bktd->bkgst", qg.to(torch.float32), ck.to(torch.float32)
+    ) * _f32(1.0 / hd**0.5)
+    logits = torch.where(valid, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if probs_bf16:
+        probs = probs.to(cv.dtype)
+    return torch.einsum(
+        "bkgst,bktd->bkgsd", probs.to(torch.float32), cv.to(torch.float32)
+    ).reshape(b, h, 1, hd).to(qt.dtype)
+
+
+def _decode_attention(qt, ck, cv, pos: int, window, probs_bf16: bool):
+    """``_decode_attend``; DTensor operands (a sharded model) on each
+    rank's local batch rows and heads (``local_map``, the placements of
+    ``kernels.ops.attention``'s sharded path)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    kw = dict(pos=pos, window=window, probs_bf16=probs_bf16)
+    if not isinstance(qt, DTensor):
+        return _decode_attend(qt, ck, cv, **kw)
+    place = kops.head_placements(qt, ck)
+    return local_map(lambda q, k, v: _decode_attend(q, k, v, **kw), out_placements=place,
+                     in_placements=(place, place, place), device_mesh=qt.device_mesh,
+                     redistribute_inputs=True)(qt, ck, cv)
 
 
 class CrossAttention(Attention):
@@ -273,12 +389,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = x.dtype
-        h = x @ self.wi.to(cdt)
+        h = linear(x, constrain_weight(self.wi.to(cdt)))
         if self.gated:
-            h = F.silu(x @ self.wg.to(cdt)) * h
+            h = F.silu(linear(x, constrain_weight(self.wg.to(cdt)))) * h
         else:
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-        return h @ self.wo.to(cdt)
+        return linear(h, constrain_weight(self.wo.to(cdt)))
 
 
 def moe_capacity(cfg: ModelConfig, seq: int) -> int:
@@ -294,8 +410,10 @@ class Routing(NamedTuple):
     top-k order and their renormalised gates (B, S, K), whether each pair
     got a slot (``keep``) and which (``slots``: expert-major into the
     (E, groups * cap) buffer; meaningless where not kept), the capacity,
-    the number of token groups sharing one capacity, and the Switch aux
-    loss (f32 scalar)."""
+    the number of token groups sharing one capacity, the Switch aux loss
+    (f32 scalar) and its two factors: ``f_e`` (E,), the share of tokens
+    whose top-1 is each expert, and ``p_mean`` (E,), the mean router
+    probabilities (aux = E sum_e f_e p_mean)."""
 
     gates: torch.Tensor
     experts: torch.Tensor
@@ -304,6 +422,8 @@ class Routing(NamedTuple):
     cap: int
     groups: int
     aux: torch.Tensor
+    f_e: torch.Tensor
+    p_mean: torch.Tensor
 
 
 def _queue_places(flat: torch.Tensor, e: int) -> torch.Tensor:
@@ -377,18 +497,20 @@ class MoE(nn.Module):
         self.wg = nn.Parameter(torch.empty(e, d, f, **kw))
         self.wo = nn.Parameter(torch.empty(e, f, d, **kw))
 
-    def routing(self, x: torch.Tensor) -> Routing:
+    def routing(self, x: torch.Tensor, router: torch.Tensor | None = None) -> Routing:
         """Experts, gates, slots and drops of x (B, S, M); see the class
-        docstring."""
+        docstring.  ``router`` defaults to the layer's."""
         cfg = self.cfg
         b, s, _ = x.shape
         e, k = cfg.num_experts, cfg.num_experts_per_token
-        probs = torch.softmax(x.to(torch.float32) @ self.router.to(torch.float32), dim=-1)
+        router = self.router if router is None else router
+        probs = torch.softmax(x.to(torch.float32) @ router.to(torch.float32), dim=-1)
         top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, experts = top[..., :k], idx[..., :k]
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=_f32(1e-9))
         f_e = F.one_hot(experts[..., 0], e).to(torch.float32).mean(dim=(0, 1))
-        aux = e * (f_e * probs.mean(dim=(0, 1))).sum()
+        p_mean = probs.mean(dim=(0, 1))
+        aux = e * (f_e * p_mean).sum()
         if cfg.moe_impl == "sort":
             groups = 1
             cap = max(4, int(cfg.capacity_factor * b * s * k / e + 3) // 4 * 4)
@@ -397,36 +519,53 @@ class MoE(nn.Module):
         places = _queue_places(experts.reshape(groups, -1), e).view(b, s, k)
         group = 0 if groups == 1 else torch.arange(b, device=x.device)[:, None, None]
         slots = experts * (groups * cap) + group * cap + places
-        return Routing(gates, experts, places < cap, slots, cap, groups, aux)
+        return Routing(gates, experts, places < cap, slots, cap, groups, aux, f_e, p_mean)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, S, M) -> (out (B, S, M) in x's dtype, aux f32 scalar)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(self.wi, DTensor):
+            y, aux = self._sharded(x)
+        else:
+            y, rt = self._experts(x, self.router, self.wi, self.wg, self.wo, 0)
+            aux = rt.aux
+        return y.to(x.dtype), aux
+
+    def _experts(self, x, router, wi, wg, wo, lo: int):
+        """The layer on experts [lo, lo + wi.shape[0]) of all of x's
+        tokens: (the combine's sum over those experts' pairs, before its
+        rounding to x's dtype; the routing).  All experts (lo 0) is the
+        layer."""
         cfg, cdt = self.cfg, x.dtype
         b, s, m = x.shape
-        e, k = cfg.num_experts, cfg.num_experts_per_token
+        k = cfg.num_experts_per_token
         # Under a gradient the dispatch gathers from the router's f32 copy
         # of x and casts back (the same values), so x's gradient sums the
         # kept pairs' rows and the router's in f32 and rounds once, as the
         # reference's dot with f32 accumulation does; a dropped pair sends
         # none.  Serving gathers x itself (half the bytes in bf16).
         rows = x.to(torch.float32) if torch.is_grad_enabled() else x
-        rt = self.routing(rows)
-        n_slots = e * rt.groups * rt.cap
+        rt = self.routing(rows, router)
+        per = rt.groups * rt.cap
+        n_slots, base = wi.shape[0] * per, lo * per
+        mine = rt.keep & (rt.experts >= lo) & (rt.experts < lo + wi.shape[0])
         # Dispatch: the token each slot holds; empty slots read a zero row.
         tok = torch.arange(b * s, device=x.device).view(b, s, 1).expand(b, s, k)
         src = torch.full((n_slots + 1,), b * s, dtype=torch.long, device=x.device)
-        src.scatter_(0, torch.where(rt.keep, rt.slots, n_slots).reshape(-1),
+        src.scatter_(0, torch.where(mine, rt.slots - base, n_slots).reshape(-1),
                      tok.reshape(-1))  # dropped pairs all land in the last slot
         xs = torch.cat([rows.reshape(b * s, m), rows.new_zeros(1, m)])
-        buf = xs[src[:n_slots]].to(cdt).view(e, rt.groups * rt.cap, m)
-        h = torch.bmm(buf, self.wi.to(cdt))
-        h = silu_ref(torch.bmm(buf, self.wg.to(cdt))) * h
-        out = torch.bmm(h, self.wo.to(cdt)).view(n_slots, m)
+        buf = xs[src[:n_slots]].to(cdt).view(wi.shape[0], per, m)
+        h = torch.bmm(buf, wi.to(cdt))
+        h = silu_ref(torch.bmm(buf, wg.to(cdt))) * h
+        out = torch.bmm(h, wo.to(cdt)).view(n_slots, m)
         # Combine: each token's pairs in expert order, a dropped pair's
-        # weight zero.
+        # (or another rank's expert's) weight zero.
         order = torch.argsort(rt.experts, dim=-1)
-        slots = torch.clamp(rt.slots.gather(-1, order), max=n_slots - 1).view(b * s, k)
-        w = torch.where(rt.keep, rt.gates, 0.0).gather(-1, order).view(b * s, k).to(cdt)
+        slots = torch.clamp(rt.slots.gather(-1, order) - base, min=0,
+                            max=n_slots - 1).view(b * s, k)
+        w = torch.where(mine, rt.gates, 0.0).gather(-1, order).view(b * s, k).to(cdt)
         if cfg.moe_impl == "sort":
             y = out[slots[:, 0]] * w[:, :1]
             for j in range(1, k):
@@ -436,7 +575,66 @@ class MoE(nn.Module):
             y = out[slots[:, 0]].to(torch.float32) * wf[:, :1]
             for j in range(1, k):
                 y.addcmul_(out[slots[:, j]].to(torch.float32), wf[:, j:j + 1])
-        return y.to(cdt).view(b, s, m), rt.aux
+        return y.view(b, s, m), rt
+
+    def _sharded(self, x):
+        """The layer of a sharded model (DTensor leaves), through
+        ``local_map``: each rank dispatches the pairs of its own experts
+        (the expert dim pinned on the mesh axes that hold it, as the
+        reference's ``constrain_expert_dim``; no expert weight is gathered
+        over them), and the combines add up over those axes (a ``Partial``
+        sum, rounded to x's dtype after it is reduced).  The einsum form
+        routes each row alone (a capacity per row), so a data rank routes
+        its own rows, and the aux loss's two factors are averaged over the
+        data ranks before their product (each given by the ranks that hold
+        expert 0, so the aux reaches the router once).  The sort form's one capacity
+        spans the whole batch, so there every rank routes all the tokens
+        (x gathered over the data axes)."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        from repro_torch.models.sharding_ctx import constrain_expert_dim
+
+        mesh = self.wi.device_mesh
+        axes = range(len(mesh.mesh_dim_names))
+        cdt = x.dtype
+        ws = [constrain_expert_dim(w.to(cdt), 0) for w in (self.wi, self.wg, self.wo)]
+        ep = [i for i, p in enumerate(ws[0].placements) if p == Shard(0)]
+        rows = [i for i, p in enumerate(x.placements) if p == Shard(0) and i not in ep]
+        if self.cfg.moe_impl == "sort":
+            rows = []
+        place = lambda on_ep, on_rows: [on_ep if i in ep else on_rows if i in rows  # noqa: E731
+                                        else Replicate() for i in axes]
+        x_place = place(Replicate(), Shard(0))
+        w_place = place(Shard(0), Replicate())
+        # Gradients: x's and the router's gather each rank's experts' pairs
+        # (partial sums over the expert axes); the router's and the
+        # experts' weights' gather each data rank's rows (partial sums over
+        # those axes).
+        x_grad = place(Partial(), Shard(0))
+        r_grad = place(Partial(), Partial())
+        w_grad = place(Shard(0), Partial())
+        y_place = place(Partial(), Shard(0))
+        # The aux's factors: each row group's share, given once over the
+        # expert axes (so its gradient reaches the router once).
+        factor = place(Partial(), Partial())
+        n_rows = math.prod(mesh.size(i) for i in rows)
+        e_loc = self.cfg.num_experts // math.prod(mesh.size(i) for i in ep)
+
+        def local(xl, rl, wil, wgl, wol):
+            lo = sum(mesh.get_local_rank(i) * math.prod(mesh.size(j) for j in ep[n + 1:])
+                     for n, i in enumerate(ep)) * e_loc
+            y, rt = self._experts(xl, rl, wil, wgl, wol, lo)
+            share = 1.0 / n_rows if lo == 0 else 0.0
+            return y, rt.f_e * share, rt.p_mean * share
+
+        run = local_map(local, out_placements=(y_place, factor, factor),
+                        in_placements=(x_place, place(Replicate(), Replicate()),
+                                       w_place, w_place, w_place),
+                        in_grad_placements=(x_grad, r_grad, w_grad, w_grad, w_grad),
+                        device_mesh=mesh, redistribute_inputs=True)
+        y, f_e, p_mean = run(x, self.router, *ws)
+        return y, _whole(self.cfg.num_experts * (f_e * p_mean).sum())
 
 
 class _SiluRef(torch.autograd.Function):
@@ -711,15 +909,54 @@ def _ssd_scan_chunked(a, u, bmat, cmat, s0, chunk):
     return (y_intra + y_inter).reshape(b, s, h, p), carry
 
 
+def _gold(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit at its label.  DTensor logits (a sharded
+    model, the vocab possibly split over 'model') are read on each rank's
+    block (``local_map``): the labels in a rank's vocab rows answer there,
+    zeros elsewhere, summed over 'model'."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(lf, DTensor):
+        return torch.gather(lf, -1, labels[..., None])[..., 0]
+    mesh, last = lf.device_mesh, lf.dim() - 1
+    split = [i for i, p in enumerate(lf.placements) if p in (Shard(last), Shard(-1))]
+    lf_place = [p if i in split or p == Shard(0) else Replicate()
+                for i, p in enumerate(lf.placements)]
+    lab_place = [Shard(0) if p == Shard(0) else Replicate() for p in lf_place]
+    out_place = [Partial() if i in split else p for i, p in enumerate(lab_place)]
+    cols = lf.shape[-1] // math.prod(mesh.size(i) for i in split)
+
+    def local(lfl, lab):
+        lo = sum(mesh.get_local_rank(i) * math.prod(mesh.size(j) for j in split[n + 1:])
+                 for n, i in enumerate(split)) * cols
+        inside = (lab >= lo) & (lab < lo + cols)
+        got = torch.gather(lfl, -1, torch.where(inside, lab - lo, 0)[..., None])[..., 0]
+        return got * inside.to(got.dtype)
+
+    return local_map(local, out_placements=out_place, in_placements=(lf_place, lab_place),
+                     device_mesh=mesh, redistribute_inputs=True)(lf, labels)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar (a sharded model's loss term) replicated on every
+    rank, so terms reduced in different ways (a mean, a sum) add."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Mean token CE in f32. logits: (B, S, V); labels: (B, S) integers."""
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    gold = _gold(lf, labels.long())
     nll = logz - gold
     if mask is None:
-        return nll.mean()
+        return _whole(nll.mean())
     mask = mask.to(torch.float32)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return _whole((nll * mask).sum() / torch.clamp(mask.sum(), min=1.0))

@@ -61,8 +61,8 @@ decode step, which XLA then updates in place.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
@@ -74,8 +74,11 @@ from repro_torch.models.layers import (
     SSD,
     Attention,
     cross_entropy,
+    embed_lookup,
+    linear,
     rms_norm,
 )
+from repro_torch.models.sharding_ctx import constrain_batch, constrain_weight
 
 __all__ = ["ATTENTION_KINDS", "Block", "LM", "dtype_of", "loss_fn"]
 
@@ -121,7 +124,11 @@ class Block(nn.Module):
             rms_norm(x, self.norm1, self.eps), positions=positions, mode=mode,
             cache=cache, pos=pos, use_kernel=use_kernel,
         )
-        x = x + out
+        # A sharded model's residual is pinned to its batch sharding before
+        # the MLP too (the reference pins it between blocks; DTensor's own
+        # choice after the attention's partial sums can split the batch
+        # over 'model').
+        x = constrain_batch(x + out)
         aux = None
         if self.mlp is not None:
             out = self.mlp(rms_norm(x, self.norm2, self.eps))
@@ -227,11 +234,13 @@ class LM(nn.Module):
         cfg = self.cfg
         cdt = dtype_of(cfg)
         # Gather, then cast: the reference's take of the cast table.
-        x = F.embedding(tokens, self.embed).to(cdt)  # (B, S, M)
+        x = constrain_batch(embed_lookup(tokens, self.embed).to(cdt))  # (B, S, M)
         if patch_embeds is not None:
             if self.patch_proj is None:
                 raise ValueError(f"{cfg.name} takes no patch embeddings")
-            x = torch.cat([patch_embeds.to(cdt) @ self.patch_proj.to(cdt), x], dim=1)
+            patches = constrain_batch(
+                linear(patch_embeds.to(cdt), constrain_weight(self.patch_proj.to(cdt))))
+            x = torch.cat([patches, x], dim=1)
         s = x.shape[1]
         if mode == "decode":
             positions = torch.full((1,), pos, device=x.device)
@@ -248,6 +257,7 @@ class LM(nn.Module):
                 x, c, aux = checkpoint(blk, x, use_reentrant=False, **kw)
             else:
                 x, c, aux = blk(x, **kw)
+            x = constrain_batch(x)
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
             if new_cache is not None:
@@ -257,16 +267,28 @@ class LM(nn.Module):
             x = x[:, -1:, :]  # serving needs the last position only
         w = self.embed.T if self.unembed is None else self.unembed
         # Products of the model's dtype accumulated in f32, f32 out.
-        logits = x.to(torch.float32) @ w.to(cdt).to(torch.float32)
-        if cfg.padded_vocab != cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = -1e30  # padded entries out of the softmax
+        logits = linear(x.to(torch.float32), constrain_weight(w.to(cdt)).to(torch.float32))
+        if cfg.padded_vocab != cfg.vocab_size:  # padded entries out of the softmax
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+            if isinstance(logits, DTensor):
+                logits = logits.masked_fill(pad, -1e30)  # may be partial sums
+            else:
+                logits.masked_fill_(pad, -1e30)
         if total_aux is None:
             total_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return logits, new_cache, total_aux
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        """Zero cache, one dict per block of its kind (``Block.init_cache``)."""
-        return [blk.init_cache(batch, cache_len) for blk in self.blocks]
+        """Zero cache, one dict per block of its kind (``Block.init_cache``);
+        for a sharded model (DTensor parameters) each tensor a DTensor
+        placed by ``launch.sharding.shard_cache``."""
+        cache = [blk.init_cache(batch, cache_len) for blk in self.blocks]
+        mesh = getattr(self.embed, "device_mesh", None)
+        if mesh is None:
+            return cache
+        from repro_torch.launch.sharding import shard_cache
+
+        return shard_cache(cache, self.cfg, mesh)
 
     @torch.no_grad()
     def prefill(

@@ -28,7 +28,7 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.optim.grad_utils import clip_by_global_norm, global_norm
+from repro_torch.optim.grad_utils import clip_by_global_norm, global_norm, host_value
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "bias_corrections", "adam_leaf",
            "adam_moments_", "adam_direction", "apply_update_"]
@@ -100,14 +100,15 @@ def adamw_update(
     """Update ``params`` and ``state`` in place from ``grads`` (which the
     clip scales in place); returns the metrics ``grad_norm`` and
     ``step_skipped``."""
-    gnorm = float(global_norm(grads))
+    # A dry run (no values) traces the finite, clipped step.
+    gnorm = host_value(global_norm(grads), assume=1e30)
     finite = bool(np.isfinite(gnorm))
     metrics = {"grad_norm": gnorm, "step_skipped": 0.0 if finite else 1.0}
     if not finite:
         return metrics
     if cfg.clip_norm > 0:
         clip_by_global_norm(grads, cfg.clip_norm, gnorm)
-    step = int(state["step"]) + 1
+    step = int(host_value(state["step"])) + 1
     c1, c2 = bias_corrections(step, cfg.b1, cfg.b2)
     for name, p in params.items():
         adam_leaf(p, grads[name], state["m"][name], state["v"][name], lr=lr, c1=c1,

@@ -14,7 +14,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-__all__ = ["global_norm", "clip_by_global_norm", "clip_scale"]
+__all__ = ["global_norm", "clip_by_global_norm", "clip_scale", "host_value"]
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -34,6 +34,21 @@ def global_norm(tree: Mapping[str, torch.Tensor] | Iterable[torch.Tensor]) -> to
     return sq.sum().sqrt()
 
 
+def host_value(t, assume: float = 0.0) -> float:
+    """``float(t)`` of a 0-d tensor read on the host: a DTensor's whole
+    value (a sharded model), or ``assume`` for a tensor of a dry run
+    (``FakeTensorMode`` holds no values; the dry run traces the branch
+    that value takes)."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    if isinstance(t, torch.Tensor) and is_fake(t):
+        return assume
+    return float(t)
+
+
 def clip_scale(norm: float, max_norm: float) -> float:
     """min(1, max_norm / max(norm, 1e-9)) in f32, as a Python float."""
     f32 = np.float32
@@ -47,7 +62,7 @@ def clip_by_global_norm(
     (``norm`` defaults to ``global_norm(tree)``); returns ``tree``."""
     if norm is None:
         norm = global_norm(tree)
-    scale = clip_scale(float(norm), max_norm)
+    scale = clip_scale(host_value(norm), max_norm)
     if scale != 1.0:
         for x in _leaves(tree):
             x.mul_(scale)

@@ -15,14 +15,21 @@ Two models, by kind:
 
 The port carries no TPU model: the parity tests build the reference's
 TPU and generic-GPU models from its own objects and pass them in as
-``device=``.  The reference's dry-run table helpers are not ported here
-(ROADMAP A12).
+``device=``.  ``model_flops`` and the dry-run record helpers
+(``load_dryrun_records``, ``dryrun_csv_row``, ``dryrun_markdown_table``)
+are copies of the reference's (``repro/plan/roofline.py:250-331``); the
+port's dry run (``launch/dryrun.py``) prices its records with
+``roofline_terms`` against the ``H100`` model (``H100_BF16`` for the
+LM cells, whose products run in bf16).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import glob
+import json
+import os
+from typing import Dict, List, Optional
 
 __all__ = [
     "DeviceModel",
@@ -30,8 +37,14 @@ __all__ = [
     "device_model",
     "CPU_HOST",
     "H100",
+    "H100_BF16",
     "RooflineTerms",
     "roofline_terms",
+    "model_flops",
+    "SHAPE_ORDER",
+    "load_dryrun_records",
+    "dryrun_csv_row",
+    "dryrun_markdown_table",
 ]
 
 
@@ -146,6 +159,10 @@ H100 = DeviceModel(
     dcn_bw=50e9,  # one 400 Gb/s NIC a GPU between pods (data sheet)
 )
 
+# The same card for bf16 work: the tensor cores' dense bf16 peak (data
+# sheet, 989 TFLOP/s), which prices the LM cells.
+H100_BF16 = dataclasses.replace(H100, peak_flops=989e12)
+
 DEVICE_MODELS: Dict[str, DeviceModel] = {m.kind: m for m in (CPU_HOST, H100)}
 
 
@@ -193,3 +210,86 @@ def roofline_terms(
         compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         bottleneck=max(terms, key=terms.get), coll_breakdown=coll_breakdown,
     )
+
+
+def model_flops(n_active_params: float, tokens: float, kind: str = "train") -> float:
+    """6·N·D for train (fwd+bwd), 2·N·D for inference forward."""
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n_active_params * tokens
+
+
+# ---------------------------------------------------------------------------
+# Dry-run record tables (copies of the reference's).
+
+SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+def load_dryrun_records(dirname: str) -> List[Dict]:
+    """Load and sort ``repro_torch.launch.dryrun`` record JSONs."""
+    recs = []
+    for path in sorted(glob.glob(os.path.join(dirname, "*.json"))):
+        with open(path) as f:
+            recs.append(json.load(f))
+    recs.sort(
+        key=lambda r: (
+            r.get("multi_pod", False),
+            r.get("arch", ""),
+            SHAPE_ORDER.index(r["shape"]) if r.get("shape") in SHAPE_ORDER else 9,
+        )
+    )
+    return recs
+
+
+def dryrun_csv_row(r: Dict) -> str:
+    if "skipped" in r:
+        return (
+            f"{r['arch']},{r['shape']},{'multi' if r['multi_pod'] else 'single'},"
+            "SKIP,,,,,,,"
+        )
+    if "error" in r:
+        return (
+            f"{r['arch']},{r['shape']},{'multi' if r['multi_pod'] else 'single'},"
+            "ERROR,,,,,,,"
+        )
+    dom = max(r["compute_s"], r["memory_s"], r["collective_s"])
+    frac = r["compute_s"] / max(dom, 1e-30)
+    return (
+        f"{r['arch']},{r['shape']},{'multi' if r['multi_pod'] else 'single'},"
+        f"{'eigen,' if r.get('eigen') else 'base,'}"
+        f"{r['compute_s']*1e3:.2f},{r['memory_s']*1e3:.2f},"
+        f"{r['collective_s']*1e3:.2f},{r['bottleneck']},"
+        f"{r.get('useful_flops_ratio', 0):.3f},{frac:.3f},"
+        f"{r.get('compile_s', 0):.0f}"
+    )
+
+
+def dryrun_markdown_table(recs: List[Dict]) -> str:
+    lines = [
+        "| arch | shape | mesh | compute ms | memory ms | collective ms | "
+        "bottleneck | useful FLOP ratio | roofline frac |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        mesh = "2x16x16" if r.get("multi_pod") else "16x16"
+        if "skipped" in r:
+            lines.append(
+                f"| {r['arch']} | {r['shape']} | {mesh} | — | — | — | "
+                f"skipped | — | — |"
+            )
+            continue
+        if "error" in r:
+            lines.append(
+                f"| {r['arch']} | {r['shape']} | {mesh} | ERR | ERR | ERR | "
+                f"error | — | — |"
+            )
+            continue
+        dom = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        frac = r["compute_s"] / max(dom, 1e-30)
+        tag = " (eigen)" if r.get("eigen") else ""
+        lines.append(
+            f"| {r['arch']}{tag} | {r['shape']} | {mesh} | "
+            f"{r['compute_s']*1e3:.2f} | {r['memory_s']*1e3:.2f} | "
+            f"{r['collective_s']*1e3:.2f} | {r['bottleneck']} | "
+            f"{r.get('useful_flops_ratio', 0):.3f} | {frac:.3f} |"
+        )
+    return "\n".join(lines)

@@ -1614,3 +1614,50 @@ def test_doubling_scan_gradient_on_the_card_matches_sequential_f64(dev):
     got = torch.autograd.grad((doubling_scan(a32, b32) * cot.float().to(dev)).sum(), [a32, b32])
     for gt, w in zip(got, want):
         assert ((gt.double().cpu() - w).norm() / w.norm()).item() <= 1e-5
+
+
+def test_sharded_one_rank_mesh_is_bit_for_bit_the_unsharded_model(dev):
+    """A 2-layer llama (the reduced config, bf16) placed on a (1, 1) mesh
+    by ``launch.sharding`` (every parameter and cache a DTensor) serves the
+    same bits as the unsharded model: prefill logits through B8 (one
+    launch a layer, through ``local_map``) and two decode steps."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+
+    cfg = get_reduced_config("llama3.2-3b")
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    ref, model = build(cfg, device=dev, generator=gen()), build(cfg, device=dev, generator=gen())
+    prompts = torch.randint(0, cfg.vocab_size, (2, 160), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    want, wcache = ref.prefill(prompts, cache_len=170)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        S.shard_model(model, cfg, mesh)
+        assert all(isinstance(p, DTensor) for p in model.parameters())
+        kernels.reset_launch_counts()
+        with S.sharded(mesh):
+            got, cache = model.prefill(S.shard_batch({"t": prompts}, mesh)["t"],
+                                       cache_len=170)
+            assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+            assert torch.equal(got.full_tensor(), want)
+            tok = want.argmax(-1)[:, None]
+            for pos in (160, 161):
+                w, wcache = ref.decode_step(tok, wcache, pos)
+                g, cache = model.decode_step(S.shard_batch({"t": tok}, mesh)["t"], cache, pos)
+                assert torch.equal(g.full_tensor(), w)
+                tok = w.argmax(-1)[:, None]
+        assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,193 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the
+reference's ``repro/launch/dryrun.py``, both at 8 ranks / devices.
+
+The reference runs once, in one subprocess on 8 fake CPU devices
+(``run_with_devices``): llama3.2-3b x {train_4k, decode_32k} cut to 2
+layers (``overrides``, on both sides) with ``accounting="unrolled"``, and
+paper-pca on the single-pod (2, 4) and multi-pod (2, 2, 2) meshes over
+the ring, the ring with shard 1 dead, and hier.  The port runs the same
+cells on a fake process group of 8 ranks under ``FakeTensorMode``.
+
+* ``model_flops_global`` is equal exactly.
+* Parameter and AdamW-state bytes a device are equal exactly: the train
+  cell's argument bytes plus the reference's int32 step counter are its
+  ``argument_size_bytes``.  The decode cell's equal it but for the port's
+  f32 norm scales (the reference serves every leaf in bf16; the port
+  keeps norm scales in f32, ``models/layers.py``): 2 bytes more an
+  element, exactly.
+* paper-pca's collective bytes a device (rank 0's payloads handed to
+  ``torch.distributed``) equal ``comm_cost(...).bits / 8``, the port's
+  and the reference's; the reference's HLO bytes are no oracle (ROADMAP
+  C2), so they are not compared.
+* The counted FLOPs a device lie between mf, the model FLOPs a device
+  (6 N D or 2 N D), and ref, the reference's ``flops_per_device``:
+  ``min(mf, ref) <= counted <= max(mf, ref)``.  At train_4k mf counts the
+  embedding table's parameters, whose lookup takes no products, and both
+  counts lie below it (the port 0.81 mf with remat's recompute and its
+  plain attention's whole (S, S) products; XLA's 0.72 mf); at decode_32k
+  the port counts 1.01 mf and XLA 2.79 mf.
+* ``--accounting extrapolate`` / ``scan-only``, ``--eigen`` and an SSM
+  arch are refused by name (exit 2 from the CLI), and no global process
+  group outlives a dry run, a refused or failing one included.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch.distributed as dist
+
+from conftest import SRC, run_with_devices
+from repro_torch.comm import comm_cost
+from repro_torch.configs.paper_pca import CONFIG as PCFG
+from repro_torch.launch import dryrun as D
+
+N = 8
+CUT = {"num_layers": 2}
+PCA_CELLS = [  # (multi_pod, topology, drop_shards)
+    (False, "ring", None), (True, "ring", None), (False, "ring", "1"), (True, "hier", None)]
+
+REF = r"""
+import json, os
+os.environ["REPRO_DRYRUN_DEVICES"] = "8"
+from repro.launch import dryrun as D
+out = {"cells": {}, "pca": []}
+for shape in ("train_4k", "decode_32k"):
+    r = D.dryrun_cell("llama3.2-3b", shape, device_count=8, verbose=False,
+                      accounting="unrolled", overrides=%(cut)r)
+    out["cells"][shape] = {k: r[k] for k in ("flops_per_device", "model_flops_global",
+                                            "model_flops_per_device", "memory_analysis")}
+for mp, topo, drop in %(pca)r:
+    r = D.dryrun_paper_pca(multi_pod=mp, device_count=8, verbose=False, topology=topo,
+                           drop_shards=drop)
+    out["pca"].append({k: r[k] for k in ("predicted_collective_bits", "m_active",
+                                         "topology", "mesh")})
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref():
+    text = run_with_devices(REF % {"cut": CUT, "pca": PCA_CELLS}, n_devices=N, timeout=600)
+    return json.loads(text.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def port():
+    cells = {s: D.dryrun_cell("llama3.2-3b", s, device_count=N, verbose=False,
+                              overrides=CUT) for s in ("train_4k", "decode_32k")}
+    pca = [D.dryrun_paper_pca(multi_pod=mp, device_count=N, verbose=False, topology=topo,
+                              drop_shards=drop) for mp, topo, drop in PCA_CELLS]
+    return {"cells": cells, "pca": pca}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_model_flops_equal_the_references(ref, port, shape):
+    assert port["cells"][shape]["model_flops_global"] == ref["cells"][shape]["model_flops_global"]
+    assert port["cells"][shape]["model_flops_per_device"] == \
+        ref["cells"][shape]["model_flops_per_device"]
+
+
+def test_train_argument_bytes_equal_the_references(ref, port):
+    mem = port["cells"]["train_4k"]["memory"]
+    assert mem["opt_state_bytes"] == 2 * mem["param_bytes"]
+    step = 4  # the reference's int32 step counter, replicated
+    assert mem["argument_bytes"] + step == \
+        ref["cells"]["train_4k"]["memory_analysis"]["argument_size_bytes"]
+
+
+def test_decode_argument_bytes_equal_but_the_f32_norm_scales(ref, port):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import param_specs
+
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), **CUT)
+    mesh = {"data": 2, "model": 4}
+    specs = param_specs(cfg, mesh)
+    norms = [n for n in specs if n.endswith("norm") or n.endswith("norm1")
+             or n.endswith("norm2")]
+    # Each norm scale (d,) shards over 'data' (embed, FSDP): d / 2 a device.
+    norm_elems = sum(cfg.d_model // (2 if specs[n] == ("data",) else 1) for n in norms)
+    mem = port["cells"]["decode_32k"]["memory"]
+    pos = 4  # the reference's int32 position
+    assert mem["argument_bytes"] + pos - 2 * norm_elems == \
+        ref["cells"]["decode_32k"]["memory_analysis"]["argument_size_bytes"]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_counted_flops_lie_between_the_model_and_the_reference(ref, port, shape):
+    mine = port["cells"][shape]["flops_per_device"]
+    mf = port["cells"][shape]["model_flops_per_device"]
+    theirs = ref["cells"][shape]["flops_per_device"]
+    assert min(mf, theirs) <= mine <= max(mf, theirs), (mine, mf, theirs)
+
+
+@pytest.mark.parametrize("i", range(len(PCA_CELLS)), ids=lambda i: "-".join(
+    str(x) for x in PCA_CELLS[i]))
+def test_paper_pca_collective_bytes_equal_comm_cost(ref, port, i):
+    mp, topo, drop = PCA_CELLS[i]
+    rec, theirs = port["pca"][i], ref["pca"][i]
+    assert rec["topology"] == theirs["topology"] == topo
+    assert rec["mesh"]["shape"] == theirs["mesh"]["shape"]
+    assert rec["predicted_collective_bits"] == theirs["predicted_collective_bits"]
+    m = 4 if topo == "hier" else 2  # pod x data, or the data axis alone
+    mem = None
+    if drop:
+        from repro_torch.comm import Membership
+
+        mem = Membership.from_dead(m, [int(drop)])
+    cost = comm_cost(topo, m=m, d=PCFG.d, r=PCFG.r, n_iter=PCFG.n_iter, membership=mem,
+                     pods=2 if topo == "hier" else None)
+    assert rec["collective_bytes_per_device"] * 8 == cost.bits == \
+        theirs["predicted_collective_bits"]
+    assert rec["m_active"] == theirs["m_active"]
+
+
+def test_stream_query_moves_no_bytes():
+    rec = D.dryrun_paper_pca(device_count=N, verbose=False, topology="psum", stream_steps=4)
+    cost = comm_cost("psum", m=2, d=PCFG.d, r=PCFG.r, n_iter=PCFG.n_iter,
+                     ref_broadcast=False)
+    assert rec["collective_bytes_per_device"] * 8 == cost.bits
+    assert rec["query_collective_bytes_per_device"] == 0
+    assert not dist.is_initialized()
+
+
+def test_hlo_only_outputs_are_refused_by_name(port):
+    rec = port["cells"]["train_4k"]
+    assert set(rec["refused"]) == {"generated_code_size_bytes", "lower_s", "compile_s"}
+    assert not any(k in rec for k in rec["refused"])
+
+
+@pytest.mark.parametrize("kw, word", [
+    (dict(accounting="extrapolate"), "extrapolate"),
+    (dict(accounting="scan-only"), "scan-only"),
+    (dict(eigen=True), "--eigen"),
+])
+def test_refusals_name_what_they_refuse(kw, word):
+    with pytest.raises(D.RefusedCell, match=word):
+        D.dryrun_cell("llama3.2-3b", "train_4k", device_count=N, verbose=False, **kw)
+    with pytest.raises(D.RefusedCell, match="mamba2-370m"):
+        D.dryrun_cell("mamba2-370m", "train_4k", device_count=N, verbose=False)
+    assert not dist.is_initialized()
+
+
+def test_cli_exits_2_on_refusals(tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for extra, word in ((["--arch", "mamba2-370m"], "next slice"),
+                        (["--arch", "llama3.2-3b", "--eigen"], "--eigen"),
+                        (["--arch", "llama3.2-3b", "--accounting", "extrapolate"],
+                         "extrapolate")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
+             "--device-count", "8", "--out", str(tmp_path), *extra],
+            env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 2 and word in proc.stderr, (extra, proc.stderr)
+
+
+def test_no_process_group_outlives_a_failing_dry_run():
+    with pytest.raises(ValueError):
+        D.dryrun_paper_pca(device_count=N, verbose=False, topology="hier")  # no pod axis
+    assert not dist.is_initialized()
