@@ -130,9 +130,11 @@ of JAX or of the reference package.  Phases, each ending in
    (``launch/dryrun.py`` on fake process groups: paper-pca at (16, 16) on
    the ring and as a 4-step stream, and at (2, 16, 16) on hier, backend
    cuda; llama3.2-3b x {train_4k, prefill_32k, decode_32k} and
-   qwen3-moe-30b-a3b x train_4k at 256 ranks) and prints one line a
-   record; paper-pca's collective bytes a device must equal
-   ``comm_cost(...).bits / 8`` and the stream query's be 0; the numbers
+   qwen3-moe-30b-a3b x train_4k at 256 ranks, and both train_4k cells
+   again with ``--eigen``: the eigen train step, its data-axis bytes
+   beside the baseline cell's) and prints one line a record; paper-pca's
+   collective bytes a device must equal ``comm_cost(...).bits / 8`` and
+   the stream query's be 0; the numbers
    are reckoned on fake tensors, not card times.
    Then the recurrent serving lane (``recurrent_lanes``): recurrentgemma-2b
    (26 blocks: 18 RG-LRU, 8 local attention with window 2048, head_dim
@@ -191,7 +193,23 @@ of JAX or of the reference package.  Phases, each ending in
    after the last step, the bytes handed to ``torch.distributed`` a
    step); T4 runs the train launcher
    in its own process, preempted at step 5 and resumed from its
-   checkpoint, against the straight run, both deterministic.
+   checkpoint, against the straight run, both deterministic.  The sharded
+   training lanes ([sharded-train]): T1s runs T1 through
+   ``launch.train.train(mesh=)`` on a (1, 1) mesh (every parameter and
+   both AdamW moments a DTensor) for 4 steps, its losses held to T1's
+   (bit for bit, else T1S_LOSS), its ms a step and peak beside T1's; T3s
+   runs T3 on a (4, 1) mesh in T3's rank processes (parameters on the
+   model submesh, the data axis by hand over gloo), held to T3's stacked
+   run at T3's bars, with B2 and B4 launched on every refresh of every
+   rank and the bytes handed a step exact; in the same processes the
+   reduced llama3.2-3b (T3S_CK) trains on that mesh straight, and
+   checkpointed every 2 steps and preempted at T3S_FAIL, and its step-2
+   checkpoint is restored into the stacked trainer: both end within
+   T4_BAR of the straight mesh run's final loss.  [sharded-train-ranks]
+   (``--shard-train-rank K``) trains T3's model on a (2, 2) mesh of 4
+   ranks over NCCL, a card each (AdamW and the eigen step, held to the
+   unsharded and stacked runs at T3's bars, the collectives a rank by
+   kind and bytes); below 4 cards it prints its skip.
    Then the recurrent training lanes (``recurrent_train_lanes``, on
    ``[train-recur]`` lines; constants R1_* .. R2_*): R1 trains
    recurrentgemma-2b (26 blocks, 3.55 B parameters) and mamba2-370m (48
@@ -257,6 +275,10 @@ of JAX or of the reference package.  Phases, each ending in
    then, last,
    ``{"ok": true, "device": ...}``.
 
+The launcher's checks under ``torchrun`` run at (CLI_D, CLI_R) = (1024,
+16), where their own compute is under a second; phase 3's in-process
+[ranks] lanes hold those paths at (D, R).
+
 ``python3 chip_smoke.py --profile`` instead builds, draws the same data
 and runs each stacked lane once more under ``torch.profiler`` after a
 warm-up lane, then one full-width ``llama3.2-3b`` prefill (and a few
@@ -266,8 +288,9 @@ decode steps) after a warm-up prefill, the same for ``recurrentgemma-2b``,
 warm-up step, one R1 step of recurrentgemma-2b and of mamba2-370m, and
 one M1 step of qwen3-moe-30b-a3b (6 layers):
 it prints each run's wall time, the device's busy share
-and the kernels that took the most device time.  ``--rank K`` and
-``--train-rank K`` are the cross-rank lanes' workers, started by phase 3.
+and the kernels that took the most device time.  ``--rank K``,
+``--train-rank K``, ``--shard-rank K`` and ``--shard-train-rank K`` are
+the cross-rank lanes' workers, started by phase 3.
 
 TF32 is off throughout: the reference computes in float32.
 """
@@ -278,6 +301,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -320,6 +344,10 @@ EPS32 = 2.0 ** -23
 # Cross-rank lanes: ranks sharing the card, the psum lane's shard size, and
 # ring chunks that do not divide d.
 WORLD, N_PSUM = 8, 16384
+# The launcher's checks under torchrun ([cli]) run at this width, where each
+# rank's own compute takes under a second: their process start-up is the
+# cost, and the in-process [ranks] phase holds these paths at (D, R).
+CLI_D, CLI_R = 1024, 16
 RING_CHUNK_MAIN, RING_CHUNK_RAGGED = 1000, 33
 # The hier lanes' pods (2 pods x 4 local ranks); B7's ragged check (odd m on
 # a subgroup of ranks, d and r off every tile); the remote lane's delayed
@@ -1623,6 +1651,35 @@ T2_LAYERS, T2_SHARDS, T2_RANK, T2_REFRESH, T2_STEPS = 16, 4, 32, 4, 8
 T3_LAYERS, T3_RANKS, T3_STEPS, T3_REFRESH = 2, 4, 4, 2
 T3_LOSS, T3_FIRST_SD, T3_LATER_SD, T3_STATE, T3_SKETCH = 1e-4, 1e-5, 1e-4, 1e-4, 16
 ILL_POSED = "embed"
+# T1s: T1 through ``launch.train.train(mesh=)`` on a (1, 1) mesh (every
+# parameter and both AdamW moments a DTensor), T1S_STEPS steps of T1's
+# traffic; its losses held to T1's first T1S_STEPS (the schedules agree
+# there: warmup, then the peak) bit for bit, else within T1S_LOSS relative.
+T1S_STEPS, T1S_LOSS = 4, 1e-5
+# T3s: T3's trainer on a (T3_RANKS, 1) mesh in T3's rank processes, held to
+# the stacked T3 run at T3's bars.  Then, in the same processes, the mesh
+# checkpoint lane: T3S_CK (the reduced llama3.2-3b in f32, T3's steps, one
+# refresh) on the same mesh straight, and checkpointed every 2 steps and
+# preempted at T3S_FAIL; its step-2 checkpoint restored into the stacked
+# trainer.  Both final losses within T4_BAR of the straight run's.  Reduced,
+# because a checkpoint of T3's model holds 4 shards of error feedback of
+# its 128256 x 3072 embedding and unembedding (~20 GB a step), and the
+# smoke keeps its disk writes to a few GB.  One refresh, because
+# a refresh after the checkpoint would average the embedding's local
+# bases, whose refresh is ill-posed on distinct rows (ILL_POSED): the
+# stacked and mesh forms would part there.
+T3S_FAIL = 3
+T3S_CK = dict(steps=T3_STEPS, batch=T1_BATCH, seq=64, lr=1e-3, warmup=T1_WARMUP, eigen=True,
+              eigen_rank=8, eigen_refresh=T3_STEPS, seed=SEED, log_every=10 ** 9)
+# [sharded-train-ranks]: a (2, 2) mesh of 4 ranks over NCCL, a card each, at
+# T3's depth and dtype (its stacked comparison runs fit one card): AdamW
+# and the eigen trainer, 4 steps each, held to the unsharded / stacked
+# (2 shards) runs at T3's bars.  Every refresh's bases take T3's later
+# floor, T3_LATER_SD: the model axis sums each gradient in another order
+# from the first step on, and the 4-step local solve amplifies that
+# rounding as it does T3's after two AdamW updates (the first refresh's
+# bases lay up to 3.43e-5 from the stacked run's on 4 H100s).
+SHARD_TRAIN_MESH = (2, 2)
 # T4: the launcher preempted at step 5 and resumed from its step-4
 # checkpoint against the straight run, both deterministic
 # (torch.use_deterministic_algorithms): final losses within 1e-5, the
@@ -1701,6 +1758,7 @@ def recording_refreshes(torch, train_mod, seen: list, *, probes=None, force=None
     fields of the refreshed state.  Returns the step factory to put
     back."""
     from repro_torch.core.metrics import subspace_dist64
+    from repro_torch.launch.sharding import local, whole
 
     make = train_mod.make_eigen_refresh_step
 
@@ -1710,12 +1768,13 @@ def recording_refreshes(torch, train_mod, seen: list, *, probes=None, force=None
         def run(opt, batch, starts):
             exact = (refresh_exact(torch, model, opt, batch, starts, kw["shards"])
                      if probes is not None else {})
+            at = int(opt["step"])  # the step this refresh precedes
             out = step(opt, batch, starts)
             with torch.no_grad():
-                for n, fields in (force[len(seen)] if force else {}).items():
+                for n, fields in (force or {}).get(at, {}).items():
                     for f, t in fields.items():
-                        opt["eigen"][n][f].copy_(t)
-            seen.append({n: {f: st[f].cpu() for f in ("basis", "m", "v")}
+                        local(opt["eigen"][n][f]).copy_(t)
+            seen.append({n: {f: whole(st[f]).cpu() for f in ("basis", "m", "v")}
                          for n, st in opt["eigen"].items()})
             if probes is not None:
                 probes.append({n: subspace_dist64(seen[-1][n]["basis"], b.cpu())
@@ -1727,10 +1786,12 @@ def recording_refreshes(torch, train_mod, seen: list, *, probes=None, force=None
     return make
 
 
-def t3_run(torch, dev, *, group=None, probes=None, force=None):
+def t3_run(torch, dev, *, group=None, mesh=None, shards=T3_RANKS, probes=None, force=None,
+           eigen=True, **kw):
     """T3's trainer: T3_LAYERS full-width layers in f32, eigen rank T2_RANK,
-    the pipeline's own batches, stacked on T3_RANKS shards or one shard a
-    rank of ``group`` (``probes`` and ``force``: ``recording_refreshes``).
+    the pipeline's own batches, stacked on ``shards`` shards, one shard a
+    rank of ``group``, or on ``mesh`` (``probes`` and ``force``:
+    ``recording_refreshes``; ``kw``: more of ``train``'s options).
     Returns (losses, refreshed states, optimizer state, model)."""
     from repro_torch.launch import train as train_mod
 
@@ -1740,36 +1801,54 @@ def t3_run(torch, dev, *, group=None, probes=None, force=None):
         model, opt, losses = train_mod.train(
             train_cfg(T3_LAYERS, dtype="float32", attn_probs_bf16=False),
             steps=T3_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR, warmup=T1_WARMUP,
-            eigen=True, eigen_rank=T2_RANK, eigen_refresh=T3_REFRESH, device=dev,
-            shards=None if group is not None else T3_RANKS, group=group, seed=SEED,
-            log_every=10 ** 9)
+            eigen=eigen, eigen_rank=T2_RANK, eigen_refresh=T3_REFRESH, device=dev,
+            shards=None if group is not None or mesh is not None else shards, group=group,
+            mesh=mesh, seed=SEED, log_every=10 ** 9, **kw)
     finally:
         train_mod.make_eigen_refresh_step = make
     return losses, seen, opt, model
+
+
+def ck_run(torch, dev, **kw) -> list:
+    """T3S_CK's trainer (``kw``: the mesh or shards, checkpoints, the
+    failure); returns its losses."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train as train_mod
+
+    cfg = dataclasses.replace(get_reduced_config(TRAIN_ARCH), dtype="float32",
+                              attn_probs_bf16=False)
+    return train_mod.train(cfg, device=dev, **T3S_CK, **kw)[2]
 
 
 def t3_state(torch, opt, shard=None) -> dict:
     """The optimizer state T3 holds, on the CPU: every compressed leaf's m,
     v and error feedback (the stacked form's ``shard``; sketched as err @
     a seeded (n, T3_SKETCH) Gaussian), and every full moment."""
+    from repro_torch.launch.sharding import whole
+
     out = {}
     with torch.no_grad():
         for n, st in opt["eigen"].items():
-            err = st["err"] if shard is None else st["err"][shard]
+            err = whole(st["err"]) if shard is None else st["err"][shard]
             gen = torch.Generator(device=err.device).manual_seed(SEED + 3)
             sketch = torch.randn(err.shape[-1], T3_SKETCH, generator=gen, device=err.device)
             out[f"err/{n}"] = (err @ sketch).cpu()
-            out[f"m/{n}"], out[f"v/{n}"] = st["m"].cpu(), st["v"].cpu()
+            out[f"m/{n}"], out[f"v/{n}"] = whole(st["m"]).cpu(), whole(st["v"]).cpu()
         for f in ("full_m", "full_v"):
             for n, t in opt[f].items():
-                out[f"{f}/{n}"] = t.cpu()
+                out[f"{f}/{n}"] = whole(t).cpu()
     return out
 
 
 def train_rank_worker(rank: int, init: str, out: str) -> int:
     """One rank of T3: its shard of the eigen trainer, taking the stacked
     run's embedding refreshes (``t3-force.pt``), then one more train step
-    with the bytes handed to torch.distributed counted."""
+    with the bytes handed to torch.distributed counted.  Then T3s in the
+    same process: the trainer on a (T3_RANKS, 1) mesh, the same counted
+    step, and the mesh run checkpointed and preempted (its files in
+    ``out/t3s-ck``)."""
     sys.path.insert(0, SRC)
     import torch
     import torch.distributed as dist
@@ -1777,7 +1856,7 @@ def train_rank_worker(rank: int, init: str, out: str) -> int:
     from repro_torch import kernels
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.interop import strict_fp32
-    from repro_torch.launch.mesh import make_aggregation_mesh
+    from repro_torch.launch.mesh import make_aggregation_mesh, make_mesh
     from repro_torch.launch.steps import make_eigen_train_step
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.schedule import constant
@@ -1785,30 +1864,189 @@ def train_rank_worker(rank: int, init: str, out: str) -> int:
     strict_fp32()
     agg = make_aggregation_mesh(device="cuda", rank=rank, world_size=T3_RANKS,
                                 local_rank=rank, local_world=T3_RANKS, init_method=init)
-    force = [{n: {f: t.to(agg.device) for f, t in fields.items()} for n, fields in k.items()}
-             for k in torch.load(os.path.join(out, "t3-force.pt"))]
+    force = {at: {n: {f: t.to(agg.device) for f, t in fields.items()}
+                  for n, fields in k.items()}
+             for at, k in torch.load(os.path.join(out, "t3-force.pt")).items()}
     handed = count_handed(dist)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses, seen, opt, model = t3_run(torch, agg.device, group=agg.group, force=force)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    torch.save({"bases": [{n: st["basis"] for n, st in k.items()} for k in seen],
-                "state": t3_state(torch, opt)}, os.path.join(out, f"t3-rank{rank}.pt"))
-    step = make_eigen_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(T1_LR),
-                                 group=agg.group)
     batch = {k: torch.from_numpy(v).to(agg.device, torch.long) for k, v in TokenPipeline(
-        model.cfg.vocab_size, T1_SEQ, T1_BATCH, seed=SEED).batch(T3_STEPS).items()}
-    handed.clear()
-    step(opt, batch)
-    torch.cuda.synchronize()
+        train_cfg().vocab_size, T1_SEQ, T1_BATCH, seed=SEED).batch(T3_STEPS).items()}
+    report = {"rule": agg.rule}
+    for lane, kw in (("t3", {"group": agg.group}),
+                     ("t3s", {"mesh": make_mesh((T3_RANKS, 1), ("data", "model"),
+                                                device="cuda")})):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, seen, opt, model = t3_run(torch, agg.device, force=force, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        torch.save({"bases": [{n: st["basis"] for n, st in k.items()} for k in seen],
+                    "state": t3_state(torch, opt)},
+                   os.path.join(out, f"{lane}-rank{rank}.pt"))
+        step = make_eigen_train_step(model, adamw_cfg=AdamWConfig(),
+                                     schedule=constant(T1_LR), **kw)
+        handed.clear()
+        step(opt, batch)
+        torch.cuda.synchronize()
+        report[lane] = {"losses": losses, "wall": wall, "launches": launches,
+                        "handed_step": sum(handed.values()),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del losses, seen, opt, model, step
+        torch.cuda.empty_cache()
+    # The mesh checkpoint lane (T3S_CK): straight, then preempted at
+    # T3S_FAIL and resumed from its step-2 checkpoint.
+    t0 = time.perf_counter()
+    report["ck"] = {"straight": ck_run(torch, agg.device, mesh=kw["mesh"])}
+    report["ck"]["preempted"] = ck_run(torch, agg.device, mesh=kw["mesh"],
+                                       checkpoint_dir=os.path.join(out, "t3s-ck"),
+                                       checkpoint_every=2, fail_at=(T3S_FAIL,))
+    report["ck"]["wall"] = time.perf_counter() - t0
     with open(os.path.join(out, f"t3-rank{rank}.json"), "w") as f:
-        json.dump({"losses": losses, "wall": wall, "launches": launches,
-                   "handed_step": sum(handed.values()), "rule": agg.rule,
-                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+        json.dump(report, f)
     dist.destroy_process_group()
     return 0
+
+
+def shard_train_rank_worker(rank: int, init: str, out: str) -> int:
+    """``--shard-train-rank K``: one rank of [sharded-train-ranks], T3's
+    trainer on a SHARD_TRAIN_MESH mesh over NCCL (a card a rank): AdamW,
+    then the eigen step taking the stacked run's embedding refreshes
+    (``st-force.pt``), each with its collectives counted."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.comm import transport
+    from repro_torch.interop import strict_fp32
+    from repro_torch.launch import counting
+    from repro_torch.launch.mesh import data_group, data_rank, make_mesh
+
+    strict_fp32()
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    world = math.prod(SHARD_TRAIN_MESH)
+    dist.init_process_group("nccl", init_method=init, rank=rank, world_size=world)
+    mesh = make_mesh(SHARD_TRAIN_MESH, ("data", "model"), device="cuda")
+    axes = {data_group(mesh).group_name: "data", mesh.get_group("model").group_name: "model"}
+    force = {at: {n: {f: t.to(dev) for f, t in fields.items()} for n, fields in k.items()}
+             for at, k in torch.load(os.path.join(out, "st-force.pt")).items()}
+    report = {"data_rank": data_rank(mesh)}
+    for lane, eigen in (("adamw", False), ("eigen", True)):
+        kernels.reset_launch_counts()
+        transport.reset_handed_bytes()
+        comms = counting.LocalComms(axes=axes)
+        t0 = time.perf_counter()
+        with comms:
+            losses, seen, opt, model = t3_run(torch, dev, mesh=mesh, eigen=eigen,
+                                              force=force if eigen else None)
+        torch.cuda.synchronize()
+        report[lane] = {"losses": losses, "wall": time.perf_counter() - t0,
+                        "launches": kernels.launch_counts(),
+                        "collectives": {k: [int(comms.counts[k]), int(v)]
+                                        for k, v in comms.by_kind.items()},
+                        "by_axis": dict(comms.by_axis), "handed": transport.handed_bytes(),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if eigen:
+            torch.save({"bases": [{n: st["basis"] for n, st in k.items()} for k in seen],
+                        "state": t3_state(torch, opt)},
+                       os.path.join(out, f"st-rank{rank}.pt"))
+        del losses, seen, opt, model
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"st-rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_train_ranks(torch, dev, launches: dict) -> None:
+    """[sharded-train-ranks] (see SHARD_TRAIN_MESH): the comparison runs on
+    this card first (AdamW unsharded, the eigen trainer stacked on the
+    mesh's data shards), then the rank processes
+    (``--shard-train-rank K``).  Below its card count it prints its skip."""
+    from repro_torch.core.metrics import subspace_dist64
+
+    world, n_data = math.prod(SHARD_TRAIN_MESH), SHARD_TRAIN_MESH[0]
+    if torch.cuda.device_count() < world:
+        print(f"[sharded-train-ranks] skipped: needs {world} cards (gloo's all-gather on "
+              f"CUDA crashes); this machine has {torch.cuda.device_count()}")
+        return
+    free_card(torch)
+    base = t3_run(torch, dev, eigen=False)[0]
+    free_card(torch)
+    probes = []
+    losses, seen, opt, _ = t3_run(torch, dev, shards=n_data, probes=probes)
+    stacked_state = [t3_state(torch, opt, shard=k) for k in range(n_data)]
+    del opt
+    free_card(torch)
+    force = {j * T3_REFRESH: {ILL_POSED: {f: k[ILL_POSED][f] for f in ("basis", "m", "v")}}
+             for j, k in enumerate(seen)}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(force, os.path.join(tmp, "st-force.pt"))
+        init = f"tcp://127.0.0.1:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-train-rank", str(k),
+             "--init", init, "--out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        require(all(p.returncode == 0 for p in procs),
+                f"sharded-train-ranks workers failed: "
+                f"{[(p.returncode, lg[-3000:]) for p, lg in zip(procs, logs)]}")
+        reps = []
+        for k in range(world):
+            with open(os.path.join(tmp, f"st-rank{k}.json")) as f:
+                rep = json.load(f)
+            rep["eigen"].update(torch.load(os.path.join(tmp, f"st-rank{k}.pt")))
+            reps.append(rep)
+    gaps = {"adamw": max(abs(a - b) for r in reps for a, b in zip(r["adamw"]["losses"], base)),
+            "eigen": max(abs(a - b) for r in reps for a, b in zip(r["eigen"]["losses"], losses))}
+    sds, ratios = [], []
+    for j, refreshed in enumerate(seen):
+        dist = {n: max(subspace_dist64(r["eigen"]["bases"][j][n], st["basis"]) for r in reps)
+                for n, st in refreshed.items() if n != ILL_POSED}
+        sds.append(max(dist.values()))
+        ratios.append(max(g / max(T3_LATER_SD, 4 * probes[j][n]) for n, g in dist.items()))
+    state_gap = 0.0
+    for r in reps:
+        for key, want in stacked_state[r["data_rank"]].items():
+            state_gap = max(state_gap, ((r["eigen"]["state"][key] - want).abs().max()
+                                        / want.abs().max().clamp_min(1e-30)).item())
+    counts = {k: sum(r["eigen"]["launches"][k] for r in reps) for k in KERNELS}
+    r0 = reps[0]
+    print(f"[sharded-train-ranks] {TRAIN_ARCH} at {T3_LAYERS} layers (the stacked comparison "
+          f"runs fit one card at T3's depth) full width in f32 on a {SHARD_TRAIN_MESH} mesh, "
+          f"{world} ranks over NCCL: AdamW losses {r0['adamw']['losses']} (unsharded "
+          f"{base}), worst gap {gaps['adamw']:.2e}; eigen losses {r0['eigen']['losses']} "
+          f"(stacked on {n_data} shards {losses}), worst gap {gaps['eigen']:.2e} (bar "
+          f"{T3_LOSS}); bases per refresh but the embedding's (f64 subspace distance) "
+          f"{[f'{x:.2e}' for x in sds]}, over their bars (max({T3_LATER_SD}, 4 x the f32 "
+          f"refresh's own error)) {[f'{x:.2f}' for x in ratios]}; "
+          f"state worst gap {state_gap:.2e} (bar {T3_STATE}); launches summed over ranks "
+          f"{ {k: c for k, c in counts.items() if c} }; walls (AdamW, eigen) "
+          f"{[(round(r['adamw']['wall'], 2), round(r['eigen']['wall'], 2)) for r in reps]} s, "
+          f"peak a rank {max(r['eigen']['peak_gb'] for r in reps):.2f} GB")
+    for lane in ("adamw", "eigen"):
+        print(f"[sharded-train-ranks] {lane}: collectives a rank through DTensor (kind: "
+              f"[count, bytes]) {r0[lane]['collectives']}, by axis {r0[lane]['by_axis']}; "
+              f"handed to torch.distributed on the data group {r0[lane]['handed']}")
+    require(max(gaps.values()) <= T3_LOSS, f"sharded-train-ranks: losses {gaps}")
+    require(all(x <= 1.0 for x in ratios), f"sharded-train-ranks: bases {ratios}")
+    require(state_gap <= T3_STATE, f"sharded-train-ranks: state {state_gap}")
+    each = len(seen[0]) * len(seen) * world  # one B2 and one B4 a leaf a refresh a rank
+    require(counts == expected_counts({"batched_gram": each, "align_average": each}),
+            f"sharded-train-ranks: launches {counts}")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    free_card(torch)
 
 
 def run_train_ranks(out: str) -> None:
@@ -1940,6 +2178,73 @@ def adamw_lane(torch, dev, cfg, batch: int, *, seq: int = T1_SEQ, lr: float = T1
             "counts": counts, "batch": batch, "seq": seq, **extra}
 
 
+def timed_train_steps(torch, train_mod, ms: list):
+    """Make ``train_mod``'s trainer time each AdamW step to a synchronise
+    (ms into ``ms``).  Returns the step factory to put back."""
+    make = train_mod.make_train_step
+
+    def timing(model, **kw):
+        step = make(model, **kw)
+
+        def run(opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(opt, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    train_mod.make_train_step = timing
+    return make
+
+
+def t1s_lane(torch, dev, t1: dict) -> None:
+    """T1s: T1 through ``launch.train.train(mesh=)`` on a (1, 1) mesh (a
+    world of one), held to T1's own losses ``t1`` (see T1S_STEPS)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+
+    held = free_card(torch)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    ms = []
+    make = timed_train_steps(torch, train_mod, ms)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        t0 = time.perf_counter()
+        model, opt, losses = train_mod.train(
+            train_cfg(), steps=T1S_STEPS, batch=T1_BATCH, seq=T1_SEQ, lr=T1_LR,
+            warmup=T1_WARMUP, device=dev, mesh=mesh, seed=SEED, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dtensors = all(isinstance(t, DTensor) for t in [
+            *model.parameters(), *opt["m"].values(), *opt["v"].values()])
+        del model, opt
+    finally:
+        train_mod.make_train_step = make
+        dist.destroy_process_group()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    want = t1["losses"][:T1S_STEPS]
+    exact = losses == want
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    first = next((i for i, g in enumerate(gaps) if g), None)
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    print(f"[sharded-train] T1s {TRAIN_ARCH} full config through train(mesh=) on a (1, 1) "
+          f"mesh (every parameter and both AdamW moments a DTensor: {dtensors}), T1's traffic, "
+          f"{T1S_STEPS} steps: wall {wall:.2f} s, step 0 {ms[0]:.1f} ms, ms/step after step 0 "
+          f"{step_ms:.2f} (each {[round(x, 1) for x in ms[1:]]}) against T1's "
+          f"{t1['ms']:.2f} ({step_ms / t1['ms']:.3f}x), peak memory {peak:.2f} GB (T1 "
+          f"{t1['peak_gb']:.2f}); losses {losses} against T1's {want}: bit for bit {exact}, "
+          f"worst relative gap {max(gaps):.2e} (bar {T1S_LOSS}), first gap at step {first}")
+    require(dtensors, "T1s: a parameter or moment is not a DTensor")
+    require(max(gaps) <= T1S_LOSS, f"T1s: losses {losses} vs T1's {want}")
+    free_card(torch)
+
+
 def print_adamw(label, cfg, r, depth=None) -> None:
     at = f"at {depth}, full width" if depth else "full config"
     print(f"[{label} {cfg.name} {at} (layers {cfg.num_layers}, d_model "
@@ -2056,12 +2361,16 @@ def train_lanes(torch, dev, launches: dict) -> None:
     from repro_torch.optim import EigenCompressConfig
 
 
-    # T1: AdamW at the full config.
+    # T1: AdamW at the full config; T1s: the same through train(mesh=).
+    t_lane = time.perf_counter()
     cfg = train_cfg()
     r = adamw_lane(torch, dev, cfg, T1_BATCH)
     print_adamw("train] T1", cfg, r)
     require_adamw("T1", r)
     free_card(torch)
+    t0 = time.perf_counter()
+    t1s_lane(torch, dev, r)
+    print(f"[sharded-train] T1s in {time.perf_counter() - t0:.1f} s")
 
     # T1c: the same AdamW steps on the card and on the CPU.
     small = dataclasses.replace(get_reduced_config("granite-3-2b"), dtype="float32",
@@ -2101,61 +2410,97 @@ def train_lanes(torch, dev, launches: dict) -> None:
     stacked_state = [t3_state(torch, opt, shard=k) for k in range(T3_RANKS)]
     del model, opt
     free_card(torch)
+    force = {j * T3_REFRESH: {ILL_POSED: {f: k[ILL_POSED][f] for f in ("basis", "m", "v")}}
+             for j, k in enumerate(seen)}
+    want_bytes = 4 * (low3 + other3 + 1)
+    n_ref = len(seen)
+    want3 = {"batched_gram": len(comp3) * n_ref, "align_average": len(comp3) * n_ref}
+    require(counts == expected_counts(want3), f"T3 stacked: launches {counts}")
     with tempfile.TemporaryDirectory() as tmp:
-        torch.save([{ILL_POSED: {f: k[ILL_POSED][f] for f in ("basis", "m", "v")}}
-                    for k in seen], os.path.join(tmp, "t3-force.pt"))
+        torch.save(force, os.path.join(tmp, "t3-force.pt"))
         t0 = time.perf_counter()
         run_train_ranks(tmp)
         ranks_wall = time.perf_counter() - t0
         reps = []
         for k in range(T3_RANKS):
             with open(os.path.join(tmp, f"t3-rank{k}.json")) as f:
-                reps.append({**json.load(f), **torch.load(os.path.join(tmp, f"t3-rank{k}.pt"))})
-    want_bytes = 4 * (low3 + other3 + 1)
-    loss_gap = max(abs(a - b) for r in reps for a, b in zip(r["losses"], losses))
-    sds, ratios = [], []
-    for j, refreshed in enumerate(seen):
-        floor = T3_FIRST_SD if j == 0 else T3_LATER_SD
-        gaps = {n: max(subspace_dist64(r["bases"][j][n], st["basis"]) for r in reps)
-                for n, st in refreshed.items() if n != ILL_POSED}
-        sds.append(max(gaps.values()))
-        ratios.append(max(g / max(floor, 4 * probes[j][n]) for n, g in gaps.items()))
-    state_gap = {}
-    for k, r in enumerate(reps):
-        for key, want in stacked_state[k].items():
-            kind = key.split("/")[0]
-            err = ((r["state"][key] - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
-            state_gap[kind] = max(state_gap.get(kind, 0.0), err)
-    r_counts = {k: sum(r["launches"][k] for r in reps) for k in KERNELS}
-    print(f"[train] T3 eigen, {T3_RANKS} ranks on the card ({reps[0]['rule']}), "
-          f"{TRAIN_ARCH} at {T3_LAYERS} layers full width in f32, each shard its own rows, "
-          f"rank {T2_RANK}, refresh every {T3_REFRESH}, {T3_STEPS} steps: wall "
-          f"{max(r['wall'] for r in reps):.2f} s (processes {ranks_wall:.1f} s), peak memory "
-          f"a rank {max(r['peak_gb'] for r in reps):.2f} GB, launches summed over ranks "
-          f"{ {k: c for k, c in r_counts.items() if c} }, stacked "
-          f"{ {k: c for k, c in counts.items() if c} }; worst loss gap to the stacked run "
-          f"{loss_gap:.2e} (bar {T3_LOSS}); bases per refresh but the embedding's (f64 "
-          f"subspace distance) {[f'{x:.2e}' for x in sds]}, worst over their bars "
-          f"(max({T3_FIRST_SD} then {T3_LATER_SD}, 4 x the f32 refresh's own error against "
-          f"f64; those errors up to "
-          f"{[f'{max(p.values()):.2e}' for p in probes]})) {[f'{x:.2f}' for x in ratios]}; "
-          f"state after the last step, worst gap over the largest magnitude "
-          f"{ {k: f'{v:.2e}' for k, v in state_gap.items()} } (bar {T3_STATE}); bytes "
-          f"handed to torch.distributed in one step {[r['handed_step'] for r in reps]} "
-          f"(expected 4 x ({low3} compressed + {other3} uncompressed + 1 loss) = "
-          f"{want_bytes})")
-    require(all(math.isfinite(x) for r in reps for x in r["losses"]), "T3: a loss is not finite")
-    require(loss_gap <= T3_LOSS, f"T3: losses {[r['losses'] for r in reps]} vs {losses}")
-    require(all(x <= 1.0 for x in ratios), f"T3: bases {sds}, over their bars {ratios}")
-    require(all(v <= T3_STATE for v in state_gap.values()), f"T3: state {state_gap}")
-    require(all(r["handed_step"] == want_bytes for r in reps), "T3: bytes handed")
-    n_ref = len(seen)
-    want3 = {"batched_gram": len(comp3) * n_ref, "align_average": len(comp3) * n_ref}
-    require(counts == expected_counts(want3), f"T3 stacked: launches {counts}")
-    require(r_counts == expected_counts({k: c * T3_RANKS for k, c in want3.items()}),
-            f"T3 ranks: launches {r_counts}")
+                rep = json.load(f)
+            for lane in ("t3", "t3s"):
+                rep[lane].update(torch.load(os.path.join(tmp, f"{lane}-rank{k}.pt")))
+            reps.append(rep)
+        # The mesh checkpoint lane's step-2 checkpoint into the stacked trainer.
+        ck = os.path.join(tmp, "t3s-stacked")
+        shutil.copytree(os.path.join(tmp, "t3s-ck", "step_00000002"),
+                        os.path.join(ck, "step_00000002"))
+        t0 = time.perf_counter()
+        into_stacked = ck_run(torch, dev, shards=T3_RANKS, checkpoint_dir=ck)
+        stacked_s = time.perf_counter() - t0
+        free_card(torch)
+    for lane, label in (("t3", "T3 eigen"), ("t3s", "T3s eigen on a (4, 1) mesh")):
+        rs = [r[lane] for r in reps]
+        loss_gap = max(abs(a - b) for r in rs for a, b in zip(r["losses"], losses))
+        sds, ratios = [], []
+        for j, refreshed in enumerate(seen):
+            floor = T3_FIRST_SD if j == 0 else T3_LATER_SD
+            gaps = {n: max(subspace_dist64(r["bases"][j][n], st["basis"]) for r in rs)
+                    for n, st in refreshed.items() if n != ILL_POSED}
+            sds.append(max(gaps.values()))
+            ratios.append(max(g / max(floor, 4 * probes[j][n]) for n, g in gaps.items()))
+        state_gap = {}
+        for k, r in enumerate(rs):
+            for key, want in stacked_state[k].items():
+                kind = key.split("/")[0]
+                err = ((r["state"][key] - want).abs().max()
+                       / want.abs().max().clamp_min(1e-30)).item()
+                state_gap[kind] = max(state_gap.get(kind, 0.0), err)
+        r_counts = {k: sum(r["launches"][k] for r in rs) for k in KERNELS}
+        tag = "[train]" if lane == "t3" else "[sharded-train]"
+        print(f"{tag} {label}, {T3_RANKS} ranks on the card ({reps[0]['rule']}), "
+              f"{TRAIN_ARCH} at {T3_LAYERS} layers full width in f32, each shard its own rows, "
+              f"rank {T2_RANK}, refresh every {T3_REFRESH}, {T3_STEPS} steps: wall "
+              f"{max(r['wall'] for r in rs):.2f} s (processes {ranks_wall:.1f} s for T3 and "
+              f"T3s), peak memory a rank {max(r['peak_gb'] for r in rs):.2f} GB, launches "
+              f"summed over ranks { {k: c for k, c in r_counts.items() if c} }, stacked "
+              f"{ {k: c for k, c in counts.items() if c} }; worst loss gap to the stacked run "
+              f"{loss_gap:.2e} (bar {T3_LOSS}); bases per refresh but the embedding's (f64 "
+              f"subspace distance) {[f'{x:.2e}' for x in sds]}, worst over their bars "
+              f"(max({T3_FIRST_SD} then {T3_LATER_SD}, 4 x the f32 refresh's own error against "
+              f"f64; those errors up to "
+              f"{[f'{max(p.values()):.2e}' for p in probes]})) {[f'{x:.2f}' for x in ratios]}; "
+              f"state after the last step, worst gap over the largest magnitude "
+              f"{ {k: f'{v:.2e}' for k, v in state_gap.items()} } (bar {T3_STATE}); bytes "
+              f"handed to torch.distributed in one step {[r['handed_step'] for r in rs]} "
+              f"(expected 4 x ({low3} compressed + {other3} uncompressed + 1 loss) = "
+              f"{want_bytes})")
+        require(all(math.isfinite(x) for r in rs for x in r["losses"]),
+                f"{label}: a loss is not finite")
+        require(loss_gap <= T3_LOSS, f"{label}: losses {[r['losses'] for r in rs]} vs {losses}")
+        require(all(x <= 1.0 for x in ratios), f"{label}: bases {sds}, over their bars {ratios}")
+        require(all(v <= T3_STATE for v in state_gap.values()), f"{label}: state {state_gap}")
+        require(all(r["handed_step"] == want_bytes for r in rs), f"{label}: bytes handed")
+        require(r_counts == expected_counts({k: c * T3_RANKS for k, c in want3.items()}),
+                f"{label} ranks: launches {r_counts}")
+        for k in KERNELS:
+            launches[k] += r_counts[k]
     for k in KERNELS:
-        launches[k] += counts[k] + r_counts[k]
+        launches[k] += counts[k]
+    cks = [r["ck"] for r in reps]
+    final = cks[0]["straight"][-1]
+    gaps = {"preempted": max(abs(c["preempted"][-1] - final) for c in cks),
+            "into_stacked": abs(into_stacked[-1] - final)}
+    print(f"[sharded-train] T3s checkpoints, {TRAIN_ARCH} reduced in f32 on the ({T3_RANKS}, 1) "
+          f"mesh, {T3S_CK['batch']} x {T3S_CK['seq']} tokens, eigen rank "
+          f"{T3S_CK['eigen_rank']}, one refresh, {T3_STEPS} steps, checkpointed every 2 and "
+          f"preempted at step {T3S_FAIL} ({max(c['wall'] for c in cks):.2f} s with the straight "
+          f"run; {len(cks[0]['preempted'])} steps run): final loss gap to the straight mesh run "
+          f"{gaps['preempted']:.2e}; its step-2 checkpoint restored into the stacked trainer "
+          f"({T3_RANKS} shards, no mesh, {stacked_s:.2f} s): final loss gap "
+          f"{gaps['into_stacked']:.2e} (bar {T4_BAR}); final losses {final!r}, "
+          f"{[c['preempted'][-1] for c in cks]}, {into_stacked[-1]!r}")
+    require(all(len(c["preempted"]) == T3_STEPS + T3S_FAIL - 2 for c in cks),
+            f"T3s: the preempted run did not resume from step 2: {cks}")
+    require(len(into_stacked) == T3_STEPS - 2, f"T3s: the stacked restore ran {into_stacked}")
+    require(all(g <= T4_BAR for g in gaps.values()), f"T3s resume: {gaps}")
     del seen, reps, stacked_state
     free_card(torch)
 
@@ -2185,6 +2530,10 @@ def train_lanes(torch, dev, launches: dict) -> None:
     print(f"[train] T4 resume after preemption at step {T4_FAIL}: final loss gap {gap:.2e} "
           f"(bar {T4_BAR})")
     require(gap <= T4_BAR, f"T4: final losses {finals}")
+    print(f"[train] T1-T4, T1s and T3s in {time.perf_counter() - t_lane:.1f} s")
+    t0 = time.perf_counter()
+    sharded_train_ranks(torch, dev, launches)
+    print(f"[sharded-train-ranks] in {time.perf_counter() - t0:.1f} s")
 
 
 def recurrent_train_lanes(torch, dev, launches: dict) -> None:
@@ -2543,44 +2892,65 @@ def profile_training(torch, dev, cfg=None) -> None:
 SHARD_RANKS = 2  # ranks of [sharded-ranks], sharing the card over gloo
 DRYRUN_RANKS = 256
 # The dry-run cells [dryrun] counts: paper-pca (multi_pod, topology,
-# stream_steps) and the LM cells (arch, shape).
+# stream_steps) and the LM cells (arch, shape, eigen).  Two processes, side
+# by side: the eigen cells (~2.5 min of CPU) in the second.
 DRYRUN_PCA = [(False, "ring", None), (True, "hier", None), (False, "ring", 4)]
-DRYRUN_LM = [("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"),
-             ("llama3.2-3b", "decode_32k"), ("qwen3-moe-30b-a3b", "train_4k")]
+DRYRUN_LM = [("llama3.2-3b", "train_4k", False), ("llama3.2-3b", "prefill_32k", False),
+             ("llama3.2-3b", "decode_32k", False), ("qwen3-moe-30b-a3b", "train_4k", False),
+             ("llama3.2-3b", "train_4k", True), ("qwen3-moe-30b-a3b", "train_4k", True)]
+DRYRUN_PARTS = 2
 
 
 def dryrun_worker(out: str) -> int:
     """``--dryrun-out FILE``: count the [dryrun] cells on fake process
-    groups (no card work) and write their records.  It runs beside the
-    card's phases at the lowest priority, so it takes host time only
-    where they leave it."""
+    groups (no card work) and write their records: the paper-pca and
+    baseline cells when FILE ends in ``.0``, the eigen cells when in
+    ``.1``.  It runs beside the card's phases at the lowest priority, so
+    it takes host time only where they leave it."""
     os.nice(19)
     sys.path.insert(0, SRC)
     from repro_torch.launch.dryrun import dryrun_cell, dryrun_paper_pca
 
+    eigen_part = out.endswith(".1")
     recs = []
-    for mp, topo, steps in DRYRUN_PCA:
-        recs.append(dryrun_paper_pca(multi_pod=mp, topology=topo, stream_steps=steps,
-                                     backend="cuda", verbose=False))
-    for arch, shape in DRYRUN_LM:
-        recs.append(dryrun_cell(arch, shape, device_count=DRYRUN_RANKS, verbose=False))
+    if not eigen_part:
+        for mp, topo, steps in DRYRUN_PCA:
+            recs.append(dryrun_paper_pca(multi_pod=mp, topology=topo, stream_steps=steps,
+                                         backend="cuda", verbose=False))
+    for arch, shape, eigen in DRYRUN_LM:
+        if eigen == eigen_part:
+            recs.append(dryrun_cell(arch, shape, device_count=DRYRUN_RANKS, verbose=False,
+                                    eigen=eigen))
     with open(out, "w") as f:
         json.dump(recs, f, default=str)
     return 0
 
 
-def start_dryrun(out: str):
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-out", out],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def start_dryrun(out: str) -> list:
+    """Start the dry-run processes; any still running when this script
+    exits (a failed phase) is killed then."""
+    import atexit
+
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-out",
+                               f"{out}.{k}"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k in range(DRYRUN_PARTS)]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
 
 
-def dryrun_phase(proc, out: str) -> None:
-    """[dryrun]: join the dry-run process started in phase 1, print one
-    line a record and hold paper-pca's bytes to ``comm_cost``."""
-    log, _ = proc.communicate(timeout=900)
-    require(proc.returncode == 0, f"dry run failed:\n{log[-4000:]}")
-    with open(out) as f:
-        recs = json.load(f)
+def dryrun_phase(procs: list, out: str) -> None:
+    """[dryrun]: join the dry-run processes started after the sharded
+    lanes, print one line a record and hold paper-pca's bytes to
+    ``comm_cost``."""
+    recs = []
+    for k, proc in enumerate(procs):
+        log, _ = proc.communicate(timeout=900)
+        require(proc.returncode == 0, f"dry run failed:\n{log[-4000:]}")
+        with open(f"{out}.{k}") as f:
+            recs += json.load(f)
+    base = {(r["arch"], r["shape"]): r for r in recs
+            if r["arch"] != "paper-pca" and not r["eigen"]}
     for r in recs:
         if r["arch"] == "paper-pca":
             want = r["predicted_collective_bits"] / 8
@@ -2598,7 +2968,8 @@ def dryrun_phase(proc, out: str) -> None:
                     "dry run: the stream query moved bytes")
         else:
             m = r["memory"]
-            print(f"[dryrun] {r['arch']} x {r['shape']} mesh {r['mesh']['shape']}: FLOPs a "
+            tag = " --eigen" if r["eigen"] else ""
+            print(f"[dryrun] {r['arch']} x {r['shape']}{tag} mesh {r['mesh']['shape']}: FLOPs a "
                   f"device {r['flops_per_device']:.4e} (model {r['model_flops_per_device']:.4e}),"
                   f" args {m['argument_bytes'] / 1e9:.2f} GB (params "
                   f"{m['param_bytes'] / 1e9:.2f}, opt {m['opt_state_bytes'] / 1e9:.2f}), peak "
@@ -2612,8 +2983,23 @@ def dryrun_phase(proc, out: str) -> None:
             # and AdamW keeps two f32 moments a parameter.
             require(r["flops_per_device"] >= 0.5 * r["model_flops_per_device"] > 0,
                     f"dry run: {r['arch']} x {r['shape']} counted too few FLOPs")
-            require(r["kind"] != "train" or m["opt_state_bytes"] == 2 * m["param_bytes"],
+            require(r["kind"] != "train" or r["eigen"]
+                    or m["opt_state_bytes"] == 2 * m["param_bytes"],
                     f"dry run: {r['arch']} x {r['shape']} optimizer bytes")
+            if r["eigen"]:
+                b, w = base[(r["arch"], r["shape"])], r["data_axis_words"]
+                print(f"[dryrun] {r['arch']} x {r['shape']} --eigen: data-axis bytes a device "
+                      f"{r['data_axis_bytes']} (handed to torch.distributed: "
+                      f"{r['data_axis_handed']}) against the baseline cell's "
+                      f"{b['data_axis_bytes']} ({b['data_axis_bytes'] / r['data_axis_bytes']:.2f}x"
+                      f"); compressed words {w['compressed']} against the full gradients' "
+                      f"{w['full']} ({w['full'] / w['compressed']:.1f}x); args "
+                      f"{m['argument_bytes'] / 1e9:.2f} GB against the baseline's "
+                      f"{b['memory']['argument_bytes'] / 1e9:.2f} (no FSDP, err whole) "
+                      f"(reckoned)")
+                require(r["data_axis_bytes"] == sum(r["data_axis_handed"].values())
+                        and 0 < w["compressed"] < w["full"],
+                        f"dry run: {r['arch']} eigen data-axis bytes")
 
 
 def shard_rank_worker(rank: int, init: str, out: str) -> int:
@@ -2843,6 +3229,7 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-train-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
@@ -2864,6 +3251,8 @@ def main(argv=None) -> int:
         return train_rank_worker(args.train_rank, args.init, args.out)
     if args.shard_rank is not None:
         return shard_rank_worker(args.shard_rank, args.init, args.out)
+    if args.shard_train_rank is not None:
+        return shard_train_rank_worker(args.shard_train_rank, args.init, args.out)
     if args.dryrun_out is not None:
         return dryrun_worker(args.dryrun_out)
     sys.path.insert(0, SRC)
@@ -3620,14 +4009,14 @@ def main(argv=None) -> int:
             "launcher --plan auto: table, plan or estimate wrong")
 
     # The launcher under torchrun: WORLD ranks on this card, the fused ring,
-    # at the production width with N_PSUM samples per shard.  The width
+    # at (CLI_D, CLI_R) with N_PSUM samples per shard.  The width
     # flags take their long spellings: some torchrun versions read "--d"
     # and "--r" as prefixes of their own options.
     run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
                "--device", "cuda", "--topology", "ring", "--polar",
-               "newton-schulz", "--orth", "cholesky-qr2", "--dim", str(D),
-               "--subspace-rank", str(R), "--n-per-shard", str(N_PSUM)]
+               "newton-schulz", "--orth", "cholesky-qr2", "--dim", str(CLI_D),
+               "--subspace-rank", str(CLI_R), "--n-per-shard", str(N_PSUM)]
     t0 = time.monotonic()
     cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
                          env={**os.environ, "PYTHONPATH": SRC})
@@ -3635,15 +4024,15 @@ def main(argv=None) -> int:
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen "
-          f"--topology ring --polar newton-schulz --orth cholesky-qr2 --dim {D} "
-          f"--subspace-rank {R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--topology ring --polar newton-schulz --orth cholesky-qr2 --dim {CLI_D} "
+          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "d", "r", "backend", "topology", "transport",
                        "staged_bytes", "dist_aligned", "dist_central",
                        "dist_naive", "wall_s")))
     require(stats["backend"] == "cuda" and stats["topology"] == "ring"
             and stats["ranks"] == str(WORLD)
-            and (stats["d"], stats["r"]) == (str(D), str(R)),
+            and (stats["d"], stats["r"]) == (str(CLI_D), str(CLI_R)),
             "torchrun launcher: wrong lane or width")
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun launcher: estimate not within the bar or no better than naive")
@@ -3652,8 +4041,8 @@ def main(argv=None) -> int:
     run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
                "--device", "cuda", "--topology", "hier", "--pods", str(PODS),
-               "--polar", "newton-schulz", "--dim", str(D), "--subspace-rank",
-               str(R), "--n-per-shard", str(N_PSUM)]
+               "--polar", "newton-schulz", "--dim", str(CLI_D), "--subspace-rank",
+               str(CLI_R), "--n-per-shard", str(N_PSUM)]
     t0 = time.monotonic()
     cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
                          env={**os.environ, "PYTHONPATH": SRC})
@@ -3661,15 +4050,15 @@ def main(argv=None) -> int:
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen "
-          f"--topology hier --pods {PODS} --polar newton-schulz --dim {D} "
-          f"--subspace-rank {R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--topology hier --pods {PODS} --polar newton-schulz --dim {CLI_D} "
+          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "pods", "d", "r", "backend", "topology", "transport",
                        "staged_bytes", "dist_aligned", "dist_central",
                        "dist_naive", "wall_s")))
     require(stats["backend"] == "cuda" and stats["topology"] == "hier"
             and stats["pods"] == str(PODS) and stats["ranks"] == str(WORLD)
-            and (stats["d"], stats["r"]) == (str(D), str(R)),
+            and (stats["d"], stats["r"]) == (str(CLI_D), str(CLI_R)),
             "torchrun hier launcher: wrong lane or width")
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun hier launcher: estimate not within the bar or no better than naive")
@@ -3679,8 +4068,8 @@ def main(argv=None) -> int:
     run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
                "--device", "cuda", "--plan", "auto", "--fail-at",
-               f"{ELASTIC_DEAD}:{ELASTIC_ROUND}", "--dim", str(D), "--subspace-rank",
-               str(R), "--n-per-shard", str(N_PSUM)]
+               f"{ELASTIC_DEAD}:{ELASTIC_ROUND}", "--dim", str(CLI_D), "--subspace-rank",
+               str(CLI_R), "--n-per-shard", str(N_PSUM)]
     t0 = time.monotonic()
     cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
                          env={**os.environ, "PYTHONPATH": SRC})
@@ -3688,7 +4077,7 @@ def main(argv=None) -> int:
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen --plan auto "
-          f"--fail-at {ELASTIC_DEAD}:{ELASTIC_ROUND} --dim {D} --subspace-rank {R} "
+          f"--fail-at {ELASTIC_DEAD}:{ELASTIC_ROUND} --dim {CLI_D} --subspace-rank {CLI_R} "
           f"--n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "backend", "topology", "polar", "orth", "plan_source",
@@ -3708,8 +4097,8 @@ def main(argv=None) -> int:
                "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
                "--device", "cuda", "--plan", "auto", "--stream", str(RANK_STREAM_STEPS),
                "--cadence", str(RANK_STREAM_CADENCE), "--fail-at",
-               f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT}", "--dim", str(D), "--subspace-rank",
-               str(R), "--n-per-shard", str(N_PSUM)]
+               f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT}", "--dim", str(CLI_D), "--subspace-rank",
+               str(CLI_R), "--n-per-shard", str(N_PSUM)]
     t0 = time.monotonic()
     cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
                          env={**os.environ, "PYTHONPATH": SRC})
@@ -3718,8 +4107,8 @@ def main(argv=None) -> int:
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen --plan auto "
           f"--stream {RANK_STREAM_STEPS} --cadence {RANK_STREAM_CADENCE} --fail-at "
-          f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT} --dim {D} --subspace-rank {R} --n-per-shard "
-          f"{N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT} --dim {CLI_D} --subspace-rank {CLI_R} "
+          f"--n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "backend", "topology", "stream_steps", "stream_rows_seen",
                        "stream_refreshes", "stream_staleness", "stream_last_jump",

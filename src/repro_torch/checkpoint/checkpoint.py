@@ -15,10 +15,19 @@ bounds disk usage.  ``CheckpointManager`` copies the tree to host memory
 on the caller's thread and serialises it on a background thread, so the
 train loop never waits on the filesystem.  bf16 leaves are written
 widened to f32 (numpy has no bf16) and cast back on load: the same bits.
+
+DTensor state (a model and optimizer on a mesh): the host copy gathers
+each DTensor leaf whole (``full_tensor``: every rank of its mesh takes
+part, so every rank calls ``host_tree`` / ``maybe_save`` and only the
+writer writes), and the files hold whole arrays, as a one-process run's.
+On load, a leaf whose like leaf is a DTensor is placed as that live
+leaf is: each rank keeps its block of the whole array, on whatever mesh
+it has now (the reference's ``shardings=``: elastic resume).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -29,10 +38,22 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "latest_step", "load_checkpoint", "CheckpointManager"]
+__all__ = ["save_checkpoint", "latest_step", "load_checkpoint", "CheckpointManager",
+           "StackRow"]
 
 _MANIFEST = "manifest.json"
 _SEP = "/"
+
+
+@dataclasses.dataclass(frozen=True)
+class StackRow:
+    """A like leaf standing for row ``row`` of a stacked array of
+    ``shape``: ``load_checkpoint`` checks the whole array's shape and
+    returns that row alone (a rank's slice of the gathered error
+    feedback), so no process holds the whole stack after the load."""
+
+    shape: tuple
+    row: int
 
 
 def _items(node):
@@ -64,12 +85,28 @@ def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
     return type(like)(val for _, val in built)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _place_like(t: torch.Tensor, like) -> torch.Tensor:
+    """``t`` (a whole tensor) placed as the DTensor ``like``: this rank's
+    block, nothing moved between ranks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, like.device_mesh, list(like.placements), src_data_rank=None)
+
+
 def _host(x) -> np.ndarray:
     """A host copy of ``x`` that shares no memory with it: a CPU tensor is
     copied too, since the save thread reads it while the train loop goes
     on updating the tensor in place."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if _is_dtensor(x):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.to("cpu", copy=True).numpy()
@@ -134,8 +171,9 @@ def load_checkpoint(
 ):
     """Restore into the structure of ``like_tree``: returns (tree,
     manifest).  Each tensor leaf of ``like_tree`` comes back as a tensor
-    of its dtype on ``device`` (default: the like leaf's device); other
-    leaves come back as numpy arrays."""
+    of its dtype on ``device`` (default: the like leaf's device), a
+    DTensor leaf as a DTensor placed as it is; other leaves come back as
+    numpy arrays."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -157,7 +195,10 @@ def load_checkpoint(
                                  f"expected {tuple(shape)}")
             if isinstance(like, torch.Tensor):
                 dev = like.device if device is None else torch.device(device)
-                out[k] = torch.from_numpy(arr).to(device=dev, dtype=like.dtype)
+                t = torch.from_numpy(arr).to(device=dev, dtype=like.dtype)
+                out[k] = _place_like(t, like) if _is_dtensor(like) else t
+            elif isinstance(like, StackRow):
+                out[k] = arr[like.row].copy()
             else:
                 out[k] = arr
     return _rebuild(like_tree, out), manifest
@@ -179,10 +220,20 @@ class CheckpointManager:
     def due(self, step: int) -> bool:
         return self.every > 0 and step % self.every == 0
 
-    def maybe_save(self, step: int, tree, *, extra=None, force=False) -> bool:
+    def maybe_save(self, step: int, tree, *, extra=None, force=False,
+                   writer: bool = True) -> bool:
+        """Copy ``tree`` to the host and, on the ``writer``, write it on the
+        background thread.  With DTensor leaves every rank calls this (the
+        copy gathers them) and one is the writer; another rank's other
+        leaves are not read (None stands for a leaf only the writer holds)."""
         if not force and not self.due(step):
             return False
         self.wait()
+        if not writer:  # its part in the DTensor leaves' gathers, in leaf order
+            for v in _leafdict(tree).values():
+                if _is_dtensor(v):
+                    v.full_tensor()
+            return True
         host = host_tree(tree)
 
         def work():

@@ -6,6 +6,7 @@ on an explicit ``ProcessGroup`` (ranks are group ranks):
   * ``all_reduce``  (sum or max, in place)
   * ``broadcast``   (in place, from a group rank)
   * ``all_gather``  (one tensor per rank -> a (world, ...) stack)
+  * ``gather``      (the same stack on one rank only, in host memory)
   * ``ring_shift``  (send to the right neighbour and receive from the left
                      one over an ordered list of ranks, by
                      ``batch_isend_irecv``)
@@ -20,8 +21,9 @@ CPU tensors nothing is staged.
 
 ``handed_bytes()`` tallies the payload bytes this rank hands to
 ``torch.distributed``, by kind (``all_reduce``, ``broadcast``,
-``all_gather``, ``send``): the wire a device puts on per step, which the
-dry run (``launch/counting.py``) holds against ``comm_cost(...).bits``.
+``all_gather``, ``gather``, ``send``): the wire a device puts on per
+step, which the dry run (``launch/counting.py``) holds against
+``comm_cost(...).bits``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ __all__ = [
     "all_reduce",
     "broadcast",
     "all_gather",
+    "gather",
     "ring_shift",
     "barrier",
     "staged_bytes",
@@ -131,6 +134,20 @@ def all_gather(t: torch.Tensor, *, group) -> torch.Tensor:
     out = torch.empty(flat, dtype=t.dtype, device=t.device)
     gather(out, t, group=group)
     return out.reshape(world, *t.shape)
+
+
+def gather(t: torch.Tensor, *, dst: int = 0, group):
+    """Every rank's ``t`` stacked in rank order on group rank ``dst``, in
+    host memory ((world, *t.shape): a checkpoint's copy); None
+    elsewhere."""
+    world = dist.get_world_size(group)
+    t = t.contiguous()
+    _hand("gather", t)
+    mine = dist.get_rank(group) == dst
+    src = _to_host(t) if _staged_for(t, group) else t
+    parts = [torch.empty_like(src) for _ in range(world)] if mine else None
+    dist.gather(src, parts, dst=_global(group, dst), group=group)
+    return torch.stack(parts).cpu() if mine else None
 
 
 def ring_shift(

@@ -92,13 +92,19 @@ class LocalFlops(TorchDispatchMode):
 
 
 class LocalComms(TorchDispatchMode):
-    """Bytes of the local operand of each collective issued under it, by
-    the reference's kinds (``by_kind``), and their counts."""
+    """Bytes of the local operand of each collective DTensor issues under
+    it, by the reference's kinds (``by_kind``), their counts, and with
+    ``axes`` ({process-group name: label}) by the labelled group
+    (``by_axis``).  Collectives a caller issues itself through
+    ``comm/transport.py`` are counted there (``handed_bytes``), not
+    here."""
 
-    def __init__(self):
+    def __init__(self, axes: Dict[str, str] | None = None):
         super().__init__()
+        self.axes = dict(axes or {})
         self.by_kind: Counter = Counter()
         self.counts: Counter = Counter()
+        self.by_axis: Counter = Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -106,13 +112,17 @@ class LocalComms(TorchDispatchMode):
             return NotImplemented
         name = getattr(func, "__name__", "").split(".")[0]
         ns = getattr(func, "namespace", "")
-        if ns in ("_c10d_functional", "c10d") and name in COLLECTIVE_KINDS:
+        if ns == "_c10d_functional" and name in COLLECTIVE_KINDS:
             kind = COLLECTIVE_KINDS[name]
             first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
             if isinstance(first, (list, tuple)):
                 first = first[0]
-            self.by_kind[kind] += first.numel() * first.element_size()
+            size = first.numel() * first.element_size()
+            self.by_kind[kind] += size
             self.counts[kind] += 1
+            group = next((a for a in args if isinstance(a, str) and a in self.axes), None)
+            if group is not None:
+                self.by_axis[self.axes[group]] += size
         return func(*args, **kwargs)
 
 

@@ -40,11 +40,23 @@ Cells:
     ``torch.distributed`` (``comm/transport.py``'s tally) and equal
     ``comm_cost(...).bits / 8``.
 
+  * ``--eigen``: the train cell is the eigen-compressed train step
+    (``launch/steps.make_eigen_train_step`` on the mesh, not the
+    refresh, as the reference's ``_lower_cell``), at the reference's
+    ``EigenCompressConfig()`` (rank 128, min_dim 1024): parameters on the
+    model submesh with FSDP off, the eigen state replicated, ``err`` this
+    data rank's own.  Its data-axis collectives are the payloads rank 0
+    hands to ``torch.distributed`` (``comm/transport.py``'s tally, as the
+    paper-pca cells count theirs); the record's ``data_axis_bytes``
+    holds them beside the compressed and full words of one step.  A
+    baseline train cell's ``data_axis_bytes`` are DTensor's collectives
+    over the data axes (``counting.LocalComms``, by group).
+
 Refused, each by name with exit 2 from the CLI (``RefusedCell``): the
-``--eigen`` cells, and the recurrent, SSM and encoder-decoder families
-(the next slice, ROADMAP A11-sharded); the reference's HLO-only record
-fields are listed in the record's ``refused``.  The fake group is torn
-down in a ``finally``, so no global process group outlives a dry run.
+recurrent, SSM and encoder-decoder families (the next slice, ROADMAP
+A11-sharded); the reference's HLO-only record fields are listed in the
+record's ``refused``.  The fake group is torn down in a ``finally``, so
+no global process group outlives a dry run.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import os
 import sys
 import time
 import traceback
+from collections import Counter
 from typing import Any, Dict, Optional
 
 import torch
@@ -65,6 +78,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.registry import family_of
 from repro_torch.launch import counting as C
+from repro_torch.launch.sharding import SHARDED_FAMILIES
 from repro_torch.launch.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -79,9 +93,8 @@ from repro_torch.plan.roofline import H100, H100_BF16, model_flops, roofline_ter
 __all__ = ["RefusedCell", "fake_world", "dryrun_cell", "dryrun_paper_pca", "main",
            "SHARDED_FAMILIES", "ACCOUNTING_REFUSED"]
 
-SHARDED_FAMILIES = ("dense", "moe", "vlm")
-NEXT_SLICE = ("the next slice (ROADMAP A11-sharded: --eigen under sharding, and the "
-              "recurrent, SSM and encoder-decoder families' sharded forward and dry run)")
+NEXT_SLICE = ("the next slice (ROADMAP A11-sharded: the recurrent, SSM and "
+              "encoder-decoder families' sharded forward and dry run)")
 ACCOUNTING_REFUSED = {
     "extrapolate": "the port has no scanned graph to extrapolate from: it runs and "
                    "counts the whole depth (--accounting unrolled)",
@@ -93,6 +106,11 @@ HLO_REFUSED = {
     "lower_s": "no lowering: the port runs the step on fake tensors",
     "compile_s": "no compilation: the port runs the step on fake tensors",
 }
+
+
+# ``comm/transport.py``'s tally keys, as the reference's collective kinds.
+HANDED_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                "broadcast": "broadcast", "send": "collective-permute"}
 
 
 class RefusedCell(ValueError):
@@ -162,8 +180,6 @@ def refuse(arch: str, *, eigen: bool = False, accounting: str = "unrolled") -> N
         raise RefusedCell(f"--accounting {accounting}: {ACCOUNTING_REFUSED[accounting]}")
     if accounting != "unrolled":
         raise RefusedCell(f"--accounting {accounting!r}: the port counts 'unrolled'")
-    if eigen:
-        raise RefusedCell(f"--eigen: the eigen-compressed step under sharding is {NEXT_SLICE}")
     fam = family_of(arch)
     if fam not in SHARDED_FAMILIES:
         raise RefusedCell(f"{arch} ({fam} family): its sharded dry run is {NEXT_SLICE}")
@@ -200,7 +216,7 @@ def dryrun_cell(
     with fake_world(_world(multi_pod, device_count)):
         mesh = _mesh_for(multi_pod, mesh_shape)
         record["mesh"] = _mesh_record(mesh)
-        record.update(_count_cell(cfg, shape, mesh))
+        record.update(_count_cell(cfg, shape, mesh, eigen=eigen and shape.kind == "train"))
     record["count_s"] = time.perf_counter() - t0
     chips = mesh.size()
     kind = shape.kind
@@ -215,34 +231,54 @@ def dryrun_cell(
     return record
 
 
-def _count_cell(cfg, shape, mesh) -> Dict[str, Any]:
+def _count_cell(cfg, shape, mesh, *, eigen: bool = False) -> Dict[str, Any]:
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.experimental import implicit_replication
 
+    from repro_torch.comm import transport
     from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import data_group, data_rank, data_size
     from repro_torch.launch.specs import decode_state_specs, train_input_specs
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import (
+        compressed_paths,
+        eigen_opt_init,
+        make_eigen_train_step,
+        make_train_step,
+        shard_rows,
+    )
     from repro_torch.models.registry import model_class
     from repro_torch.models.sharding_ctx import activation_sharding
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.eigen_compress import EigenCompressConfig
     from repro_torch.optim.schedule import warmup_cosine
 
     def fake(spec):
         return torch.zeros(spec.shape, dtype=spec.dtype)
 
     kind = shape.kind
+    ecfg = EigenCompressConfig()
+    dax_names = {data_group(mesh).group_name: "data"}
+    transport.reset_handed_bytes()
     with FakeTensorMode():
         # Train: f32 masters; serving: the config's dtype (bf16 weights,
         # the reference's serving convention).
         dtype = torch.float32 if kind == "train" else None
         model = model_class(cfg)(cfg, device="cpu", param_dtype=dtype)
-        S.shard_model(model, cfg, mesh)
+        S.shard_model(model, cfg, mesh, eigen=eigen)
         params = dict(model.named_parameters())
-        opt, batch, extra = None, {}, []
+        opt, batch, extra, opt_t = None, {}, [], []
         if kind == "train":
-            opt = adamw_init(params)
             batch = {k: fake(v) for k, v in train_input_specs(cfg, shape).items()}
+            if eigen:
+                opt = eigen_opt_init(model, ecfg, data_size(mesh), mesh=mesh)
+                # ``initialized`` is a host flag, not a device argument.
+                opt_t = [*opt["full_m"].values(), *opt["full_v"].values(),
+                         *(st[f] for st in opt["eigen"].values()
+                           for f in ("basis", "m", "v", "err"))]
+            else:
+                opt = adamw_init(params)
+                opt_t = [*opt["m"].values(), *opt["v"].values()]
         elif kind == "prefill":
             batch = {k: fake(v) for k, v in train_input_specs(cfg, shape).items()
                      if k != "labels"}
@@ -250,36 +286,58 @@ def _count_cell(cfg, shape, mesh) -> Dict[str, Any]:
             tok, _, _ = decode_state_specs(cfg, shape)
             batch = {"tokens": fake(tok)}
         with activation_sharding(mesh, data_axes(mesh)), implicit_replication():
-            batch = S.shard_batch(batch, mesh)
+            if eigen:  # each data rank's rows, by hand
+                placed = shard_rows(batch, data_rank(mesh), data_size(mesh))
+            else:
+                placed = batch = S.shard_batch(batch, mesh)
             if kind == "decode":
                 extra = [t for blk in model.init_cache(shape.global_batch, shape.seq_len)
                          for t in blk.values()]
             param_b = S.local_bytes(params.values())
-            opt_b = 0 if opt is None else S.local_bytes(
-                [*opt["m"].values(), *opt["v"].values()])
-            batch_b = S.local_bytes([*batch.values(), *extra])
-            flops, comms = C.LocalFlops(), C.LocalComms()
-            with C.unseen_shadow_ops(), C.peak_bytes(model) as peak, CommDebugMode() as cdm, \
-                    comms, flops:
-                if kind == "train":
-                    step = make_train_step(model, adamw_cfg=AdamWConfig(),
-                                           schedule=warmup_cosine(3e-4, 100, 10000))
-                    step(opt, batch)
-                elif kind == "prefill":
-                    tokens = batch.pop("tokens")
-                    model.prefill(tokens, cache_len=shape.seq_len, use_kernel=True, **batch)
+            opt_b = S.local_bytes(opt_t)
+            batch_b = S.local_bytes([*placed.values(), *extra])
+        flops, comms = C.LocalFlops(), C.LocalComms(axes=dax_names)
+        with C.unseen_shadow_ops(), C.peak_bytes(model) as peak, CommDebugMode() as cdm, \
+                comms, flops:
+            if kind == "train":
+                sched = warmup_cosine(3e-4, 100, 10000)
+                if eigen:
+                    make_eigen_train_step(model, adamw_cfg=AdamWConfig(), schedule=sched,
+                                          mesh=mesh)(opt, batch)
                 else:
-                    cache = model.init_cache(shape.global_batch, shape.seq_len)
-                    model.decode_step(batch["tokens"], cache, shape.seq_len - 1)
+                    with activation_sharding(mesh, data_axes(mesh)), implicit_replication():
+                        make_train_step(model, adamw_cfg=AdamWConfig(),
+                                        schedule=sched)(opt, batch)
+            else:
+                with activation_sharding(mesh, data_axes(mesh)), implicit_replication():
+                    if kind == "prefill":
+                        tokens = batch.pop("tokens")
+                        model.prefill(tokens, cache_len=shape.seq_len, use_kernel=True,
+                                      **batch)
+                    else:
+                        cache = model.init_cache(shape.global_batch, shape.seq_len)
+                        model.decode_step(batch["tokens"], cache, shape.seq_len - 1)
+    handed = transport.handed_bytes()
+    transport.reset_handed_bytes()
+    coll = Counter(comms.by_kind)
+    coll.update({HANDED_KINDS[k]: v for k, v in handed.items()})
+    data_b = sum(handed.values()) + comms.by_axis.get("data", 0)
     rec: Dict[str, Any] = {
         "memory": {"argument_bytes": param_b + opt_b + batch_b, "param_bytes": param_b,
                    "opt_state_bytes": opt_b, "batch_bytes": batch_b,
                    "peak_bytes": peak["peak"]},
         "collective_counts": {str(k): int(v) for k, v in cdm.get_comm_counts().items()},
         "flops_by_op": dict(flops.by_op.most_common(8)),
+        "data_axis_bytes": data_b,
     }
-    _price(rec, flops.total, param_b + opt_b + batch_b, dict(comms.by_kind),
-           mesh.size(), H100_BF16)
+    if kind == "train":
+        comp = compressed_paths(cfg, ecfg)
+        rec["data_axis_words"] = {
+            "compressed": sum(min(ecfg.rank, d, n) * n for d, n in comp.values()),
+            "full": sum(d * n for d, n in comp.values())} if eigen else None
+        if eigen:
+            rec["data_axis_handed"] = handed
+    _price(rec, flops.total, param_b + opt_b + batch_b, dict(coll), mesh.size(), H100_BF16)
     return rec
 
 
@@ -293,6 +351,11 @@ def _print_cell(r: dict, chips: int) -> None:
     print(f"  per-device: flops={r['flops_per_device']:.3e} "
           f"hbm={r['hbm_bytes_per_device']:.3e}B coll={r['collective_bytes_per_device']:.3e}B "
           f"{r['collective_breakdown']}")
+    if r.get("data_axis_words"):
+        w = r["data_axis_words"]
+        print(f"  eigen: data-axis bytes {r['data_axis_bytes']:.6e}B; compressed words "
+              f"{w['compressed']} against the full gradients' {w['full']} "
+              f"({w['full'] / max(w['compressed'], 1):.1f}x)")
     print(f"  roofline ({r['roofline_device']}): compute={r['compute_s'] * 1e3:.2f}ms "
           f"memory={r['memory_s'] * 1e3:.2f}ms collective={r['collective_s'] * 1e3:.2f}ms "
           f"-> {r['bottleneck']}-bound; useful={r['useful_flops_ratio']:.2%}")
@@ -463,7 +526,7 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--single-pod", action="store_true")
     ap.add_argument("--eigen", action="store_true",
-                    help="refused: the eigen-compressed step under sharding is the next slice")
+                    help="train cells: the eigen-compressed train step (the paper's technique)")
     ap.add_argument("--paper-pca", action="store_true")
     ap.add_argument("--backend", default=None, choices=BACKEND_CHOICES)
     ap.add_argument("--polar", default=None, choices=POLAR_CHOICES)

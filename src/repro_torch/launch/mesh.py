@@ -27,6 +27,12 @@ that is already up (``torchrun``'s, a gloo world, or the dry run's fake
 group): the same shapes, axis names and factorisation rules as the
 reference's.  They are functions, and importing this module starts no
 process group.
+
+The eigen-compressed step runs its data axes by hand, as the
+reference's ``shard_map`` does (manual data, automatic model):
+``data_group`` is the process group its data-axis collectives go over
+('data', or pod x data flattened as the reference's ``axis = dax``), and
+``model_submesh`` the 1-D mesh its parameters live on.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch.distributed as dist
 
 __all__ = ["AggregationGroup", "transport_rule", "make_aggregation_mesh", "under_torchrun",
            "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "make_production_mesh", "make_mesh",
-           "make_host_mesh", "data_axes"]
+           "make_host_mesh", "data_axes", "data_group", "data_rank", "data_size",
+           "model_submesh", "parse_mesh_shape"]
 
 # The reference's mesh-axis names (``repro/comm/topology.py``).
 DATA_AXIS, MODEL_AXIS, POD_AXIS = "data", "model", "pod"
@@ -211,3 +218,50 @@ def data_axes(mesh) -> tuple[str, ...]:
     ``mesh`` is a ``DeviceMesh`` or a {axis name: size} mapping."""
     names = tuple(mesh) if isinstance(mesh, dict) else tuple(mesh.mesh_dim_names)
     return tuple(a for a in (POD_AXIS, DATA_AXIS) if a in names)
+
+
+def data_group(mesh):
+    """The process group over the mesh's data axes, this rank's slice of
+    the model axis fixed: ``mesh.get_group('data')``, or with a pod axis
+    the (pod, data) submesh flattened into one group, pod-major (the
+    reference's ``psum`` over ``('pod', 'data')``)."""
+    dax = data_axes(mesh)
+    if len(dax) == 1:
+        return mesh.get_group(dax[0])
+    return mesh[dax]._flatten("_".join(dax)).get_group()
+
+
+def data_size(mesh) -> int:
+    """Ranks along the data axes (pod x data)."""
+    names = list(mesh.mesh_dim_names)
+    size = 1
+    for a in data_axes(mesh):
+        size *= mesh.size(names.index(a))
+    return size
+
+
+def data_rank(mesh) -> int:
+    """This rank's index along the data axes, pod-major (its shard of the
+    global batch)."""
+    names = list(mesh.mesh_dim_names)
+    idx = 0
+    for a in data_axes(mesh):
+        i = names.index(a)
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def model_submesh(mesh):
+    """The 1-D ``model`` submesh through this rank: where the parameters
+    live when the data axes are run by hand (the eigen step)."""
+    return mesh[MODEL_AXIS]
+
+
+def parse_mesh_shape(text: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``"D,M"`` -> ((D, M), (data, model)); ``"P,D,M"`` adds the pod axis."""
+    shape = tuple(int(x) for x in text.split(","))
+    if len(shape) == 2:
+        return shape, (DATA_AXIS, MODEL_AXIS)
+    if len(shape) == 3:
+        return shape, (POD_AXIS, DATA_AXIS, MODEL_AXIS)
+    raise ValueError(f"--mesh-shape {text!r}: give D,M or P,D,M")

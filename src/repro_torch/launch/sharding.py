@@ -31,6 +31,18 @@ a ``Shard`` of the merged dim (contiguous blocks of whole heads).
 every rank builds the same weights from the same seed), ``shard_cache``
 a serving cache, and ``shard_batch`` a batch.  ``mesh`` is a
 ``DeviceMesh`` or, for the spec functions alone, a {axis: size} mapping.
+
+Training (``shardings_for_train``, ``jit_eigen_steps``): AdamW's ``m``
+and ``v`` are placed as their parameters (``adamw_init`` of DTensor
+parameters).  The eigen step runs its data axes by hand, as the
+reference's ``shard_map`` does: ``shard_model(..., eigen=True)`` places
+the parameters on the model submesh with FSDP off (the reference's
+``cfg_nofsdp``; its ``_manual_only_spec`` leaves the model axis to the
+compiler), and ``place_eigen_state`` puts the optimizer state there as
+the reference's ``os_`` does: every leaf replicated, ``err`` this data
+rank's own (the reference shards its leading shard axis over data).
+``whole``, ``local`` and ``block_of`` move between a DTensor, its local
+block and its whole value.
 """
 
 from __future__ import annotations
@@ -47,7 +59,21 @@ from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, data_axes
 __all__ = ["DEFAULT_RULES", "rules_for", "spec_for_axes", "param_specs", "param_placements",
            "batch_spec", "batch_placements", "cache_logical_axes", "cache_specs",
            "cache_placements", "replicated", "placements", "port_dims", "shard_model",
-           "shard_cache", "shard_batch", "local_bytes", "sharded"]
+           "shard_cache", "shard_batch", "local_bytes", "sharded", "place_eigen_state",
+           "whole", "local", "block_of", "SHARDED_FAMILIES", "refuse_unsharded_family"]
+
+# The families whose forward runs sharded (the recurrent, SSM and
+# encoder-decoder ones are the next slice, ROADMAP A11-sharded).
+SHARDED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def refuse_unsharded_family(cfg) -> None:
+    """Raise ``ValueError`` naming a config whose family has no sharded
+    forward yet."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family} family): its sharded forward is the next slice "
+            "(ROADMAP A11-sharded); train it stacked (--shards) or one shard a rank")
 
 # logical name -> preferred mesh axis (single-axis entries; 'batch' special)
 DEFAULT_RULES: Dict[str, str] = {
@@ -266,11 +292,18 @@ def _distribute(t: torch.Tensor, mesh, place) -> torch.Tensor:
 
 
 @torch.no_grad()
-def shard_model(model, cfg, mesh):
+def shard_model(model, cfg, mesh, *, eigen: bool = False):
     """Replace every parameter of ``model`` by a DTensor placed by
-    ``param_placements`` (in place; returns the model)."""
+    ``param_placements`` (in place; returns the model).  ``eigen``: on
+    the model submesh of ``mesh``, FSDP off (the eigen step's layout)."""
+    import dataclasses
+
     from torch import nn
 
+    from repro_torch.launch.mesh import model_submesh
+
+    if eigen:
+        cfg, mesh = dataclasses.replace(cfg, fsdp=False), model_submesh(mesh)
     places = param_placements(model, cfg, mesh)
     for name, p in list(model.named_parameters()):
         owner = model.get_submodule(name.rpartition(".")[0]) if "." in name else model
@@ -298,6 +331,57 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]
     """Each array of ``batch`` a DTensor, batch-sharded (``batch_spec``)."""
     places = batch_placements(batch, mesh)
     return {k: _distribute(v, mesh, places[k]) for k, v in batch.items()}
+
+
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def whole(t):
+    """A DTensor's whole value (gathered: every rank of its mesh takes
+    part); any other tensor itself."""
+    return t.full_tensor() if _is_dt(t) else t
+
+
+def local(t):
+    """A DTensor's local block (under ``no_grad`` its storage, so in-place
+    writes reach the DTensor); any other tensor itself."""
+    return t.to_local() if _is_dt(t) else t
+
+
+def block_of(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's block of the whole tensor ``full`` as ``like`` (a
+    DTensor) is placed: a slice, no communication.  ``full`` itself when
+    ``like`` is not a DTensor."""
+    if not _is_dt(like):
+        return full
+    return _distribute(full, like.device_mesh, list(like.placements)).to_local()
+
+
+@torch.no_grad()
+def place_eigen_state(opt: dict, mesh) -> dict:
+    """The eigen optimizer state of one data rank (plain tensors, ``err``
+    without a shard axis) placed on the model submesh of ``mesh``, every
+    tensor replicated (the reference's ``os_``); ``initialized`` and
+    ``step`` stay host scalars.  In place; returns ``opt``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import model_submesh
+
+    sub = model_submesh(mesh)
+    rep = replicated(sub)
+
+    def put(t):
+        return DTensor.from_local(t, sub, rep, run_check=False)
+
+    for key in ("full_m", "full_v"):
+        opt[key] = {n: put(t) for n, t in opt[key].items()}
+    for st in opt["eigen"].values():
+        for f in ("basis", "m", "v", "err"):
+            st[f] = put(st[f])
+    return opt
 
 
 def local_bytes(tensors) -> int:

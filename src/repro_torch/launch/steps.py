@@ -42,10 +42,34 @@ through the renormalised gates and the aux loss's mean probabilities,
 and its experts through the kept pairs only; its expert leaves (L, E, d,
 f) / (L, E, f, d) are never compressed (``compressed_paths``), its
 router (L, d, e) is where e >= rank, as the reference's.
+
+On a ``(data, model)`` mesh (``mesh=``, the reference's ``jit_train_step``
+/ ``jit_eigen_steps``), the model's parameters are DTensors
+(``launch.sharding.shard_model``) and the batch is the global one:
+
+  * the baseline step places the batch over the data axes
+    (``shard_batch``) and runs under ``sharding.sharded(mesh)``: DTensor
+    inserts the data-axis reductions, as XLA does from the reference's
+    in/out shardings;
+  * the eigen steps run the data axes by hand, as the reference's
+    ``shard_map``: parameters on the model submesh with FSDP off
+    (``shard_model(..., eigen=True)``), each data rank its rows, the
+    activation constraints suspended (the reference's ``per_shard``), and
+    every data-axis collective explicit over ``mesh.data_group``
+    through ``comm.transport``: the coordinates, the uncompressed
+    gradients, the loss, the refresh's rounds.  A compressed leaf's
+    gradient is gathered whole over 'model' first: its error feedback is
+    whole on every model rank (the reference's ``os_`` replicates it), and
+    ``err <- (G + err) - P Pᵀ(G + err)`` touches every element of it.  So
+    the data axis carries the whole (r, n) coordinates, r n words a leaf,
+    and the model axis (within a host) a d n gather.  An uncompressed
+    gradient is all-reduced over data as its local block, then gathered
+    for its whole moments (replicated, as the reference's).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -53,6 +77,7 @@ import torch.distributed as dist
 
 from repro_torch.comm import transport
 from repro_torch.interop import decays, reference_leaves
+from repro_torch.launch import sharding as S
 from repro_torch.models import EncDec, LM
 from repro_torch.models.registry import loss as loss_fn
 from repro_torch.optim import eigen_compress as EC
@@ -106,33 +131,39 @@ def _world(shards: Optional[int], group) -> tuple[int, list[int]]:
 
 
 def _mean_loss(losses: list, m: int, group) -> torch.Tensor:
-    total = torch.stack(losses).sum().reshape(1)
+    total = torch.stack([S.whole(x) for x in losses]).sum().reshape(1)
     if group is not None:
         transport.all_reduce(total, group=group)
     return total[0] / m
 
 
 # ----------------------------------------------------------- baseline step --
-def make_train_step(model: Model, *, adamw_cfg: AdamWConfig, schedule, group=None):
+def make_train_step(model: Model, *, adamw_cfg: AdamWConfig, schedule, group=None,
+                    mesh=None):
     """AdamW train step (clip, decay by the reference leaf, NaN guard).
     With ``group`` each rank runs its rows and the gradients and loss are
     all-reduced / m: the data-parallel baseline the eigen step
-    compresses."""
+    compresses.  With ``mesh`` (a model placed by ``shard_model``) the
+    global batch is placed over the data axes and DTensor reduces."""
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
 
     def train_step(opt_state, batch: Batch) -> dict:
-        m, mine = _world(None, group)
-        b = batch if group is None else shard_rows(batch, mine[0], m)
-        loss, metrics = loss_fn(model, b)
-        grads = dict(zip(params, _grads(loss, list(params.values()))))
-        if group is not None:
-            for g in grads.values():
-                transport.all_reduce(g, group=group).div_(m)
-        loss = _mean_loss([loss.detach()], m, group)
-        lr = schedule(int(host_value(opt_state["step"])))
-        om = adamw_update(grads, opt_state, params, lr=lr, cfg=adamw_cfg, decays=decay)
-        return {"loss": loss, "lr": lr, "aux": metrics["aux"].detach(), **om}
+        with S.sharded(mesh) if mesh is not None else contextlib.nullcontext():
+            m, mine = _world(None, group)
+            if mesh is not None:
+                b = S.shard_batch(batch, mesh)
+            else:
+                b = batch if group is None else shard_rows(batch, mine[0], m)
+            loss, metrics = loss_fn(model, b)
+            grads = dict(zip(params, _grads(loss, list(params.values()))))
+            if group is not None:
+                for g in grads.values():
+                    transport.all_reduce(g, group=group).div_(m)
+            loss = _mean_loss([loss.detach()], m, group)
+            lr = schedule(int(host_value(opt_state["step"])))
+            om = adamw_update(grads, opt_state, params, lr=lr, cfg=adamw_cfg, decays=decay)
+        return {"loss": loss, "lr": lr, "aux": S.whole(metrics["aux"].detach()), **om}
 
     return train_step
 
@@ -175,24 +206,72 @@ def compressed_paths(cfg, ecfg: EC.EigenCompressConfig) -> Dict[str, tuple]:
 
 
 def eigen_opt_init(model: Model, ecfg: EC.EigenCompressConfig, n_data_shards: int, *,
-                   group=None) -> dict:
+                   group=None, mesh=None) -> dict:
     """Optimizer state: full f32 Adam moments for the uncompressed leaves,
     the low-rank state for the compressed ones (``err`` with a leading
     shard axis of ``n_data_shards`` in the stacked form, this rank's
-    alone with ``group``)."""
+    alone with ``group`` or ``mesh``).  With ``mesh`` every tensor is
+    replicated on the model submesh (``sharding.place_eigen_state``)."""
     comp = compressed_paths(model.cfg, ecfg)
+    own = group is not None or mesh is not None
     full_m, full_v, eigen = {}, {}, {}
     for name, p in model.named_parameters():
+        dev = S.local(p).device
         if name in comp:
             d, n = comp[name]
-            eigen[name] = EC.init_state(
-                d, n, ecfg, err_lead=() if group is not None else (n_data_shards,),
-                device=p.device)
+            eigen[name] = EC.init_state(d, n, ecfg, err_lead=() if own else (n_data_shards,),
+                                        device=dev)
         else:
-            full_m[name] = torch.zeros_like(p, dtype=torch.float32)
-            full_v[name] = torch.zeros_like(p, dtype=torch.float32)
-    return {"full_m": full_m, "full_v": full_v, "eigen": eigen,
-            "step": torch.zeros((), dtype=torch.int32)}
+            full_m[name] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            full_v[name] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    opt = {"full_m": full_m, "full_v": full_v, "eigen": eigen,
+           "step": torch.zeros((), dtype=torch.int32)}
+    return opt if mesh is None else S.place_eigen_state(opt, mesh)
+
+
+def _eigen_form(shards, group, mesh):
+    """(group, rows, context) of the eigen steps: the data group the
+    collectives go over; ``rows(batch, i, m)``, shard i's rows (on a mesh
+    replicated on the model submesh); the context the forward runs in (on
+    a mesh: the activation constraints suspended, as the reference's
+    ``per_shard``, and the model's own plain tensors taken as
+    replicated)."""
+    if mesh is None:
+        return group, shard_rows, contextlib.nullcontext
+    if group is not None or shards is not None:
+        raise ValueError("give mesh= alone: its data group is the eigen step's group")
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import data_group, model_submesh
+    from repro_torch.models.sharding_ctx import no_activation_sharding
+
+    sub = model_submesh(mesh)
+
+    def rows(batch, i, m):
+        return {k: DTensor.from_local(v, sub, S.replicated(sub), run_check=False)
+                for k, v in shard_rows(batch, i, m).items()}
+
+    @contextlib.contextmanager
+    def manual():
+        with no_activation_sharding(), implicit_replication():
+            yield
+
+    return data_group(mesh), rows, manual
+
+
+def _summed_whole(g: torch.Tensor, p: torch.Tensor, group) -> torch.Tensor:
+    """An uncompressed gradient summed over the data group: a DTensor's
+    local block (placed as its parameter) all-reduced, then gathered
+    whole over 'model' for the whole moments."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(g, DTensor):
+        return transport.all_reduce(g, group=group)
+    gl = g.redistribute(p.device_mesh, p.placements).to_local().contiguous()
+    transport.all_reduce(gl, group=group)
+    return DTensor.from_local(gl, p.device_mesh, p.placements, run_check=False,
+                              shape=p.shape, stride=p.stride()).full_tensor()
 
 
 def make_eigen_train_step(
@@ -202,13 +281,15 @@ def make_eigen_train_step(
     schedule,
     shards: Optional[int] = None,
     group=None,
+    mesh=None,
 ):
     """The compressed train step, on the bases and error feedback of the
-    optimizer state.  Collectives per step (collective form): an
-    all-reduce of r n words per compressed leaf (d n in the baseline), of
-    every uncompressed gradient, and of the loss."""
+    optimizer state.  Collectives per step (collective and mesh forms):
+    an all-reduce of r n words per compressed leaf (d n in the baseline),
+    of every uncompressed gradient, and of the loss."""
     params = dict(model.named_parameters())
     decay = decays(model.cfg)
+    group, rows, ctx = _eigen_form(shards, group, mesh)
 
     def train_step(opt_state, batch: Batch) -> dict:
         m, mine = _world(shards, group)
@@ -217,26 +298,27 @@ def make_eigen_train_step(
         full: Dict[str, torch.Tensor] = {}
         losses = []
         for i in mine:
-            loss, _ = loss_fn(model, shard_rows(batch, i, m))
-            grads = _grads(loss, list(params.values()))
+            with ctx():
+                loss, _ = loss_fn(model, rows(batch, i, m))
+                grads = _grads(loss, list(params.values()))
             losses.append(loss.detach())
-            for name, g in zip(params, grads):
-                if name in eig:
-                    st = eig[name]
-                    if group is not None:
-                        low[name] = EC.compress_and_reduce(g, st, group=group)
-                        continue
-                    c = EC.compress(g, st, st["err"][i])
-                    low[name] = c if name not in low else low[name].add_(c)
-                else:
-                    full[name] = g if name not in full else full[name].add_(g)
+            with torch.no_grad():
+                for name, g in zip(params, grads):
+                    if name in eig:
+                        st = {k: S.local(t) for k, t in eig[name].items()}
+                        if group is not None:
+                            low[name] = EC.compress_and_reduce(S.whole(g), st, group=group)
+                            continue
+                        c = EC.compress(g, st, st["err"][i])
+                        low[name] = c if name not in low else low[name].add_(c)
+                    elif group is not None:
+                        full[name] = _summed_whole(g, params[name], group)
+                    else:
+                        full[name] = g if name not in full else full[name].add_(g)
             del grads
         if group is None:
             for t in low.values():
                 t.div_(m)
-        else:
-            for t in full.values():
-                transport.all_reduce(t, group=group)
         loss = _mean_loss(losses, m, group)
         step = int(host_value(opt_state["step"])) + 1
         lr = schedule(step - 1)
@@ -245,14 +327,17 @@ def make_eigen_train_step(
         with torch.no_grad():
             for name, p in params.items():
                 if name in eig:
-                    st = eig[name]
+                    st = {k: S.local(t) for k, t in eig[name].items()}
                     adam_moments_(st["m"], st["v"], low[name], adamw_cfg)
                     delta = st["basis"] @ adam_direction(st["m"], st["v"], c1, c2,
                                                          adamw_cfg.eps)
-                    apply_update_(p, delta, lr=lr, weight_decay=wd)
+                    apply_update_(S.local(p), S.block_of(delta, p), lr=lr, weight_decay=wd)
                 else:
-                    adam_leaf(p, full[name].div_(m), opt_state["full_m"][name], opt_state["full_v"][name],
-                              lr=lr, c1=c1, c2=c2, cfg=adamw_cfg, decay=decay(name))
+                    fm, fv = S.local(opt_state["full_m"][name]), S.local(opt_state["full_v"][name])
+                    adam_moments_(fm, fv, full[name].div_(m).to(torch.float32), adamw_cfg)
+                    delta = adam_direction(fm, fv, c1, c2, adamw_cfg.eps)
+                    apply_update_(S.local(p), S.block_of(delta, p), lr=lr,
+                                  weight_decay=wd if decay(name) else 0.0)
         opt_state["step"].fill_(step)
         return {"loss": loss, "lr": lr, "aux": torch.zeros(())}
 
@@ -265,13 +350,16 @@ def make_eigen_refresh_step(
     ecfg: EC.EigenCompressConfig,
     shards: Optional[int] = None,
     group=None,
+    mesh=None,
 ):
     """The refresh: each shard's gradient of its rows, its local top-r
     basis of every compressed leaf (``power_iters`` subspace steps from
-    ``starts[name]``), then per leaf the Procrustes-fixed average
+    ``starts[name]``; on a mesh from the gradient gathered whole over
+    'model'), then per leaf the Procrustes-fixed average
     (``eigen_compress.refresh_basis``), and the low-rank moments rotated
     into the new basis with R = P_newᵀ P_old: m <- R m, v <- |R|^2 v."""
     params = dict(model.named_parameters())
+    group, rows, ctx = _eigen_form(shards, group, mesh)
 
     def refresh_step(opt_state, batch: Batch, starts: Dict[str, torch.Tensor]) -> dict:
         m, mine = _world(shards, group)
@@ -279,17 +367,18 @@ def make_eigen_refresh_step(
         names = sorted(eig)
         local: Dict[str, list] = {n: [] for n in names}
         for i in mine:
-            loss, _ = loss_fn(model, shard_rows(batch, i, m))
-            grads = _grads(loss, [params[n] for n in names])
+            with ctx():
+                loss, _ = loss_fn(model, rows(batch, i, m))
+                grads = _grads(loss, [params[n] for n in names])
             with torch.no_grad():
                 for name, g in zip(names, grads):
                     r = eig[name]["basis"].shape[1]
                     local[name].append(
-                        EC._local_basis(g, r, ecfg.power_iters, starts[name]))
+                        EC._local_basis(S.whole(g), r, ecfg.power_iters, starts[name]))
             del grads
         with torch.no_grad():
             for name in names:
-                st = eig[name]
+                st = {k: S.local(t) for k, t in eig[name].items()}
                 v_loc = torch.stack(local.pop(name)) if group is None else local.pop(name)[0]
                 new = EC.refresh_basis(v_loc, st["basis"], bool(st["initialized"]),
                                        cfg=ecfg, group=group)

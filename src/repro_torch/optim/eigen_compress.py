@@ -23,7 +23,11 @@ Two forms, as the port's other collectives:
   * collective (``group=``, one shard a rank):
     ``core.distributed.procrustes_average_collective`` over the group,
     and ``compress_and_reduce`` all-reduces the (r, n) coordinates
-    through ``comm.transport``.
+    through ``comm.transport``.  On a ``(data, model)`` mesh the group is
+    the data axis's, and ``launch/steps.py`` hands these functions each
+    compressed gradient gathered whole over 'model' and the local tensors
+    of the replicated state (the error feedback is whole on every model
+    rank, as the reference's).
 
 The rounds run on ``backend="auto"`` (the reference's default, Pallas on
 a TPU): on CUDA tensors the kernels B2 (``batched_gram``) and B4

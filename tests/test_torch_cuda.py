@@ -1661,3 +1661,108 @@ def test_sharded_one_rank_mesh_is_bit_for_bit_the_unsharded_model(dev):
         assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
     finally:
         dist.destroy_process_group()
+
+
+def _one_rank_world():
+    """A gloo world of one rank (this process), for a (1, 1) mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+
+
+def test_sharded_adamw_step_on_a_one_rank_mesh_is_bit_for_bit(dev):
+    """One AdamW step of the reduced llama3.2-3b (f32 masters, bf16
+    compute) on a (1, 1) mesh (``launch.steps.make_train_step(mesh=)``:
+    every parameter and moment a DTensor) gives the unsharded step's loss,
+    parameters and moments bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedule import constant
+
+    cfg = get_reduced_config("llama3.2-3b")
+    mk = lambda: build(cfg, device=dev, param_dtype=torch.float32,  # noqa: E731
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in TokenPipeline(cfg.vocab_size, 64, 4, seed=0).batch(0).items()}
+    ref = mk()
+    ropt = adamw_init(dict(ref.named_parameters()))
+    want = make_train_step(ref, adamw_cfg=AdamWConfig(), schedule=constant(1e-3))(ropt, batch)
+    _one_rank_world()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        model = S.shard_model(mk(), cfg, mesh)
+        opt = adamw_init(dict(model.named_parameters()))
+        got = make_train_step(model, adamw_cfg=AdamWConfig(), schedule=constant(1e-3),
+                              mesh=mesh)(opt, batch)
+        assert all(isinstance(t, DTensor) for t in [*model.parameters(), *opt["m"].values()])
+        assert torch.equal(S.whole(got["loss"]), want["loss"])
+        for (n, p), q in zip(model.named_parameters(), ref.parameters()):
+            assert torch.equal(S.whole(p.detach()), q.detach()), n
+            assert torch.equal(S.whole(opt["m"][n]), ropt["m"][n]), n
+            assert torch.equal(S.whole(opt["v"][n]), ropt["v"][n]), n
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dtensor_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A mesh trainer's state on the card (DTensor parameters, AdamW
+    moments and the eigen state on a (1, 1) mesh) written by
+    ``CheckpointManager`` and read back by ``restore_latest`` into the live
+    tree: DTensors again, on the card, with the same bits."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import eigen_opt_init
+    from repro_torch.models import build
+    from repro_torch.optim import EigenCompressConfig
+
+    cfg = get_reduced_config("llama3.2-3b")
+    _one_rank_world()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        model = S.shard_model(build(cfg, device=dev, param_dtype=torch.float32,
+                                    generator=torch.Generator(device=dev).manual_seed(0)),
+                              cfg, mesh, eigen=True)
+        opt = eigen_opt_init(model, EigenCompressConfig(rank=8, min_dim=64), 1, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for st in opt["eigen"].values():
+            S.local(st["err"]).normal_(generator=gen)
+        tree = {"params": dict(model.named_parameters()), "opt": opt}
+        ck = CheckpointManager(str(tmp_path), every=1)
+        ck.maybe_save(1, tree, force=True)
+        ck.wait()
+        step, got, _ = ck.restore_latest(tree)
+        assert step == 1
+        for key in ("params", "opt"):
+            want_l = [t for t in _leaves(tree[key]) if isinstance(t, DTensor)]
+            got_l = [t for t in _leaves(got[key]) if isinstance(t, DTensor)]
+            assert len(got_l) == len(want_l) > 0
+            for a, b in zip(got_l, want_l):
+                assert a.device.type == "cuda" and a.placements == b.placements
+                assert torch.equal(S.local(a), S.local(b))
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

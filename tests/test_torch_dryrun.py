@@ -26,23 +26,41 @@ cells on a fake process group of 8 ranks under ``FakeTensorMode``.
   counts lie below it (the port 0.81 mf with remat's recompute and its
   plain attention's whole (S, S) products; XLA's 0.72 mf); at decode_32k
   the port counts 1.01 mf and XLA 2.79 mf.
-* ``--accounting extrapolate`` / ``scan-only``, ``--eigen`` and an SSM
-  arch are refused by name (exit 2 from the CLI), and no global process
-  group outlives a dry run, a refused or failing one included.
+* The ``--eigen`` train cell (the eigen train step, parameters on the
+  model submesh with FSDP off, the eigen state replicated, ``err`` this
+  data rank's own): its argument bytes plus the reference's 4-byte step
+  and its one-byte ``initialized`` flag a stacked compressed leaf (the
+  port's flags are host scalars, one a layer's leaf) equal the
+  reference's ``argument_size_bytes`` exactly, and ``model_flops_global``
+  is equal.  Its data-axis bytes are the compressed coordinates, the
+  uncompressed gradients' local blocks and the loss, exactly.
+* ``--accounting extrapolate`` / ``scan-only`` and the SSM arch (with and
+  without ``--eigen``) are refused by name (exit 2 from the CLI), and no
+  global process group outlives a dry run, a refused or failing one
+  included.
 """
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 import torch.distributed as dist
 
 from conftest import SRC, run_with_devices
 from repro_torch.comm import comm_cost
+from repro_torch.configs import get_config
 from repro_torch.configs.paper_pca import CONFIG as PCFG
+from repro_torch.interop import reference_leaves
 from repro_torch.launch import dryrun as D
+from repro_torch.launch.sharding import param_specs, port_dims
+from repro_torch.launch.steps import compressed_paths
+from repro_torch.models.registry import model_class
+from repro_torch.optim import EigenCompressConfig
 
 N = 8
 CUT = {"num_layers": 2}
@@ -59,6 +77,9 @@ for shape in ("train_4k", "decode_32k"):
                       accounting="unrolled", overrides=%(cut)r)
     out["cells"][shape] = {k: r[k] for k in ("flops_per_device", "model_flops_global",
                                             "model_flops_per_device", "memory_analysis")}
+r = D.dryrun_cell("llama3.2-3b", "train_4k", device_count=8, verbose=False, eigen=True,
+                  accounting="unrolled", overrides=%(cut)r)
+out["cells"]["train_4k_eigen"] = {k: r[k] for k in ("model_flops_global", "memory_analysis")}
 for mp, topo, drop in %(pca)r:
     r = D.dryrun_paper_pca(multi_pod=mp, device_count=8, verbose=False, topology=topo,
                            drop_shards=drop)
@@ -78,16 +99,59 @@ def ref():
 def port():
     cells = {s: D.dryrun_cell("llama3.2-3b", s, device_count=N, verbose=False,
                               overrides=CUT) for s in ("train_4k", "decode_32k")}
+    cells["train_4k_eigen"] = D.dryrun_cell("llama3.2-3b", "train_4k", device_count=N,
+                                            verbose=False, overrides=CUT, eigen=True)
     pca = [D.dryrun_paper_pca(multi_pod=mp, device_count=N, verbose=False, topology=topo,
                               drop_shards=drop) for mp, topo, drop in PCA_CELLS]
     return {"cells": cells, "pca": pca}
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "train_4k_eigen"])
 def test_model_flops_equal_the_references(ref, port, shape):
     assert port["cells"][shape]["model_flops_global"] == ref["cells"][shape]["model_flops_global"]
-    assert port["cells"][shape]["model_flops_per_device"] == \
-        ref["cells"][shape]["model_flops_per_device"]
+    if "model_flops_per_device" in ref["cells"][shape]:
+        assert port["cells"][shape]["model_flops_per_device"] == \
+            ref["cells"][shape]["model_flops_per_device"]
+
+
+def _eigen_leaves(cut):
+    """(config, compressed leaves) of the eigen cell at the reference's
+    ``EigenCompressConfig()``."""
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), **cut)
+    return cfg, compressed_paths(cfg, EigenCompressConfig())
+
+
+def test_eigen_train_argument_bytes_equal_the_references(ref, port):
+    cfg, comp = _eigen_leaves(CUT)
+    flags = len({reference_leaves(cfg)[n].path for n in comp})  # one a stacked leaf
+    step = 4
+    mem = port["cells"]["train_4k_eigen"]["memory"]
+    assert mem["argument_bytes"] + step + flags == \
+        ref["cells"]["train_4k_eigen"]["memory_analysis"]["argument_size_bytes"]
+    # No FSDP: the parameters' bytes are the baseline cell's times the data axis.
+    assert mem["param_bytes"] == 2 * port["cells"]["train_4k"]["memory"]["param_bytes"]
+
+
+def test_eigen_train_data_axis_bytes_are_the_compressed_step(port):
+    cfg, comp = _eigen_leaves(CUT)
+    rec = port["cells"]["train_4k_eigen"]
+    words = rec["data_axis_words"]
+    assert words["compressed"] == sum(min(128, d, n) * n for d, n in comp.values())
+    # The uncompressed leaves' local blocks on the (2, 4) mesh's model axis.
+    specs = param_specs(dataclasses.replace(cfg, fsdp=False), {"model": 4})
+    leaves = reference_leaves(cfg)
+    model = model_class(cfg)(cfg, device="meta", param_dtype=torch.float32)
+    other = 0
+    for name, p in model.named_parameters():
+        if name in comp:
+            continue
+        local = list(p.shape)
+        for i, entry in enumerate(specs[name]):
+            if entry is not None:
+                local[port_dims(leaves[name])[i]] //= 4
+        other += math.prod(local) * 4
+    assert rec["data_axis_handed"] == {"all_reduce": 4 * words["compressed"] + other + 4}
+    assert rec["data_axis_bytes"] == 4 * words["compressed"] + other + 4
 
 
 def test_train_argument_bytes_equal_the_references(ref, port):
@@ -161,14 +225,14 @@ def test_hlo_only_outputs_are_refused_by_name(port):
     assert not any(k in rec for k in rec["refused"])
 
 
-@pytest.mark.parametrize("kw, word", [
-    (dict(accounting="extrapolate"), "extrapolate"),
-    (dict(accounting="scan-only"), "scan-only"),
-    (dict(eigen=True), "--eigen"),
+@pytest.mark.parametrize("arch, kw, word", [
+    ("llama3.2-3b", dict(accounting="extrapolate"), "extrapolate"),
+    ("llama3.2-3b", dict(accounting="scan-only"), "scan-only"),
+    ("mamba2-370m", dict(eigen=True), "mamba2-370m"),
 ])
-def test_refusals_name_what_they_refuse(kw, word):
+def test_refusals_name_what_they_refuse(arch, kw, word):
     with pytest.raises(D.RefusedCell, match=word):
-        D.dryrun_cell("llama3.2-3b", "train_4k", device_count=N, verbose=False, **kw)
+        D.dryrun_cell(arch, "train_4k", device_count=N, verbose=False, **kw)
     with pytest.raises(D.RefusedCell, match="mamba2-370m"):
         D.dryrun_cell("mamba2-370m", "train_4k", device_count=N, verbose=False)
     assert not dist.is_initialized()
@@ -177,7 +241,7 @@ def test_refusals_name_what_they_refuse(kw, word):
 def test_cli_exits_2_on_refusals(tmp_path):
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     for extra, word in ((["--arch", "mamba2-370m"], "next slice"),
-                        (["--arch", "llama3.2-3b", "--eigen"], "--eigen"),
+                        (["--arch", "mamba2-370m", "--eigen"], "next slice"),
                         (["--arch", "llama3.2-3b", "--accounting", "extrapolate"],
                          "extrapolate")):
         proc = subprocess.run(

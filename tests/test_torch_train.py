@@ -519,7 +519,7 @@ def _refresh64(grads, starts, opt, ecfg) -> dict:
     return out
 
 
-def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
+def _probes(model, batch, starts, opt, ecfg, ref_grads=None, m=4) -> dict:
     """Leaf -> {"f32": the refresh's own f32 rounding error at this state:
     how far its refreshed basis (each shard's 4-step local solve on its
     rows, then their Procrustes average) lies from the same refresh of
@@ -534,8 +534,8 @@ def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
     params = dict(model.named_parameters())
     names = sorted(opt["eigen"])
     grads, local, gap = [], {n: [] for n in names}, dict.fromkeys(names, 0.0)
-    for i in range(4):
-        loss, _ = model_loss(model, tsteps.shard_rows(batch, i, 4))
+    for i in range(m):
+        loss, _ = model_loss(model, tsteps.shard_rows(batch, i, m))
         shard = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names],
                                                     allow_unused=True, materialize_grads=True)))
         grads.append(shard)
@@ -560,9 +560,20 @@ def _probes(model, batch, starts, opt, ecfg, ref_grads=None) -> dict:
     return out
 
 
+def _whole_state(opt) -> dict:
+    """A mesh run's optimizer state with every DTensor whole (a plain
+    state's itself)."""
+    from repro_torch.launch.sharding import whole
+
+    if isinstance(opt, dict):
+        return {k: _whole_state(v) for k, v in opt.items()}
+    return whole(opt) if isinstance(opt, torch.Tensor) else opt
+
+
 def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
                     ill_posed=ILL_POSED, ref_grads=False, readings=None,
-                    stub=None, ref_own=False, eigen_rank=None) -> dict:
+                    stub=None, ref_own=False, eigen_rank=None, m=4, eigen=None,
+                    mesh=None) -> dict:
     """Every refresh and train step of the reference's eigen run on the
     pipeline's own batches of ``seq`` tokens (each shard its rows), each
     started from the reference's own state before it.  Returns the worst
@@ -589,11 +600,25 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
     r-th singular value, which 4 local steps do not resolve); the
     rotated moment P m, which moves with the subspace, is then held to
     the same probe (at least 1e-4).  ``eigen_rank`` is the run's rank
-    (default ``EIGEN``'s)."""
-    shards = None if group is not None else 4
-    ecfg = EigenCompressConfig(rank=eigen_rank or EIGEN["eigen_rank"],
-                               refresh_every=EIGEN["eigen_refresh"], min_dim=64)
-    sched = warmup_cosine(EIGEN["lr"], EIGEN["warmup"], EIGEN["steps"])
+    (default ``EIGEN``'s), ``eigen`` its run (default ``EIGEN``), ``m``
+    its data shards.  With ``mesh`` (a ``(data, model)`` ``DeviceMesh``,
+    ``rank`` this rank's data index) each state is placed on it as the
+    mesh trainer places it and the steps run on it."""
+    from repro_torch.launch import sharding as Sh
+
+    eigen = eigen or EIGEN
+    shards = None if group is not None or mesh is not None else m
+    ecfg = EigenCompressConfig(rank=eigen_rank or eigen["eigen_rank"],
+                               refresh_every=eigen["eigen_refresh"], min_dim=64)
+    sched = warmup_cosine(eigen["lr"], eigen["warmup"], eigen["steps"])
+
+    def state(prefix):
+        model, opt = _ref_state(ref, cfg, prefix, shard=rank)
+        if mesh is not None:
+            Sh.shard_model(model, cfg, mesh, eigen=True)
+            Sh.place_eigen_state(opt, mesh)
+        return model, opt
+
     pipe = TokenPipeline(cfg.vocab_size, seq, B, seed=SEED)
     leaves = reference_leaves(cfg)
     starts = _starts(ref, cfg)
@@ -606,7 +631,7 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
         layer = leaves[name].layer
         return arr if layer is None else arr[layer]
 
-    for t in range(EIGEN["steps"]):
+    for t in range(eigen["steps"]):
         batch = {k: torch.from_numpy(v).long() for k, v in pipe.batch(t).items()}
         if stub is not None:
             batch.update({k: torch.from_numpy(v) for k, v in stub(t).items()})
@@ -615,17 +640,17 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
             model, opt = _ref_state(ref, cfg, prefix)
             probes = _probes(model, batch, starts(t), opt, ecfg, [
                 split_reference(_under(ref, f"distinct/grads{t}/{i}/"), cfg)
-                for i in range(4)] if ref_grads else None)
-            model, opt = _ref_state(ref, cfg, prefix, shard=rank)
-            tsteps.make_eigen_refresh_step(model, ecfg=ecfg, shards=shards, group=group)(
-                opt, batch, starts(t))
+                for i in range(m)] if ref_grads else None, m=m)
+            model, opt = state(prefix)
+            tsteps.make_eigen_refresh_step(model, ecfg=ecfg, shards=shards, group=group,
+                                           mesh=mesh)(opt, batch, starts(t))
             prefix = f"distinct/refreshed{t}/"
             for name, st in opt["eigen"].items():
                 if name in ill_posed:
                     continue
                 path = leaves[name].path
                 want_b = pick(ref[f"{prefix}eigen/basis/{path}"], name)
-                got_b = st["basis"].numpy()
+                got_b = Sh.whole(st["basis"]).numpy()
                 probe = max(probes[name]["f32"], probes[name].get("grads", 0.0))
                 own = {}
                 if ref_own:
@@ -642,16 +667,16 @@ def _teacher_forced(ref, cfg, *, group=None, rank=None, seq=S,
                 # not depend on the basis's column frame.  It moves with the
                 # subspace (by its distance times |m|): with ``ref_own`` its
                 # bar follows the basis's.
-                hold("m_rotated", got_b @ st["m"].numpy(),
+                hold("m_rotated", got_b @ Sh.whole(st["m"]).numpy(),
                      want_b @ pick(ref[f"{prefix}eigen/m/{path}"], name),
                      max(1e-4, 4 * probe) if ref_own else 1e-4)
-        model, opt = _ref_state(ref, cfg, prefix, shard=rank)
+        model, opt = state(prefix)
         metrics = tsteps.make_eigen_train_step(
             model, adamw_cfg=AdamWConfig(), schedule=sched, shards=shards,
-            group=group)(opt, batch)
+            group=group, mesh=mesh)(opt, batch)
         want = float(ref["distinct/losses"][t])
         worst["loss"] = max(worst["loss"], abs(float(metrics["loss"]) - want) / (1e-5 * want))
-        got = opt_state_to_reference(opt, cfg)
+        got = opt_state_to_reference(_whole_state(opt), cfg)
         after = f"distinct/state{t + 1}/"
         for path, st in got["eigen"].items():
             err = ref[f"{after}eigen/err/{path}"]
