@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ranks-witness   # [sharded-ranks]' hybrid alone, 2 cards
 
 Needs one NVIDIA Hopper card, ``nvcc`` and this checkout; imports nothing
 of JAX or of the reference package.  Phases, each ending in
@@ -108,7 +109,8 @@ of JAX or of the reference package.  Phases, each ending in
    kernel and through plain attention must give
    last-position logits within ``SERVE_REL_L2`` / ``SERVE_MAX_ABS``; and
    the serve launcher once in its own process at the full config with a
-   short prompt.
+   short prompt (started with the hybrid's and whisper's launchers side by
+   side; those two are checked after their own lanes).
    Then the sharded lanes (``sharded_lanes``): [sharded] serves the same
    model, prompts and traffic through ``launch.sharding`` on a (1, 1)
    mesh (a world of one over gloo; every parameter and cache a DTensor,
@@ -125,16 +127,19 @@ of JAX or of the reference package.  Phases, each ending in
    ... on CUDA)``.  Otherwise each rank's B8 runs on (4, 12/4, 4096, 128),
    28 launches a rank, the rank-0 logits within the serving bars, and the
    collectives a rank with their bytes are printed.  [dryrun], after the
-   MoE training lanes, joins the dry run started in its own process right
-   after the sharded lanes, at the lowest priority
+   MoE training lanes, joins the dry run started in DRYRUN_PARTS processes
+   of its own right after the sharded lanes, at the lowest priority
    (``launch/dryrun.py`` on fake process groups: paper-pca at (16, 16) on
    the ring and as a 4-step stream, and at (2, 16, 16) on hier, backend
-   cuda; llama3.2-3b x {train_4k, prefill_32k, decode_32k} and
-   qwen3-moe-30b-a3b x train_4k at 256 ranks, and both train_4k cells
-   again with ``--eigen``: the eigen train step, its data-axis bytes
-   beside the baseline cell's) and prints one line a record; paper-pca's
-   collective bytes a device must equal ``comm_cost(...).bits / 8`` and
-   the stream query's be 0; the numbers
+   cuda; llama3.2-3b x {train_4k, prefill_32k, decode_32k},
+   qwen3-moe-30b-a3b x train_4k, recurrentgemma-2b and mamba2-370m x
+   {train_4k, prefill_32k, decode_32k, long_500k} and whisper-tiny x
+   {train_4k, prefill_32k, decode_32k} at 256 ranks, and the train_4k
+   cells of llama3.2-3b, qwen3-moe-30b-a3b, recurrentgemma-2b and
+   mamba2-370m again with ``--eigen``: the eigen train step, its
+   data-axis bytes beside the baseline cell's) and prints one line a
+   record; paper-pca's collective bytes a device must equal
+   ``comm_cost(...).bits / 8`` and the stream query's be 0; the numbers
    are reckoned on fake tensors, not card times.
    Then the recurrent serving lane (``recurrent_lanes``): recurrentgemma-2b
    (26 blocks: 18 RG-LRU, 8 local attention with window 2048, head_dim
@@ -145,8 +150,25 @@ of JAX or of the reference package.  Phases, each ending in
    tokens plus one decode step (the ring, the RG-LRU / SSD states and
    the conv tails carried on the card; mamba2's chunk padded), against
    the 4096-token prefill's last-position logits within the serving
-   bars; B8's device time in one profiled hybrid prefill; the serve
-   launcher once with ``--arch recurrentgemma-2b --full-config``.
+   bars; B8's device time in one profiled hybrid prefill.  After each
+   arch's lane, [sharded-recur] serves the same model and prompts again
+   through ``launch.sharding`` on a (1, 1) mesh (``sharded_serve``: every
+   parameter and cache a DTensor, the SSD's scan through its ``local_map``
+   region): exactly 8 / 0 flash launches in the prefill and none in
+   decode, the unsharded lane's tokens, a sharded kernel prefill's last
+   logits within the serving bars of the unsharded one's, prefill_s,
+   decode ms a step and generate's peak above the memory held before it
+   beside the unsharded lane's (each peak reset just before its
+   ``generate``); then
+   [sharded-ranks] runs the hybrid on a (1, SHARD_RANKS) mesh over NCCL
+   (5 query heads a rank over its one KV head through B8's head_dim-256
+   form, the RG-LRU's gate products reduced over 'model'), held as the
+   llama lane, and below two cards prints its skip at once
+   (``--ranks-witness`` runs that lane alone, built in bf16 and in f32,
+   each against rank 0's own unsharded prefill of the same weights: a gap
+   of bf16 rounding shrinks by orders in f32, a fault does not).  Then the
+   serve launcher's run with ``--arch recurrentgemma-2b --full-config`` is
+   checked.
    Then the MoE serving lane (``moe_lane``): qwen3-moe-30b-a3b at its
    full config (48 blocks, head_dim 64 through B8's wgmma form, 128
    experts top-8; 30,079,649,792 parameters, 60.16 GB in bf16) with the
@@ -172,10 +194,14 @@ of JAX or of the reference package.  Phases, each ending in
    encoder (B8 ``causal=False`` at (32, 6/6, 1500, 1500, 64)) and 4 causal
    in the decoder's prefill, none in decode; for each, kernel vs plain
    prefill and a (prompt - 1) prefill plus one decode step against the
-   whole prefill within the serving bars; the serve launcher once with
-   ``--arch whisper-tiny --full-config`` (frames = prompt length, the
-   reference's semantics).  Phase 2's B8 checks include internvl2-2b's
-   prefill shape and the bidirectional form (``FLASH_BIDIR_CHECKS``).
+   whole prefill within the serving bars; [sharded-encdec] serves
+   whisper-tiny's model, frames and prompts again on a (1, 1) mesh as
+   [sharded-recur] does (4 + 4 / 0 launches, the unsharded tokens, the
+   logits within the bars, every cache tensor a DTensor); the
+   serve launcher's run with ``--arch whisper-tiny --full-config`` (frames
+   = prompt length, the reference's semantics) is checked.  Phase 2's B8
+   checks include internvl2-2b's prefill shape and the bidirectional form
+   (``FLASH_BIDIR_CHECKS``).
    Then the training lanes (``train_lanes``; constants T1_* .. T4_*):
    T1 trains ``llama3.2-3b`` at its full config (3.61 B parameters, f32
    master weights, bf16 compute, remat per block) with AdamW on 8 x 512
@@ -193,7 +219,8 @@ of JAX or of the reference package.  Phases, each ending in
    after the last step, the bytes handed to ``torch.distributed`` a
    step); T4 runs the train launcher
    in its own process, preempted at step 5 and resumed from its
-   checkpoint, against the straight run, both deterministic.  The sharded
+   checkpoint, against the straight run, both deterministic (the two
+   processes side by side).  The sharded
    training lanes ([sharded-train]): T1s runs T1 through
    ``launch.train.train(mesh=)`` on a (1, 1) mesh (every parameter and
    both AdamW moments a DTensor) for 4 steps, its losses held to T1's
@@ -220,15 +247,22 @@ of JAX or of the reference package.  Phases, each ending in
    (leading dims 256000, 7680, 2560, 50432, 2048, 1024); R2 runs the
    eigen trainer as T2 does on mamba2 whole and on the hybrid at 11 of
    its blocks (one B2 and one B4 a compressed leaf a refresh, exactly;
-   the words a step; the error feedback's bytes).
+   the words a step; the error feedback's bytes).  After each R1, R1s
+   ([sharded-train], ``mesh_adamw_lane``) runs the same AdamW lane through
+   ``launch.train.train(mesh=)`` on a (1, 1) mesh for 4 steps, its losses
+   held to R1's first 4 as T1s holds T1's, its ms a step and peak beside
+   R1's.
    Then the VLM and encoder-decoder training lanes
    (``vlm_whisper_train_lanes``, ``[train-vlm]`` / ``[train-whisper]``;
    constants V1_*): V1, T1's AdamW at internvl2-2b's full config on text
    batches (the launcher's path: ``patch_proj`` only decayed) plus one
    step with 256 patch embeddings a row, and at whisper-tiny's on 8 x
    (1500 frames + 448 tokens); V1c, both reduced configs with their stub
-   inputs, card vs CPU; V2, T2's eigen trainer stacked on internvl2-2b
-   uncut (``launch.train.train``) and on whisper-tiny with frames
+   inputs, card vs CPU; V1s, whisper-tiny's V1 on a (1, 1) mesh through
+   ``launch.steps.make_train_step(mesh=)`` on the same batches with
+   frames, held to V1's first 4 losses as R1s; V2, T2's eigen trainer
+   stacked on internvl2-2b uncut (``launch.train.train``) and on
+   whisper-tiny with frames
    (``launch.steps``' step functions: the launcher refuses an encoder-decoder),
    one B2 and one B4 a compressed leaf a refresh, exactly.
    Then the MoE training lanes (``moe_train_lanes``, ``[train-moe]``;
@@ -270,8 +304,9 @@ of JAX or of the reference package.  Phases, each ending in
    platform "h100").
 5. Print ``{"kernels": [...]}`` (``launches``: every lane of phase 3, the
    cross-rank lanes summed over ranks, B8's the serve calls: llama3.2-3b's,
-   the sharded lanes' (summed over ranks), the recurrent lane's, the MoE
-   lane's and the VLM and whisper lanes'),
+   the sharded lanes' (summed over ranks), the recurrent lane's and its
+   (1, 1)-mesh serve's, the MoE lane's and the VLM and whisper lanes'
+   and whisper's (1, 1)-mesh serve's),
    then, last,
    ``{"ok": true, "device": ...}``.
 
@@ -298,6 +333,7 @@ TF32 is off throughout: the reference computes in float32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -989,8 +1025,172 @@ def within_bars(torch, got, want) -> bool:
     return bool(torch.isfinite(got).all()) and rel_l2 <= SERVE_REL_L2 and max_abs <= SERVE_MAX_ABS
 
 
+def side_by_side(cmds: dict, env: dict, timeout: int = 600):
+    """Start every command of ``cmds`` ({key: argv}) at once, with ``env``;
+    returns ``result(key)``: that command's ``CompletedProcess`` and the
+    seconds from the start until it was seen done.  The first call waits
+    for all of them (reading every pipe, so none blocks on a full one).
+    Any still running when this script exits (a failed check) is stopped
+    then; torchrun stops its ranks on SIGTERM.  The launchers checked this
+    way are mostly start-up, which overlaps."""
+    import atexit
+
+    t0 = time.monotonic()
+    procs = {k: subprocess.Popen(v, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env) for k, v in cmds.items()}
+    atexit.register(lambda: [p.terminate() for p in procs.values() if p.poll() is None])
+    done = {}
+
+    def result(key):
+        if not done:
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=timeout)
+                done[k] = (subprocess.CompletedProcess(p.args, p.returncode, out, err),
+                           time.monotonic() - t0)
+        return done[key]
+
+    return result
+
+
+def serve_cmd(arch: str, batch: int = 2, prompt_len: int = 256) -> list:
+    """``launch.serve`` at ``arch``'s full config on the card, 8 tokens."""
+    return [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--full-config",
+            "--batch", str(batch), "--prompt-len", str(prompt_len), "--gen", "8",
+            "--device", "cuda"]
+
+
+def peak_above_held(torch, fn):
+    """``fn()``, its peak device memory above what was held when it began
+    (GB; the peak statistics reset just before it, so no earlier phase's
+    peak counts) and that held memory (GB)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - held) / 1e9, held / 1e9
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A (1, 1) ``(data, model)`` mesh on the card over a gloo world of one
+    rank (no DTensor collective runs on it), torn down on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_serve(torch, launches: dict, tag: str, model, prompts, unsharded: dict, *,
+                  blocks: int, stub=None, held=None) -> None:
+    """[sharded-recur] / [sharded-encdec]: ``model``, the unsharded lane's
+    (its caches freed), placed by ``launch.sharding.shard_model`` on a
+    (1, 1) mesh (every parameter and cache a DTensor) and served again
+    through ``launch.serve.generate`` with the same ``prompts``, stub
+    inputs and traffic: exactly ``blocks`` flash launches in the prefill
+    and none in decode (nothing else launched), the unsharded lane's
+    tokens (``unsharded``: its tokens, kernel-prefill logits, prefill_s,
+    warm kernel prefill s, decode ms a step, and generate's peak GB above
+    the GB held when it began), and a sharded
+    kernel prefill's last-position logits within SERVE_REL_L2 /
+    SERVE_MAX_ABS of the unsharded one's; prefill_s, that warm prefill's
+    time, decode ms a step and the peaks (placing the model, serving)
+    printed beside the unsharded lane's.  The model is left sharded.  With ``held`` (a
+    dict) the checks go into it, for the caller to require."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import kernels
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.serve import generate
+
+    t0 = time.perf_counter()
+    stub = stub or {}
+    cfg = model.cfg
+    with world_of_one() as mesh:
+        torch.cuda.empty_cache()
+        _, place_peak, place_held = peak_above_held(torch, lambda: S.shard_model(model, cfg, mesh))
+        params_dt = all(isinstance(p, DTensor) for p in model.parameters())
+        kernels.reset_launch_counts()
+        (toks, st), peak, gen_held = peak_above_held(
+            torch, lambda: generate(model, prompts, gen=SERVE_GEN, mesh=mesh, **stub))
+        counts = kernels.launch_counts()
+        launches["flash_attention"] += counts["flash_attention"]
+        with S.sharded(mesh):
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+            placed = S.shard_batch({"tokens": prompts, **stub}, mesh)
+            lead = (placed.pop("frames"),) if "frames" in placed else ()
+            logits, cache = model.prefill(*lead, placed.pop("tokens"), **placed)
+            got = logits.full_tensor()[:, :cfg.vocab_size]
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t_warm
+            flash = ""
+            if blocks:  # B8's device time a launch in one more warm prefill
+                prof, wall_us = profiled(torch, lambda: model.prefill(
+                    *lead, S.shard_batch({"t": prompts}, mesh)["t"], **placed))
+                events = [e for e in prof.key_averages()
+                          if str(e.device_type).endswith("CUDA")]
+                busy = sum(e.self_device_time_total for e in events)
+                fa = [e for e in events if "flash_fwd" in e.key]
+                fa_us, n_fa = sum(e.self_device_time_total for e in fa), sum(e.count for e in fa)
+                flash = (f"; one warm prefill under the profiler: wall {wall_us / 1e3:.1f} ms, "
+                         f"device {busy / 1e3:.1f} ms, B8 {fa_us / 1e3:.2f} ms over {n_fa} "
+                         f"launches ({fa_us / 1e3 / max(n_fa, 1):.3f} ms a launch, "
+                         f"{100 * fa_us / max(busy, 1):.1f} % of the device time)")
+        leaves = []
+
+        def walk(c):
+            if isinstance(c, dict):
+                for v in c.values():
+                    walk(v)
+            elif isinstance(c, list):
+                for v in c:
+                    walk(v)
+            else:
+                leaves.append(c)
+
+        walk(cache)
+        cache_dt = all(isinstance(t, DTensor) for t in leaves)
+        del logits, cache, leaves
+    rel_l2, max_abs, agree = serving_gap(torch, got, unsharded["logits"])
+    same = bool((toks == unsharded["toks"].cpu()).all())
+    dec_ms = st["decode_s"] / SERVE_GEN * 1e3
+    print(f"[{tag}] {cfg.name} full config on a (1, 1) mesh (every parameter a DTensor "
+          f"{params_dt}, every cache tensor {cache_dt}): prefill_s {st['prefill_s']:.4f} "
+          f"(unsharded {unsharded['prefill_s']:.4f}; the first sharded call fills DTensor's "
+          f"sharding caches), warm prefill {t_warm:.4f} s (unsharded {unsharded['warm_s']:.4f}, "
+          f"{t_warm / unsharded['warm_s']:.2f}x), decode {dec_ms:.2f} ms/step (unsharded "
+          f"{unsharded['decode_ms']:.2f}, {dec_ms / unsharded['decode_ms']:.2f}x), peak in "
+          f"generate {peak:.2f} GB above the {gen_held:.2f} GB held (unsharded "
+          f"{unsharded['peak_gb']:.2f} above {unsharded['held_gb']:.2f}), peak placing the "
+          f"model {place_peak:.2f} GB above the {place_held:.2f} GB held; flash launches "
+          f"{st['flash_launches']}; tokens equal the unsharded lane's {same}; last logits vs "
+          f"the unsharded kernel prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e} of the "
+          f"largest (bars {SERVE_REL_L2}, {SERVE_MAX_ABS}), argmax agree "
+          f"{agree}/{got.shape[0]}{flash}; lane {time.perf_counter() - t0:.1f} s")
+    checks = {
+        f"{tag} {cfg.name} DTensors": params_dt and cache_dt,
+        f"{tag} {cfg.name} flash launches {st['flash_launches']}, {counts}":
+            st["flash_launches"] == {"prefill": blocks, "decode": 0}
+            and counts == expected_counts({"flash_attention": blocks}),
+        f"{tag} {cfg.name} tokens equal the unsharded lane's": same,
+        f"{tag} {cfg.name} logits within the serving bars":
+            within_bars(torch, got, unsharded["logits"])}
+    if held is not None:
+        held.update(checks)
+        return
+    for name, ok in checks.items():
+        require(ok, f"{name}: failed")
+
+
 # -- the recurrent serving lane (phase 3) -------------------------------------
-def recurrent_lanes(torch, dev, launches: dict) -> dict:
+def recurrent_lanes(torch, dev, launches: dict, serve_cli) -> dict:
     """recurrentgemma-2b (RG-LRU + local attention, B8 windowed at head_dim
     256) and mamba2-370m (SSD) served at their full configs through
     ``launch.serve``'s ``load`` and ``generate``: exactly one flash launch
@@ -999,9 +1199,10 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
     and prefilled over the first SERVE_PROMPT - 1 tokens then decoded one
     step (the ring, the recurrent states and the conv tails carried on the
     card), each against the whole prefill's last-position logits within
-    SERVE_REL_L2 / SERVE_MAX_ABS; then the serve launcher once in its own
-    process.  Returns B8's device time in one warm hybrid prefill (the
-    profiler's sum over the flash kernel) and that prefill's device time."""
+    SERVE_REL_L2 / SERVE_MAX_ABS; then the hybrid's serve launcher run
+    (``serve_cli``: ``side_by_side``'s result) is checked.  Returns B8's
+    device time in one warm hybrid prefill (the profiler's sum over the
+    flash kernel) and that prefill's device time."""
     import dataclasses
 
     from repro_torch import kernels
@@ -1025,16 +1226,14 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
     b8 = {}
     for arch, attn_blocks, cont_dtype in RECURRENT_ARCHS:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         model, prompts, _ = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                               reduced=False, device="cuda", seed=SEED)
-        toks, st = generate(model, prompts, gen=SERVE_GEN)
-        torch.cuda.synchronize()
+        (toks, st), peak_gb, held_gb = peak_above_held(
+            torch, lambda: generate(model, prompts, gen=SERVE_GEN))
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cfg = model.cfg
         launches["flash_attention"] += counts["flash_attention"]
         kinds = [blk.kind for blk in model.blocks]
@@ -1046,9 +1245,10 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
               f"{st['prefill_s']:.4f}, decode_s {st['decode_s']:.4f} "
               f"({st['decode_s'] / SERVE_GEN * 1e3:.2f} ms/step), prefill "
               f"{SERVE_BATCH * SERVE_PROMPT / st['prefill_s']:.0f} tok/s, decode "
-              f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory "
-              f"{peak_gb:.2f} GB, wall with weight init {wall:.2f} s, attention blocks "
-              f"{st['attention_blocks']}, flash launches {st['flash_launches']}")
+              f"{SERVE_BATCH * SERVE_GEN / st['decode_s']:.1f} tok/s, peak memory in "
+              f"generate {peak_gb:.2f} GB above the {held_gb:.2f} GB held, wall with weight "
+              f"init {wall:.2f} s, attention blocks {st['attention_blocks']}, flash launches "
+              f"{st['flash_launches']}")
         require(st["attention_blocks"] == attn_blocks
                 and st["flash_launches"] == {"prefill": attn_blocks, "decode": 0},
                 f"{arch}: flash launches {st['flash_launches']}, expected {attn_blocks} "
@@ -1121,23 +1321,27 @@ def recurrent_lanes(torch, dev, launches: dict) -> dict:
                   f"({', '.join(sorted({e.key[:40] for e in fa})) or 'not seen'}) "
                   f"{fa_us / 1e3:.2f} ms over {b8['flash_calls']} launches, "
                   f"{100 * b8['flash_share']:.1f} % of the device time")
-        del model, prompts, lk, lc
+        # [sharded-recur]: the same model and prompts on a (1, 1) mesh; then
+        # the hybrid on SHARD_RANKS ranks ([sharded-ranks]).
+        unsharded = {"toks": toks, "logits": lk, "prefill_s": st["prefill_s"],
+                     "warm_s": t_kernel, "decode_ms": st["decode_s"] / SERVE_GEN * 1e3,
+                     "peak_gb": peak_gb, "held_gb": held_gb}
+        sharded_serve(torch, launches, "sharded-recur", model, prompts, unsharded,
+                      blocks=attn_blocks)
+        del model, prompts, lc
+        torch.cuda.empty_cache()
+        if attn_blocks:
+            sharded_ranks(torch, dev, launches, unsharded, arch=arch)
+        del lk, unsharded
         torch.cuda.empty_cache()
 
     arch, attn_blocks, _ = RECURRENT_ARCHS[0]
-    t0 = time.monotonic()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         "--full-config", "--batch", "2", "--prompt-len", "256", "--gen", "8",
-         "--device", "cuda"],
-        capture_output=True, text=True, timeout=600,
-        env={**os.environ, "PYTHONPATH": SRC},
-    )
+    cli, took = serve_cli(arch)  # run beside the first serve launcher's
     require(cli.returncode == 0, f"serve launcher ({arch}) failed:\n{cli.stderr[-4000:]}")
     lines = cli.stdout.strip().splitlines()
     stats = dict(line.split(": ", 1) for line in lines[2:])
     print(f"[cli] repro_torch.launch.serve --arch {arch} --full-config --batch 2 "
-          f"--prompt-len 256 --gen 8 ({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          f"--prompt-len 256 --gen 8 ({took:.1f} s, side by side): {lines[0]}; "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
                        "attention_blocks", "flash_launches_prefill",
@@ -1431,7 +1635,7 @@ def profile_whisper(torch, dev) -> None:
     profile_serving(torch, dev, WHISPER_ARCH, model=model, prompts=tokens, stub=stub)
 
 
-def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
+def vlm_whisper_lanes(torch, dev, launches: dict, serve_cli) -> dict:
     """internvl2-2b and whisper-tiny served at their full configs (see the
     constants above), on ``[vlm]`` and ``[whisper]`` lines: exact B8
     launches (24 in the VLM's prefill; 4 bidirectional in whisper's
@@ -1439,7 +1643,8 @@ def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
     prefill against the plain prefill and a (prompt - 1) prefill plus one
     decode step against the whole prefill, within SERVE_REL_L2 /
     SERVE_MAX_ABS; prefill_s, ms a decode step and the peak memory; then
-    the serve launcher once with ``--arch whisper-tiny --full-config``.
+    the run of the serve launcher with ``--arch whisper-tiny --full-config``
+    (``serve_cli``: ``side_by_side``'s result) is checked.
     Every check is printed before any is required.  Returns B8's served
     numbers for phase 4."""
     from repro_torch import kernels
@@ -1519,11 +1724,13 @@ def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
     torch.cuda.empty_cache()
 
     # whisper-tiny at its realistic shape through EncDec.prefill / decode_step.
-    torch.cuda.reset_peak_memory_stats()
     model, tokens, stub = whisper_inputs(torch, dev)
     cfg, frames = model.cfg, stub.pop("frames")
     enc_layers, dec_layers = cfg.num_encoder_layers, cfg.num_layers
     n_params = sum(q.numel() for q in model.parameters())
+    torch.cuda.synchronize()
+    w_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()  # the serving's own peak, as [sharded-encdec]'s
     kernels.reset_launch_counts()
     with torch.no_grad():
         model.encode(frames)
@@ -1547,6 +1754,7 @@ def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
     dec_launches = flash() - pre_launches
     launches["flash_attention"] += enc_launches + flash()
     wtoks = torch.stack(out, dim=1)
+    w_peak = (torch.cuda.max_memory_allocated() - w_held) / 1e9
     print(f"[whisper] {WHISPER_ARCH} full config (encoder {enc_layers} + decoder {dec_layers} "
           f"layers, d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
           f"{cfg.head_dim}, vocab {cfg.vocab_size}, {n_params} parameters with the padded "
@@ -1554,7 +1762,7 @@ def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
           f"gen {SERVE_GEN}: prefill_s {t_prefill:.4f}, decode_s {t_decode:.4f} "
           f"({t_decode / SERVE_GEN * 1e3:.2f} ms/step), decode "
           f"{WHISPER_BATCH * SERVE_GEN / t_decode:.1f} tok/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; flash launches: encoder alone "
+          f"{w_peak:.2f} GB above the {w_held / 1e9:.2f} GB held; flash launches: encoder alone "
           f"{enc_launches} (bidirectional), prefill {pre_launches} ({enc_launches} encoder + "
           f"{pre_launches - enc_launches} decoder causal), decode {dec_launches}")
     held["whisper launches"] = (enc_launches == enc_layers
@@ -1584,23 +1792,26 @@ def vlm_whisper_lanes(torch, dev, launches: dict) -> dict:
          f"{WHISPER_PROMPT}", lc, lk)
     served["whisper"] = {"prefill_s": t_prefill, "decode_ms": t_decode / SERVE_GEN * 1e3,
                          "launches": {"encoder": enc_launches, "decoder": dec_launches}}
-    del model, frames, tokens, logits, cache, lk, lp, lc
+    del logits, cache, lp, lc
+    # [sharded-encdec]: the same model, frames and prompts on a (1, 1) mesh.
+    sharded_serve(torch, launches, "sharded-encdec", model, tokens,
+                  {"toks": wtoks, "logits": lk, "prefill_s": t_prefill, "warm_s": t_kernel,
+                   "decode_ms": t_decode / SERVE_GEN * 1e3, "peak_gb": w_peak,
+                   "held_gb": w_held / 1e9},
+                  blocks=enc_layers + dec_layers, stub={"frames": frames}, held=held)
+    del model, frames, tokens, lk
     torch.cuda.empty_cache()
 
-    # The serve launcher at whisper's reference semantics (frames = prompt).
-    t0 = time.monotonic()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", WHISPER_ARCH,
-         "--full-config", "--batch", str(SERVE_BATCH), "--prompt-len",
-         str(WHISPER_CLI_PROMPT), "--gen", "8", "--device", "cuda"],
-        capture_output=True, text=True, timeout=600, env={**os.environ, "PYTHONPATH": SRC})
+    # The serve launcher at whisper's reference semantics (frames = prompt),
+    # run beside the first serve launcher's.
+    cli, took = serve_cli(WHISPER_ARCH)
     require(cli.returncode == 0, f"serve launcher ({WHISPER_ARCH}) failed:\n{cli.stderr[-4000:]}")
     lines = cli.stdout.strip().splitlines()
     stats = dict(line.split(": ", 1) for line in lines[2:])
     blocks = enc_layers + dec_layers
     print(f"[cli] repro_torch.launch.serve --arch {WHISPER_ARCH} --full-config --batch "
           f"{SERVE_BATCH} --prompt-len {WHISPER_CLI_PROMPT} --gen 8 "
-          f"({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          f"({took:.1f} s, side by side): {lines[0]}; "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
                        "attention_blocks", "flash_launches_prefill", "flash_launches_decode")))
@@ -2245,6 +2456,71 @@ def t1s_lane(torch, dev, t1: dict) -> None:
     free_card(torch)
 
 
+def mesh_adamw_lane(torch, dev, cfg, ref: dict, label: str, *, seq: int = T1_SEQ,
+                    lr: float = T1_LR, stub=None) -> None:
+    """R1s / V1s ([sharded-train]): ``cfg``'s AdamW lane on a (1, 1) mesh
+    (every parameter and both moments a DTensor), T1S_STEPS steps of the
+    unsharded lane's traffic (``adamw_lane``'s batches, seeds and schedule
+    at peak ``lr``), its losses held to the first T1S_STEPS of that lane's
+    (``ref``) as T1s holds T1's: bit for bit printed, T1S_LOSS required.
+    An LM trains through ``launch.train.train(mesh=)``; with ``stub`` (an
+    encoder-decoder's frames, which the launcher's pipeline lacks) through
+    ``launch.steps.make_train_step(mesh=)`` on the pipeline's batches
+    plus ``stub(step)``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.schedule import warmup_cosine
+
+    held = free_card(torch)
+    t0 = time.perf_counter()
+    ms = []
+    make = timed_train_steps(torch, train_mod, ms)
+    try:
+        with world_of_one() as mesh:
+            if stub is None:
+                model, opt, losses = train_mod.train(
+                    cfg, steps=T1S_STEPS, batch=T1_BATCH, seq=seq, lr=lr, warmup=T1_WARMUP,
+                    device=dev, mesh=mesh, seed=SEED, log_every=10 ** 9)
+            else:
+                model = S.shard_model(build(cfg, device=dev, param_dtype=torch.float32,
+                                            generator=torch.Generator(device=dev).manual_seed(
+                                                SEED)), cfg, mesh)
+                opt = adamw_init(dict(model.named_parameters()))
+                step_fn = train_mod.make_train_step(
+                    model, adamw_cfg=AdamWConfig(), mesh=mesh,
+                    schedule=warmup_cosine(lr, T1_WARMUP, T1S_STEPS))
+                pipe = TokenPipeline(cfg.vocab_size, seq, T1_BATCH, seed=SEED)
+                losses = [float(step_fn(opt, {**device_batch(torch, pipe, s, dev), **stub(s)})
+                                ["loss"]) for s in range(T1S_STEPS)]
+            torch.cuda.synchronize()
+            dtensors = all(isinstance(t, DTensor) for t in [
+                *model.parameters(), *opt["m"].values(), *opt["v"].values()])
+            del model, opt
+    finally:
+        train_mod.make_train_step = make
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    want = ref["losses"][:T1S_STEPS]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    print(f"[sharded-train] {label} {cfg.name} full config on a (1, 1) mesh (every parameter "
+          f"and both AdamW moments a DTensor: {dtensors}), {T1_BATCH} x {seq} tokens"
+          f"{' + frames' if stub else ''}, {T1S_STEPS} steps: wall {wall:.2f} s, step 0 "
+          f"{ms[0]:.1f} ms, ms/step after step 0 {step_ms:.2f} (each "
+          f"{[round(x, 1) for x in ms[1:]]}) against the unsharded lane's {ref['ms']:.2f} "
+          f"({step_ms / ref['ms']:.3f}x), peak memory {peak:.2f} GB (unsharded "
+          f"{ref['peak_gb']:.2f}); losses {losses} against the unsharded lane's {want}: bit "
+          f"for bit {losses == want}, worst relative gap {max(gaps):.2e} (bar {T1S_LOSS})")
+    require(dtensors, f"{label} {cfg.name}: a parameter or moment is not a DTensor")
+    require(max(gaps) <= T1S_LOSS, f"{label} {cfg.name}: losses {losses} vs {want}")
+    free_card(torch)
+
+
 def print_adamw(label, cfg, r, depth=None) -> None:
     at = f"at {depth}, full width" if depth else "full config"
     print(f"[{label} {cfg.name} {at} (layers {cfg.num_layers}, d_model "
@@ -2507,14 +2783,15 @@ def train_lanes(torch, dev, launches: dict) -> None:
     # T4: the launcher, preempted and resumed, against the straight run.
     finals = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, extra in (("straight", []), ("preempted", ["--fail-at", str(T4_FAIL)])):
-            t0 = time.monotonic()
-            cli = subprocess.run(
-                [sys.executable, "-c", T4_DETERMINISTIC, "--arch", T4_ARCH,
-                 "--device", dev.type, "--steps", str(T4_STEPS), "--eigen", "--checkpoint-dir",
-                 os.path.join(tmp, label), "--checkpoint-every", "2", *extra],
-                capture_output=True, text=True, timeout=600,
-                env={**os.environ, "PYTHONPATH": SRC, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        runs = {"straight": [], "preempted": ["--fail-at", str(T4_FAIL)]}
+        t4 = side_by_side(
+            {label: [sys.executable, "-c", T4_DETERMINISTIC, "--arch", T4_ARCH, "--device",
+                     dev.type, "--steps", str(T4_STEPS), "--eigen", "--checkpoint-dir",
+                     os.path.join(tmp, label), "--checkpoint-every", "2", *extra]
+             for label, extra in runs.items()},
+            {**os.environ, "PYTHONPATH": SRC, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        for label, extra in runs.items():
+            cli, took = t4(label)
             require(cli.returncode == 0, f"train launcher ({label}) failed:\n"
                                          f"{cli.stderr[-4000:]}")
             stats = dict(line.split(": ", 1) for line in cli.stdout.splitlines()
@@ -2522,7 +2799,7 @@ def train_lanes(torch, dev, launches: dict) -> None:
             finals[label] = float(stats["final_loss_exact"])
             print(f"[cli] repro_torch.launch.train --arch {T4_ARCH} --steps {T4_STEPS} "
                   f"--eigen --checkpoint-every 2 {' '.join(extra)}, deterministic "
-                  f"({time.monotonic() - t0:.1f} s): device={stats['device']}, "
+                  f"({took:.1f} s, the two side by side): device={stats['device']}, "
                   f"losses={stats['losses']}, final_loss_exact={stats['final_loss_exact']}, "
                   f"preempted {'preempted at step' in cli.stderr}")
             require(stats["device"] == torch.cuda.get_device_name(0), "T4: not on the card")
@@ -2543,7 +2820,8 @@ def recurrent_train_lanes(torch, dev, launches: dict) -> None:
 
     from repro_torch.configs import get_config, get_reduced_config
 
-    # R1: AdamW at each family's full config, uncut.
+    # R1: AdamW at each family's full config, uncut; R1s the same on a
+    # (1, 1) mesh through train(mesh=).
     for arch in RECUR_TRAIN:
         cfg = get_config(arch)
         r = adamw_lane(torch, dev, cfg, T1_BATCH)
@@ -2552,6 +2830,7 @@ def recurrent_train_lanes(torch, dev, launches: dict) -> None:
         require(not any(r["counts"].values()),
                 f"R1 {arch}: kernels launched in training: {r['counts']}")
         free_card(torch)
+        mesh_adamw_lane(torch, dev, cfg, r, "R1s")
 
     # R1c: each family's reduced config in f32, card vs CPU.
     for arch in RECUR_TRAIN:
@@ -2653,6 +2932,9 @@ def vlm_whisper_train_lanes(torch, dev, launches: dict) -> None:
     require_adamw("V1 whisper-tiny", r)
     require(not any(r["counts"].values()), f"V1 whisper-tiny: kernels launched: {r['counts']}")
     free_card(torch)
+    # V1s: whisper's V1 on a (1, 1) mesh, through make_train_step(mesh=).
+    mesh_adamw_lane(torch, dev, wcfg, r, "V1s", seq=V1_WHISPER_SEQ, lr=V1_WHISPER_LR,
+                    stub=frames)
 
     # V1c: the reduced configs in f32 with their stub inputs, card vs CPU.
     f32 = dict(dtype="float32", attn_probs_bf16=False)
@@ -2892,33 +3174,50 @@ def profile_training(torch, dev, cfg=None) -> None:
 SHARD_RANKS = 2  # ranks of [sharded-ranks], sharing the card over gloo
 DRYRUN_RANKS = 256
 # The dry-run cells [dryrun] counts: paper-pca (multi_pod, topology,
-# stream_steps) and the LM cells (arch, shape, eigen).  Two processes, side
-# by side: the eigen cells (~2.5 min of CPU) in the second.
+# stream_steps) and the LM cells (arch, shape, eigen, part): every shape of
+# recurrentgemma-2b and mamba2-370m (long_500k too: both are
+# sub-quadratic) and whisper-tiny's three, and train_4k --eigen of the two
+# recurrent archs.  DRYRUN_PARTS processes side by side, the paper-pca
+# cells in part 0; the parts balance their CPU time (mamba2-370m's chunked
+# SSD loops over its chunks: ~85 s at prefill_32k, ~125 s at train_4k and
+# ~135 s with --eigen of the H100 machine's host; llama3.2-3b's and qwen3's
+# eigen cells ~35 s and ~100 s).
 DRYRUN_PCA = [(False, "ring", None), (True, "hier", None), (False, "ring", 4)]
-DRYRUN_LM = [("llama3.2-3b", "train_4k", False), ("llama3.2-3b", "prefill_32k", False),
-             ("llama3.2-3b", "decode_32k", False), ("qwen3-moe-30b-a3b", "train_4k", False),
-             ("llama3.2-3b", "train_4k", True), ("qwen3-moe-30b-a3b", "train_4k", True)]
-DRYRUN_PARTS = 2
+DRYRUN_LM = [("llama3.2-3b", "train_4k", False, 0), ("llama3.2-3b", "prefill_32k", False, 0),
+             ("llama3.2-3b", "decode_32k", False, 0), ("qwen3-moe-30b-a3b", "train_4k", False, 0),
+             ("whisper-tiny", "train_4k", False, 0), ("whisper-tiny", "prefill_32k", False, 0),
+             ("whisper-tiny", "decode_32k", False, 0),
+             ("llama3.2-3b", "train_4k", True, 1), ("qwen3-moe-30b-a3b", "train_4k", True, 1),
+             ("recurrentgemma-2b", "train_4k", True, 1),
+             ("recurrentgemma-2b", "train_4k", False, 2),
+             ("recurrentgemma-2b", "prefill_32k", False, 2),
+             ("recurrentgemma-2b", "decode_32k", False, 2),
+             ("recurrentgemma-2b", "long_500k", False, 2),
+             ("mamba2-370m", "prefill_32k", False, 2),
+             ("mamba2-370m", "train_4k", False, 3), ("mamba2-370m", "decode_32k", False, 3),
+             ("mamba2-370m", "long_500k", False, 3),
+             ("mamba2-370m", "train_4k", True, 4)]
+DRYRUN_PARTS = 5
 
 
 def dryrun_worker(out: str) -> int:
-    """``--dryrun-out FILE``: count the [dryrun] cells on fake process
-    groups (no card work) and write their records: the paper-pca and
-    baseline cells when FILE ends in ``.0``, the eigen cells when in
-    ``.1``.  It runs beside the card's phases at the lowest priority, so
-    it takes host time only where they leave it."""
+    """``--dryrun-out FILE.K``: count part K of the [dryrun] cells on fake
+    process groups (no card work) and write their records: the paper-pca
+    cells in part 0, and the LM cells whose part is K.  It runs beside
+    the card's phases at the lowest priority, so it takes host time only
+    where they leave it."""
     os.nice(19)
     sys.path.insert(0, SRC)
     from repro_torch.launch.dryrun import dryrun_cell, dryrun_paper_pca
 
-    eigen_part = out.endswith(".1")
+    part = int(out.rsplit(".", 1)[1])
     recs = []
-    if not eigen_part:
+    if part == 0:
         for mp, topo, steps in DRYRUN_PCA:
             recs.append(dryrun_paper_pca(multi_pod=mp, topology=topo, stream_steps=steps,
                                          backend="cuda", verbose=False))
-    for arch, shape, eigen in DRYRUN_LM:
-        if eigen == eigen_part:
+    for arch, shape, eigen, k in DRYRUN_LM:
+        if k == part:
             recs.append(dryrun_cell(arch, shape, device_count=DRYRUN_RANKS, verbose=False,
                                     eigen=eigen))
     with open(out, "w") as f:
@@ -2977,7 +3276,7 @@ def dryrun_phase(procs: list, out: str) -> None:
                   f"{ {k: f'{v:.3e}' for k, v in r['collective_breakdown'].items()} }, roofline "
                   f"compute {r['compute_s'] * 1e3:.2f} ms / memory {r['memory_s'] * 1e3:.2f} ms"
                   f" / collective {r['collective_s'] * 1e3:.2f} ms (reckoned on fake tensors,"
-                  f" not card times)")
+                  f" not card times); counted in {r['count_s']:.1f} s of host time")
             # Sanity, not a bound: the count holds the bulk of the model's
             # products (6 N D counts the embedding lookup's parameters too),
             # and AdamW keeps two f32 moments a parameter.
@@ -3002,12 +3301,18 @@ def dryrun_phase(procs: list, out: str) -> None:
                         f"dry run: {r['arch']} eigen data-axis bytes")
 
 
-def shard_rank_worker(rank: int, init: str, out: str) -> int:
-    """``--shard-rank K``: one rank of [sharded-ranks], llama3.2-3b at full
-    width on a (1, SHARD_RANKS) mesh (NCCL with a card a rank, else gloo
-    on the shared card).  Probes each collective kind on CUDA tensors
-    first, then prefills the serving prompts through the sharded model;
-    rank 0 writes the logits."""
+def shard_rank_worker(rank: int, init: str, out: str, arch: str = SERVE_ARCH,
+                      dtype: str | None = None) -> int:
+    """``--shard-rank K [--shard-arch ARCH] [--shard-dtype DTYPE]``: one
+    rank of [sharded-ranks], ``arch`` (llama3.2-3b, or recurrentgemma-2b)
+    at full width on a (1, SHARD_RANKS) mesh (NCCL with a card a rank,
+    else gloo on the shared card).  Probes each collective kind on CUDA
+    tensors first, then prefills the serving prompts through the sharded
+    model; rank 0 writes the logits.  With ``dtype`` (``--ranks-witness``)
+    the model is built in that dtype from the same seed, and rank 0 first
+    prefills it unsharded and writes those logits too."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -3021,6 +3326,7 @@ def shard_rank_worker(rank: int, init: str, out: str) -> int:
     from repro_torch.launch import sharding as S
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import load
+    from repro_torch.models import build
 
     strict_fp32()
     # A card a rank over NCCL where there are enough cards; else the ranks
@@ -3054,8 +3360,16 @@ def shard_rank_worker(rank: int, init: str, out: str) -> int:
             except Exception as e:  # noqa: BLE001 -- reported by name
                 report["refused"][kind] = f"{type(e).__name__}: {str(e)[:200]}"
         mark(probing=None)
-        model, prompts, _ = load(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        model, prompts, _ = load(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                                  reduced=False, device=dev, seed=SEED)
+        if dtype is not None:
+            cfg = dataclasses.replace(model.cfg, dtype=dtype)
+            del model
+            model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+            if rank == 0:
+                ref, _ = model.prefill(prompts)
+                torch.save(ref[:, :cfg.vocab_size].cpu(), os.path.join(out, "ref.pt"))
+                del ref
         S.shard_model(model, model.cfg, mesh)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3070,13 +3384,13 @@ def shard_rank_worker(rank: int, init: str, out: str) -> int:
                 torch.cuda.synchronize()
                 report["prefill_s"] = time.perf_counter() - t0
             report["launches"] = kernels.launch_counts()["flash_attention"]
+            report["blocks"] = model.attention_blocks
             report["collectives"] = {k: [int(comms.counts[k]), int(v)]
                                      for k, v in comms.by_kind.items()}
             report["comm_counts"] = {str(k): int(v) for k, v in cdm.get_comm_counts().items()}
-            report["local_heads"] = [model.blocks[0].mixer.wq.to_local().shape[1]
-                                     // model.cfg.head_dim,
-                                     model.blocks[0].mixer.wk.to_local().shape[1]
-                                     // model.cfg.head_dim]
+            attn = next(b.mixer for b in model.blocks if b.kind in ("attn", "local_attn"))
+            report["local_heads"] = [attn.wq.to_local().shape[1] // model.cfg.head_dim,
+                                     attn.wk.to_local().shape[1] // model.cfg.head_dim]
             report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             if rank == 0:
                 torch.save(whole[:, :model.cfg.vocab_size].cpu(),
@@ -3153,16 +3467,28 @@ def sharded_lanes(torch, dev, launches: dict, unsharded: dict) -> None:
     sharded_ranks(torch, dev, launches, unsharded)
 
 
-def sharded_ranks(torch, dev, launches: dict, unsharded: dict) -> None:
-    """[sharded-ranks]: llama3.2-3b on SHARD_RANKS rank processes over a
+def sharded_ranks(torch, dev, launches: dict, unsharded: dict | None, arch: str = SERVE_ARCH,
+                  dtype: str | None = None) -> None:
+    """[sharded-ranks]: ``arch`` on SHARD_RANKS rank processes over a
     (1, SHARD_RANKS) mesh (``--shard-rank K``), the rank-0 prefill logits
-    held to the unsharded lane's (see ``sharded_lanes``)."""
+    held to the unsharded lane's (see ``sharded_lanes``), or with
+    ``dtype`` (``unsharded`` None) to rank 0's own unsharded prefill of
+    the model built in that dtype.  llama3.2-3b's lane probes the
+    collectives on one card too (and prints gloo's refusal);
+    recurrentgemma-2b's (5 query heads a rank over its one KV head, B8's
+    head_dim-256 form, the RG-LRU's gate reductions over 'model') skips at
+    once below SHARD_RANKS cards."""
     t0 = time.perf_counter()
+    if arch != SERVE_ARCH and torch.cuda.device_count() < SHARD_RANKS:
+        print(f"[sharded-ranks] {arch} skipped: needs {SHARD_RANKS} cards (NCCL; gloo "
+              f"refuses the collectives on CUDA, as the {SERVE_ARCH} lane prints)")
+        return
     with tempfile.TemporaryDirectory() as out:
         init = f"tcp://127.0.0.1:{free_port()}"
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--shard-rank", str(k),
-             "--init", init, "--out", out],
+             "--shard-arch", arch, "--init", init, "--out", out,
+             *(("--shard-dtype", dtype) if dtype else ())],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for k in range(SHARD_RANKS)]
         logs = []
@@ -3197,26 +3523,27 @@ def sharded_ranks(torch, dev, launches: dict, unsharded: dict) -> None:
                   f"CUDA); {errs[0]}")
             return
         got = torch.load(os.path.join(out, "logits.pt")).to(dev)
-    rel_l2, max_abs, agree = serving_gap(torch, got, unsharded["logits"])
+        want = (unsharded["logits"] if dtype is None
+                else torch.load(os.path.join(out, "ref.pt")).to(dev))
+    rel_l2, max_abs, agree = serving_gap(torch, got, want)
     n = sum(r["launches"] for r in reps)
     launches["flash_attention"] += n
     r0 = reps[0]
-    print(f"[sharded-ranks] {SERVE_ARCH} full width on a (1, {SHARD_RANKS}) mesh, "
+    against = "the unsharded kernel prefill" if dtype is None else (
+        f"rank 0's own unsharded {dtype} prefill")
+    print(f"[sharded-ranks] {arch}{f' in {dtype}' if dtype else ''} full width on a "
+          f"(1, {SHARD_RANKS}) mesh, "
           f"{SHARD_RANKS} ranks over {r0['backend']}: local heads (q, kv) "
           f"{r0['local_heads']}, prefill_s {r0['prefill_s']:.4f} / "
           f"{reps[1]['prefill_s']:.4f} (rank 0 / 1), peak {r0['peak_gb']:.2f} GB a rank, "
-          f"flash launches {[r['launches'] for r in reps]}; rank-0 last logits vs the "
-          f"unsharded kernel prefill: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e} "
+          f"flash launches {[r['launches'] for r in reps]}; rank-0 last logits vs "
+          f"{against}: rel L2 {rel_l2:.3e}, max abs {max_abs:.3e} "
           f"(bars {SERVE_REL_L2}, {SERVE_MAX_ABS}), argmax agree {agree}/{SERVE_BATCH}")
     print(f"[sharded-ranks] collectives a rank in the prefill (kind: [count, bytes of "
           f"local operands]): {r0['collectives']}; CommDebugMode {r0['comm_counts']}")
-    from repro_torch.configs import get_config
-
-    layers = get_config(SERVE_ARCH).num_layers
-    require(all(r["launches"] == layers for r in reps),
+    require(all(r["launches"] == r["blocks"] for r in reps),
             f"sharded-ranks: flash launches {[r['launches'] for r in reps]}")
-    require(within_bars(torch, got, unsharded["logits"]),
-            "sharded-ranks: rank-0 logits outside the serving bars")
+    require(within_bars(torch, got, want), "sharded-ranks: rank-0 logits outside the serving bars")
     print(f"[sharded-ranks] lane in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3229,6 +3556,11 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shard-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-arch", default=SERVE_ARCH, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-dtype", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ranks-witness", action="store_true",
+                    help="run only [sharded-ranks] for the hybrid (2 cards): in its config's "
+                         "dtype and in float32, each against rank 0's own unsharded prefill")
     ap.add_argument("--shard-train-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3250,7 +3582,8 @@ def main(argv=None) -> int:
     if args.train_rank is not None:
         return train_rank_worker(args.train_rank, args.init, args.out)
     if args.shard_rank is not None:
-        return shard_rank_worker(args.shard_rank, args.init, args.out)
+        return shard_rank_worker(args.shard_rank, args.init, args.out, args.shard_arch,
+                                 args.shard_dtype)
     if args.shard_train_rank is not None:
         return shard_train_rank_worker(args.shard_train_rank, args.init, args.out)
     if args.dryrun_out is not None:
@@ -3323,6 +3656,11 @@ def main(argv=None) -> int:
           f"| bounds from the {peak_row} data sheet: "
           f"{peak_flops / 1e12:.1f} TFLOP/s FP32, {peak_bf16 / 1e12:.0f} TFLOP/s "
           f"bf16 dense, {peak_bw / 1e12:.2f} TB/s")
+    if args.ranks_witness:  # a second witness of [sharded-ranks]' hybrid gap
+        for dtype in ("bfloat16", "float32"):
+            sharded_ranks(torch, dev, {"flash_attention": 0}, None,
+                          arch=RECURRENT_ARCHS[0][0], dtype=dtype)
+        return 0
 
     # -- set-up: the main path's data, drawn on the card -------------------
     t0 = time.perf_counter()
@@ -4008,24 +4346,33 @@ def main(argv=None) -> int:
             and float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "launcher --plan auto: table, plan or estimate wrong")
 
-    # The launcher under torchrun: WORLD ranks on this card, the fused ring,
-    # at (CLI_D, CLI_R) with N_PSUM samples per shard.  The width
-    # flags take their long spellings: some torchrun versions read "--d"
-    # and "--r" as prefixes of their own options.
-    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
-               "--device", "cuda", "--topology", "ring", "--polar",
-               "newton-schulz", "--orth", "cholesky-qr2", "--dim", str(CLI_D),
-               "--subspace-rank", str(CLI_R), "--n-per-shard", str(N_PSUM)]
-    t0 = time.monotonic()
-    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "PYTHONPATH": SRC})
+    # The launcher under torchrun, four times, WORLD ranks on this card
+    # each: the fused ring, the hier topology, the elastic runtime and the
+    # streaming lane, at (CLI_D, CLI_R) with N_PSUM samples per shard.  The
+    # four run side by side (each is mostly start-up: its wall_s is ~12 s
+    # of ~45) and are checked in turn.  The width flags take their long
+    # spellings: some torchrun versions read "--d" and "--r" as prefixes of
+    # their own options.
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
+                "--device", "cuda"]
+    width = ["--dim", str(CLI_D), "--subspace-rank", str(CLI_R), "--n-per-shard", str(N_PSUM)]
+    launchers = {
+        "ring": ["--topology", "ring", "--polar", "newton-schulz", "--orth", "cholesky-qr2"],
+        "hier": ["--topology", "hier", "--pods", str(PODS), "--polar", "newton-schulz"],
+        "fail-at": ["--plan", "auto", "--fail-at", f"{ELASTIC_DEAD}:{ELASTIC_ROUND}"],
+        "stream": ["--plan", "auto", "--stream", str(RANK_STREAM_STEPS), "--cadence",
+                   str(RANK_STREAM_CADENCE), "--fail-at", f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT}"]}
+    launcher = side_by_side({k: torchrun + v + width for k, v in launchers.items()},
+                            {**os.environ, "PYTHONPATH": SRC})
+    cli, took = launcher("ring")
     require(cli.returncode == 0, f"torchrun launcher failed:\n{cli.stderr[-4000:]}")
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen "
           f"--topology ring --polar newton-schulz --orth cholesky-qr2 --dim {CLI_D} "
-          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({took:.1f} s, the four side "
+          f"by side): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "d", "r", "backend", "topology", "transport",
                        "staged_bytes", "dist_aligned", "dist_central",
@@ -4037,21 +4384,14 @@ def main(argv=None) -> int:
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun launcher: estimate not within the bar or no better than naive")
 
-    # Once more under torchrun: the hier topology, PODS pods.
-    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
-               "--device", "cuda", "--topology", "hier", "--pods", str(PODS),
-               "--polar", "newton-schulz", "--dim", str(CLI_D), "--subspace-rank",
-               str(CLI_R), "--n-per-shard", str(N_PSUM)]
-    t0 = time.monotonic()
-    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "PYTHONPATH": SRC})
+    # The hier topology, PODS pods.
+    cli, took = launcher("hier")
     require(cli.returncode == 0, f"torchrun hier launcher failed:\n{cli.stderr[-4000:]}")
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen "
           f"--topology hier --pods {PODS} --polar newton-schulz --dim {CLI_D} "
-          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--subspace-rank {CLI_R} --n-per-shard {N_PSUM} ({took:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "pods", "d", "r", "backend", "topology", "transport",
                        "staged_bytes", "dist_aligned", "dist_central",
@@ -4063,22 +4403,15 @@ def main(argv=None) -> int:
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun hier launcher: estimate not within the bar or no better than naive")
 
-    # Once more under torchrun: the elastic runtime, shard ELASTIC_DEAD
-    # killed before round ELASTIC_ROUND, the planner choosing the cell.
-    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
-               "--device", "cuda", "--plan", "auto", "--fail-at",
-               f"{ELASTIC_DEAD}:{ELASTIC_ROUND}", "--dim", str(CLI_D), "--subspace-rank",
-               str(CLI_R), "--n-per-shard", str(N_PSUM)]
-    t0 = time.monotonic()
-    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "PYTHONPATH": SRC})
+    # The elastic runtime, shard ELASTIC_DEAD killed before round
+    # ELASTIC_ROUND, the planner choosing the cell.
+    cli, took = launcher("fail-at")
     require(cli.returncode == 0, f"torchrun --fail-at launcher failed:\n{cli.stderr[-4000:]}")
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen --plan auto "
           f"--fail-at {ELASTIC_DEAD}:{ELASTIC_ROUND} --dim {CLI_D} --subspace-rank {CLI_R} "
-          f"--n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--n-per-shard {N_PSUM} ({took:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "backend", "topology", "polar", "orth", "plan_source",
                        "replans", "final_m_active", "events", "dist_aligned",
@@ -4090,25 +4423,16 @@ def main(argv=None) -> int:
     require(float(stats["dist_aligned"]) < min(DIST_BAR, float(stats["dist_naive"])),
             "torchrun --fail-at launcher: estimate not within the bar or no better than naive")
 
-    # Once more under torchrun: the streaming lane of the launcher, each
-    # rank streaming its shard, shard STREAM_DEAD dying at step
-    # RANK_STREAM_DEAD_AT.
-    run_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.eigen",
-               "--device", "cuda", "--plan", "auto", "--stream", str(RANK_STREAM_STEPS),
-               "--cadence", str(RANK_STREAM_CADENCE), "--fail-at",
-               f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT}", "--dim", str(CLI_D), "--subspace-rank",
-               str(CLI_R), "--n-per-shard", str(N_PSUM)]
-    t0 = time.monotonic()
-    cli = subprocess.run(run_cmd, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "PYTHONPATH": SRC})
+    # The streaming lane of the launcher, each rank streaming its shard,
+    # shard STREAM_DEAD dying at step RANK_STREAM_DEAD_AT.
+    cli, took = launcher("stream")
     require(cli.returncode == 0, f"torchrun --stream launcher failed:\n{cli.stderr[-4000:]}")
     stats = dict(line.split(": ", 1) for line in cli.stdout.strip().splitlines()
                  if ": " in line)
     print(f"[cli] torchrun --nproc-per-node {WORLD} repro_torch.launch.eigen --plan auto "
           f"--stream {RANK_STREAM_STEPS} --cadence {RANK_STREAM_CADENCE} --fail-at "
           f"{STREAM_DEAD}:{RANK_STREAM_DEAD_AT} --dim {CLI_D} --subspace-rank {CLI_R} "
-          f"--n-per-shard {N_PSUM} ({time.monotonic() - t0:.1f} s): "
+          f"--n-per-shard {N_PSUM} ({took:.1f} s): "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("ranks", "backend", "topology", "stream_steps", "stream_rows_seen",
                        "stream_refreshes", "stream_staleness", "stream_last_jump",
@@ -4285,20 +4609,20 @@ def main(argv=None) -> int:
     del model, lp, prompts
     torch.cuda.empty_cache()
 
-    # The serve launcher, once in its own process, at the full config.
-    t0 = time.monotonic()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", SERVE_ARCH,
-         "--full-config", "--batch", "2", "--prompt-len", "256", "--gen", "8",
-         "--device", "cuda"],
-        capture_output=True, text=True, timeout=600,
-        env={**os.environ, "PYTHONPATH": SRC},
-    )
+    # The serve launcher, once in its own process, at the full config: this
+    # arch's, the hybrid's and whisper's side by side here (each mostly
+    # start-up), the last two checked after their own lanes.
+    serve_cli = side_by_side(
+        {SERVE_ARCH: serve_cmd(SERVE_ARCH), RECURRENT_ARCHS[0][0]: serve_cmd(RECURRENT_ARCHS[0][0]),
+         WHISPER_ARCH: serve_cmd(WHISPER_ARCH, SERVE_BATCH, WHISPER_CLI_PROMPT)},
+        {**os.environ, "PYTHONPATH": SRC})
+    cli, took = serve_cli(SERVE_ARCH)
     require(cli.returncode == 0, f"serve launcher failed:\n{cli.stderr[-4000:]}")
     lines = cli.stdout.strip().splitlines()
     stats = dict(line.split(": ", 1) for line in lines[2:])
     print(f"[cli] repro_torch.launch.serve --arch {SERVE_ARCH} --full-config --batch 2 "
-          f"--prompt-len 256 --gen 8 ({time.monotonic() - t0:.1f} s): {lines[0]}; "
+          f"--prompt-len 256 --gen 8 ({took:.1f} s, with the hybrid's and whisper's side by "
+          f"side): {lines[0]}; "
           + ", ".join(f"{k}={stats[k]}" for k in
                       ("config", "prefill_tokens_per_s", "decode_tokens_per_s",
                        "flash_launches_prefill", "flash_launches_decode")))
@@ -4323,7 +4647,7 @@ def main(argv=None) -> int:
 
     # The recurrent serving lane (recurrentgemma-2b, mamba2-370m).
     t0 = time.perf_counter()
-    b8_served = recurrent_lanes(torch, dev, launches)
+    b8_served = recurrent_lanes(torch, dev, launches, serve_cli)
     torch.cuda.synchronize()
     print(f"[recur] both archs and the launcher in {time.perf_counter() - t0:.1f} s")
 
@@ -4335,7 +4659,7 @@ def main(argv=None) -> int:
 
     # The VLM and encoder-decoder serving lanes (internvl2-2b, whisper-tiny).
     t0 = time.perf_counter()
-    b8_vw = vlm_whisper_lanes(torch, dev, launches)
+    b8_vw = vlm_whisper_lanes(torch, dev, launches, serve_cli)
     torch.cuda.synchronize()
     print(f"[whisper] the VLM and whisper serving lanes and the launcher in "
           f"{time.perf_counter() - t0:.1f} s")

@@ -249,11 +249,14 @@ def attention(
     )
 
 
-def head_placements(q, k) -> list:
-    """Placements of a sharded model's (b, h, s, d) attention tensors: the
-    batch over the data axes when it divides by them, the heads over
-    'model' when both q's and k's head counts divide by it, every other
-    mesh axis replicated."""
+def head_placements(q, k) -> tuple[list, list]:
+    """Placements of a sharded model's (b, h, s, d) attention tensors, q's
+    and k's (and v's): the batch over the data axes when it divides by
+    them, every other mesh axis replicated but 'model', which takes the
+    heads when both q's and k's head counts divide by it.  One KV head
+    (MQA) stays whole on every rank while the query heads shard, as the
+    reference's constraints leave it (each rank's query heads all read
+    that head)."""
     import math
 
     from torch.distributed.tensor import Replicate, Shard
@@ -266,19 +269,28 @@ def head_placements(q, k) -> list:
     if data and q.shape[0] % math.prod(sizes[a] for a in data) == 0:
         for a in data:
             place[names.index(a)] = Shard(0)
-    if "model" in sizes and q.shape[1] % sizes["model"] == 0 \
-            and k.shape[1] % sizes["model"] == 0:
-        place[names.index("model")] = Shard(1)
-    return place
+    kv = list(place)
+    if "model" in sizes and q.shape[1] % sizes["model"] == 0:
+        if k.shape[1] % sizes["model"] == 0:
+            place[names.index("model")] = kv[names.index("model")] = Shard(1)
+        elif k.shape[1] == 1:
+            place[names.index("model")] = Shard(1)
+    return place, kv
 
 
 def _sharded_attention(q, k, v, **kw):
     """``attention`` on each rank's local blocks of DTensor q, k, v."""
     from torch.distributed.tensor.experimental import local_map
 
-    place = head_placements(q, k)
+    from torch.distributed.tensor import Partial
+
+    place, kv = head_placements(q, k)
+    # A KV head whole on every rank of a 'model' axis that splits the query
+    # heads gets its gradient from each rank's heads: a partial sum there.
+    kv_grad = [Partial() if p != c else c for p, c in zip(place, kv)]
     mesh = q.device_mesh
     run = local_map(lambda ql, kl, vl: attention(ql, kl, vl, **kw),
-                    out_placements=place, in_placements=(place, place, place),
+                    out_placements=place, in_placements=(place, kv, kv),
+                    in_grad_placements=(place, kv_grad, kv_grad),
                     device_mesh=mesh, redistribute_inputs=True)
     return run(q, k, v)

@@ -25,9 +25,12 @@ Cells:
     (``launch/steps.make_train_step``) of the model sharded by
     ``launch/sharding`` (f32 masters), prefill one ``LM.prefill`` through
     B8 (bf16 weights, the reference's serving convention), decode one
-    ``decode_step`` against a full cache of ``seq_len`` slots.  The
-    dense, MoE and VLM families; the port has no scan, so the whole depth
-    runs and ``--accounting`` is ``unrolled`` (``extrapolate`` and
+    ``decode_step`` against a full cache of ``seq_len`` slots (an
+    encoder-decoder's cross K/V over ``seq_len`` encoder positions, a
+    recurrent block's state, a local-attention block's ring).  Every
+    family, ``long_500k`` for the sub-quadratic archs alone
+    (``supports_shape``); the port has no scan, so the whole depth runs
+    and ``--accounting`` is ``unrolled`` (``extrapolate`` and
     ``scan-only`` are refused by name).
   * ``dryrun_paper_pca``: ``core/distributed.distributed_pca_collective``
     over the data axis's group (``--topology hier``: pod x data), every
@@ -53,9 +56,8 @@ Cells:
     over the data axes (``counting.LocalComms``, by group).
 
 Refused, each by name with exit 2 from the CLI (``RefusedCell``): the
-recurrent, SSM and encoder-decoder families (the next slice, ROADMAP
-A11-sharded); the reference's HLO-only record fields are listed in the
-record's ``refused``.  The fake group is torn down in a ``finally``, so
+``extrapolate`` and ``scan-only`` accountings; the reference's HLO-only
+record fields are listed in the record's ``refused``.  The fake group is torn down in a ``finally``, so
 no global process group outlives a dry run.
 """
 
@@ -76,9 +78,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.configs.registry import family_of
 from repro_torch.launch import counting as C
-from repro_torch.launch.sharding import SHARDED_FAMILIES
 from repro_torch.launch.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -91,10 +91,8 @@ from repro_torch.models.config import SHAPES, active_param_count, supports_shape
 from repro_torch.plan.roofline import H100, H100_BF16, model_flops, roofline_terms
 
 __all__ = ["RefusedCell", "fake_world", "dryrun_cell", "dryrun_paper_pca", "main",
-           "SHARDED_FAMILIES", "ACCOUNTING_REFUSED"]
+           "ACCOUNTING_REFUSED"]
 
-NEXT_SLICE = ("the next slice (ROADMAP A11-sharded: the recurrent, SSM and "
-              "encoder-decoder families' sharded forward and dry run)")
 ACCOUNTING_REFUSED = {
     "extrapolate": "the port has no scanned graph to extrapolate from: it runs and "
                    "counts the whole depth (--accounting unrolled)",
@@ -174,15 +172,12 @@ def _price(record: dict, flops: float, hbm: float, coll: Dict[str, int], chips: 
     })
 
 
-def refuse(arch: str, *, eigen: bool = False, accounting: str = "unrolled") -> None:
-    """Raise ``RefusedCell`` for what this slice does not dry-run."""
+def refuse(accounting: str = "unrolled") -> None:
+    """Raise ``RefusedCell`` for an accounting the port does not count."""
     if accounting in ACCOUNTING_REFUSED:
         raise RefusedCell(f"--accounting {accounting}: {ACCOUNTING_REFUSED[accounting]}")
     if accounting != "unrolled":
         raise RefusedCell(f"--accounting {accounting!r}: the port counts 'unrolled'")
-    fam = family_of(arch)
-    if fam not in SHARDED_FAMILIES:
-        raise RefusedCell(f"{arch} ({fam} family): its sharded dry run is {NEXT_SLICE}")
 
 
 def dryrun_cell(
@@ -198,7 +193,7 @@ def dryrun_cell(
     mesh_shape: Optional[tuple] = None,
 ) -> Dict[str, Any]:
     """One (arch x shape) cell's record (see the module docstring)."""
-    refuse(arch, eigen=eigen, accounting=accounting)
+    refuse(accounting)
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -291,8 +286,7 @@ def _count_cell(cfg, shape, mesh, *, eigen: bool = False) -> Dict[str, Any]:
             else:
                 placed = batch = S.shard_batch(batch, mesh)
             if kind == "decode":
-                extra = [t for blk in model.init_cache(shape.global_batch, shape.seq_len)
-                         for t in blk.values()]
+                extra = _cache_leaves(_decode_cache(model, cfg, shape))
             param_b = S.local_bytes(params.values())
             opt_b = S.local_bytes(opt_t)
             batch_b = S.local_bytes([*placed.values(), *extra])
@@ -312,10 +306,11 @@ def _count_cell(cfg, shape, mesh, *, eigen: bool = False) -> Dict[str, Any]:
                 with activation_sharding(mesh, data_axes(mesh)), implicit_replication():
                     if kind == "prefill":
                         tokens = batch.pop("tokens")
-                        model.prefill(tokens, cache_len=shape.seq_len, use_kernel=True,
-                                      **batch)
+                        lead = (batch.pop("frames"),) if "frames" in batch else ()
+                        model.prefill(*lead, tokens, cache_len=shape.seq_len,
+                                      use_kernel=True, **batch)
                     else:
-                        cache = model.init_cache(shape.global_batch, shape.seq_len)
+                        cache = _decode_cache(model, cfg, shape)
                         model.decode_step(batch["tokens"], cache, shape.seq_len - 1)
     handed = transport.handed_bytes()
     transport.reset_handed_bytes()
@@ -339,6 +334,22 @@ def _count_cell(cfg, shape, mesh, *, eigen: bool = False) -> Dict[str, Any]:
             rec["data_axis_handed"] = handed
     _price(rec, flops.total, param_b + opt_b + batch_b, dict(coll), mesh.size(), H100_BF16)
     return rec
+
+
+def _decode_cache(model, cfg, shape):
+    """A decode step's cache at ``shape`` (``specs.decode_state_specs``'s):
+    a full cache of ``seq_len`` slots, and an encoder-decoder's cross K/V
+    over ``seq_len`` encoder positions."""
+    kw = dict(cross_len=shape.seq_len) if cfg.is_encoder_decoder else {}
+    return model.init_cache(shape.global_batch, shape.seq_len, **kw)
+
+
+def _cache_leaves(cache) -> list:
+    if isinstance(cache, dict):
+        return [t for v in cache.values() for t in _cache_leaves(v)]
+    if isinstance(cache, list):
+        return [t for v in cache for t in _cache_leaves(v)]
+    return [] if cache is None else [cache]
 
 
 def _print_cell(r: dict, chips: int) -> None:
@@ -578,12 +589,11 @@ def main(argv=None) -> int:
         shapes = sorted(SHAPES) if (args.all or not args.shape) else [args.shape]
         cells = [(a, s, mp) for a in archs for s in shapes for mp in pods]
         if not args.all:
-            for a in archs:
-                try:
-                    refuse(a, eigen=args.eigen, accounting=args.accounting)
-                except RefusedCell as e:
-                    print(f"[dryrun] refused: {e}", file=sys.stderr)
-                    return 2
+            try:
+                refuse(args.accounting)
+            except RefusedCell as e:
+                print(f"[dryrun] refused: {e}", file=sys.stderr)
+                return 2
     os.makedirs(args.out, exist_ok=True)
     failures = refused = 0
     for arch, shape, mp in cells:

@@ -31,8 +31,8 @@ plain cross-attention and the recurrences' one step.
 Prints the reference's lines (the token matrix's shape and the timings)
 and adds tokens per second, the attention blocks and the flash launches
 of prefill and decode.  One process serves on one device.  Under
-``torchrun`` with more than one rank, an LM of the dense, MoE or VLM
-family is served sharded, as the reference's ``serve.py:52,76``: every
+``torchrun`` with more than one rank, a model of any family is served
+sharded, as the reference's ``serve.py:52,76``: every
 rank joins the process group (``make_aggregation_mesh``: NCCL with a card
 a rank, gloo when ranks share a card), builds ``make_host_mesh()`` over
 the world, and serves the ``launch.sharding.shard_model`` copy of the
@@ -145,7 +145,8 @@ def generate(
     attention blocks.
 
     ``mesh``: the model is sharded on it (``launch.sharding.shard_model``):
-    the prompts and stub inputs are placed batch-sharded, the work runs
+    the prompts and stub inputs (patch embeddings, frames) are placed
+    batch-sharded, the work runs
     under ``launch.sharding.sharded``, and each step's (batch, V) logits
     are gathered to pick the greedy tokens.
     """
@@ -202,22 +203,25 @@ def _generate_sharded(model, prompts, *, gen, patch_embeds, frames, mesh):
         def _whole(logits):
             return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
-        def prefill(self, tokens, **kw):
+        def prefill(self, *args, **kw):
+            # (tokens) or an encoder-decoder's (frames, tokens), as
+            # ``prefill`` calls the model.
             kw = {k: v for k, v in kw.items() if v is not None}
-            placed = shard_batch({"tokens": tokens, **{k: kw.pop(k) for k in
-                                  ("patch_embeds",) if k in kw}}, mesh)
-            logits, cache = model.prefill(placed.pop("tokens"), **placed, **kw)
+            stub = {k: kw.pop(k) for k in ("patch_embeds",) if k in kw}
+            if len(args) == 2:
+                stub["frames"] = args[0]
+            placed = shard_batch({"tokens": args[-1], **stub}, mesh)
+            tokens = placed.pop("tokens")
+            lead = (placed.pop("frames"),) if "frames" in placed else ()
+            logits, cache = model.prefill(*lead, tokens, **placed, **kw)
             return self._whole(logits), cache
 
         def decode_step(self, tokens, cache, pos):
             logits, cache = model.decode_step(shard_batch({"t": tokens}, mesh)["t"], cache, pos)
             return self._whole(logits), cache
 
-    if frames is not None:
-        raise ValueError("the encoder-decoder's sharded serving is the next slice "
-                         "(ROADMAP A11-sharded)")
     with sharded(mesh):
-        return generate(_Placed(), prompts, gen=gen, patch_embeds=patch_embeds)
+        return generate(_Placed(), prompts, gen=gen, patch_embeds=patch_embeds, frames=frames)
 
 
 def serve(

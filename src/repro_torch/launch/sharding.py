@@ -60,20 +60,7 @@ __all__ = ["DEFAULT_RULES", "rules_for", "spec_for_axes", "param_specs", "param_
            "batch_spec", "batch_placements", "cache_logical_axes", "cache_specs",
            "cache_placements", "replicated", "placements", "port_dims", "shard_model",
            "shard_cache", "shard_batch", "local_bytes", "sharded", "place_eigen_state",
-           "whole", "local", "block_of", "SHARDED_FAMILIES", "refuse_unsharded_family"]
-
-# The families whose forward runs sharded (the recurrent, SSM and
-# encoder-decoder ones are the next slice, ROADMAP A11-sharded).
-SHARDED_FAMILIES = ("dense", "moe", "vlm")
-
-
-def refuse_unsharded_family(cfg) -> None:
-    """Raise ``ValueError`` naming a config whose family has no sharded
-    forward yet."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(
-            f"{cfg.name} ({cfg.family} family): its sharded forward is the next slice "
-            "(ROADMAP A11-sharded); train it stacked (--shards) or one shard a rank")
+           "whole", "local", "block_of"]
 
 # logical name -> preferred mesh axis (single-axis entries; 'batch' special)
 DEFAULT_RULES: Dict[str, str] = {
@@ -305,11 +292,13 @@ def shard_model(model, cfg, mesh, *, eigen: bool = False):
     if eigen:
         cfg, mesh = dataclasses.replace(cfg, fsdp=False), model_submesh(mesh)
     places = param_placements(model, cfg, mesh)
-    for name, p in list(model.named_parameters()):
+    # One parameter at a time: each full copy is released as its block
+    # takes its place (a list of them all would hold every one to the end).
+    for name in places:
+        p = model.get_parameter(name)
         owner = model.get_submodule(name.rpartition(".")[0]) if "." in name else model
-        leaf = name.rpartition(".")[2]
         dt = _distribute(p.detach(), mesh, places[name])
-        setattr(owner, leaf, nn.Parameter(dt, requires_grad=p.requires_grad))
+        setattr(owner, name.rpartition(".")[2], nn.Parameter(dt, requires_grad=p.requires_grad))
     return model
 
 

@@ -44,9 +44,6 @@ def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig):
     """(tokens, cache, pos) stand-ins for one decode step."""
     b, s = shape.global_batch, shape.seq_len
     tokens, pos = _meta((b, 1), I32), _meta((), I32)
-    cache = model_class(cfg)(cfg, device="meta").init_cache(b, s)
-    if cfg.is_encoder_decoder:
-        kv = (b, cfg.num_kv_heads, s, cfg.head_dim)
-        for layer in cache:
-            layer["cross"] = {"k": _meta(kv, dtype_of(cfg)), "v": _meta(kv, dtype_of(cfg))}
+    kw = dict(cross_len=s) if cfg.is_encoder_decoder else {}
+    cache = model_class(cfg)(cfg, device="meta").init_cache(b, s, **kw)
     return tokens, cache, pos

@@ -51,6 +51,8 @@ carry frames.  Examples::
         --arch granite-3-2b --steps 8 --eigen
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
         --arch llama3.2-3b --steps 8 --mesh-shape 2,2 --eigen
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+        --arch recurrentgemma-2b --steps 8 --mesh-shape 2,2
 """
 
 from __future__ import annotations
@@ -175,7 +177,6 @@ def train(
     # together; writer: the rank that writes the files.
     dgroup, sync, writer = group, group, True
     if mesh is not None:
-        S.refuse_unsharded_family(cfg)
         S.shard_model(model, cfg, mesh, eigen=eigen)
         dgroup, sync = data_group(mesh), torch.distributed.group.WORLD
         m, rank = data_size(mesh), data_rank(mesh)
@@ -338,7 +339,6 @@ def main(argv=None):
         else:
             try:
                 shape, axes = parse_mesh_shape(args.mesh_shape)
-                S.refuse_unsharded_family(get_config(args.arch))
             except ValueError as err:
                 ap.error(str(err))
             if int(np.prod(shape)) != agg.world:

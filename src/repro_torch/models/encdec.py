@@ -37,6 +37,14 @@ writes the prompt's K/V into them in place and builds the cross cache
 once from the encoder's output; ``decode_step`` updates the self cache
 in place and reuses the cross cache.
 
+A sharded model (DTensor parameters, ``launch.sharding.shard_model``)
+runs the same code: the vocab-split embedding through ``embed_lookup``,
+the unembedding through ``linear``'s fold, each stack's residual pinned
+to the batch sharding, self- and cross-attention on each rank's batch
+rows and heads (``kernels.ops.attention``'s ``local_map``), and a cache
+of DTensors (``init_cache``), the cross K/V built at prefill in its
+placements (batch, KV heads).
+
 In train mode with ``cfg.remat == "full"`` each layer of both stacks
 runs under ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` of each body.
@@ -46,8 +54,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
@@ -57,9 +65,12 @@ from repro_torch.models.layers import (
     Attention,
     CrossAttention,
     cross_entropy,
+    embed_lookup,
+    linear,
     rms_norm,
 )
 from repro_torch.models.lm import dtype_of
+from repro_torch.models.sharding_ctx import constrain_batch, constrain_weight
 
 __all__ = ["EncDec", "loss_fn"]
 
@@ -170,13 +181,14 @@ class EncDec(nn.Module):
         cdt = dtype_of(self.cfg)
         s = frames.shape[1]
         positions = torch.arange(s, device=frames.device)
-        x = frames.to(cdt) + _sinusoid(positions, self.cfg.d_model).to(cdt)
+        x = constrain_batch(frames.to(cdt) + _sinusoid(positions, self.cfg.d_model).to(cdt))
         if use_kernel is None:
             use_kernel = frames.is_cuda and not torch.is_grad_enabled() and s > 1
         remat = self._remat(True)
         for layer in self.encoder:
             kw = dict(positions=positions, use_kernel=use_kernel)
             x = checkpoint(layer, x, use_reentrant=False, **kw) if remat else layer(x, **kw)
+            x = constrain_batch(x)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
     def decode(
@@ -203,8 +215,9 @@ class EncDec(nn.Module):
             positions = torch.full((1,), pos, device=tokens.device)
         else:
             positions = torch.arange(s, device=tokens.device)
-        x = F.embedding(tokens, self.embed).to(cdt)
-        x = x + _sinusoid(positions, cfg.d_model).to(cdt)
+        # Gather, then cast: the reference's take of the cast table.
+        x = embed_lookup(tokens, self.embed).to(cdt)
+        x = constrain_batch(x + _sinusoid(positions, cfg.d_model).to(cdt))
         remat = self._remat(mode == "train")
         new_cache = [] if mode in ("prefill", "decode") else None
         for i, layer in enumerate(self.decoder):
@@ -215,24 +228,45 @@ class EncDec(nn.Module):
                 x, c = checkpoint(layer, x, enc_out, use_reentrant=False, **kw)
             else:
                 x, c = layer(x, enc_out, **kw)
+            x = constrain_batch(x)
             if new_cache is not None:
                 new_cache.append(c)
         x = rms_norm(x, self.dec_norm, cfg.norm_eps)
         if mode == "prefill":
             x = x[:, -1:, :]
-        logits = x.to(torch.float32) @ self.unembed.to(cdt).to(torch.float32)
-        if cfg.padded_vocab != cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = -1e30
+        # Products of the model's dtype accumulated in f32, f32 out.
+        logits = linear(x.to(torch.float32),
+                        constrain_weight(self.unembed.to(cdt)).to(torch.float32))
+        if cfg.padded_vocab != cfg.vocab_size:  # padded entries out of the softmax
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+            if isinstance(logits, DTensor):
+                logits = logits.masked_fill(pad, -1e30)  # may be partial sums
+            else:
+                logits.masked_fill_(pad, -1e30)
         return logits, new_cache
 
-    def init_cache(self, batch: int, cache_len: int) -> Cache:
+    def init_cache(self, batch: int, cache_len: int, cross_len: int | None = None) -> Cache:
         """Zero self caches of ``cache_len`` slots, one a decoder layer;
-        the cross caches are built by ``prefill``."""
+        the cross caches are built by ``prefill``, or, with ``cross_len``,
+        zero ones of that many encoder positions (a decode step's state
+        without a prefill: the dry run).  For a sharded model (DTensor
+        parameters) each tensor a DTensor placed by
+        ``launch.sharding.shard_cache``."""
         cfg = self.cfg
-        shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
         kw = dict(device=self.device, dtype=dtype_of(cfg))
-        return [{"self": {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)},
-                 "cross": None} for _ in self.decoder]
+
+        def kv(slots):
+            shape = (batch, cfg.num_kv_heads, slots, cfg.head_dim)
+            return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+        cache = [{"self": kv(cache_len), "cross": None if cross_len is None else kv(cross_len)}
+                 for _ in self.decoder]
+        mesh = getattr(self.embed, "device_mesh", None)
+        if mesh is None:
+            return cache
+        from repro_torch.launch.sharding import shard_cache
+
+        return shard_cache(cache, cfg, mesh)
 
     @torch.no_grad()
     def prefill(

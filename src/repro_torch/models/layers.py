@@ -329,9 +329,9 @@ def _decode_attention(qt, ck, cv, pos: int, window, probs_bf16: bool):
     kw = dict(pos=pos, window=window, probs_bf16=probs_bf16)
     if not isinstance(qt, DTensor):
         return _decode_attend(qt, ck, cv, **kw)
-    place = kops.head_placements(qt, ck)
+    place, kv = kops.head_placements(qt, ck)
     return local_map(lambda q, k, v: _decode_attend(q, k, v, **kw), out_placements=place,
-                     in_placements=(place, place, place), device_mesh=qt.device_mesh,
+                     in_placements=(place, kv, kv), device_mesh=qt.device_mesh,
                      redistribute_inputs=True)(qt, ck, cv)
 
 
@@ -359,15 +359,17 @@ class CrossAttention(Attention):
         b, s, _ = x.shape
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         cdt = x.dtype
-        q = (x @ self.wq.to(cdt)).view(b, s, h, hd).transpose(1, 2)
+        q = _split_heads(linear(x, constrain_weight(self.wq.to(cdt))), h).transpose(1, 2)
         if cache is None:
-            t = enc_out.shape[1]
-            k = (enc_out @ self.wk.to(cdt)).view(b, t, kv, hd).transpose(1, 2)
-            v = (enc_out @ self.wv.to(cdt)).view(b, t, kv, hd).transpose(1, 2)
-            cache = {"k": k.contiguous(), "v": v.contiguous()}
-        out = kops.attention(q, cache["k"], cache["v"], causal=False, use_kernel=False)
+            k = _split_heads(linear(enc_out, constrain_weight(self.wk.to(cdt))), kv)
+            v = _split_heads(linear(enc_out, constrain_weight(self.wv.to(cdt))), kv)
+            cache = {"k": constrain_batch_heads(k.transpose(1, 2).contiguous()),
+                     "v": constrain_batch_heads(v.transpose(1, 2).contiguous())}
+        # DTensor operands: each rank's own batch rows and heads (local_map).
+        out = kops.attention(constrain_batch_heads(q), cache["k"], cache["v"], causal=False,
+                             use_kernel=False)
         y = out.transpose(1, 2).reshape(b, s, h * hd)
-        return y @ self.wo.to(cdt), cache
+        return linear(y, constrain_weight(self.wo.to(cdt))), cache
 
 
 class MLP(nn.Module):
@@ -718,6 +720,81 @@ def doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _ssd_on_ranks(core, x, xin, z, bmat, cmat, dtp, leaves, s0, heads: int):
+    """``_ssd_core`` of a sharded model (x a DTensor) on each rank's batch
+    rows and heads (``local_map``).  'model' splits d_inner into whole
+    heads where it divides them, else every rank runs all the heads (the
+    reference's divisibility rule).  B, C and dt's pre-activation come
+    whole to every rank, which takes its heads' slices of dt and of the
+    (H,) leaves; their gradients are partial sums over 'model' (and the
+    leaves' over the batch axes too).  DTensor's own rules fail here at
+    (16, 16): the head split of d_inner leaves a strided shard that the
+    chunked scan's ``bmm`` cannot propagate."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    m = names.index("model") if "model" in names else None
+    if m is not None and heads % mesh.size(m):
+        m = None
+    lo = 0 if m is None else mesh.get_local_rank(m) * (heads // mesh.size(m))
+
+    def places(on_rows, on_model):
+        return [on_rows if p == Shard(0) and on_rows is not None
+                else on_model if i == m and on_model is not None else Replicate()
+                for i, p in enumerate(x.placements)]
+
+    act, state = places(Shard(0), Shard(2)), places(Shard(0), Shard(1))
+    whole, whole_g = places(Shard(0), None), places(Shard(0), Partial())
+    vec, vec_g = places(None, None), places(Partial(), Partial())
+    args = [(xin, act, act), (z, act, act), (bmat, whole, whole_g), (cmat, whole, whole_g),
+            (dtp, whole, whole_g), *((t, vec, vec_g) for t in leaves), (s0, state, state)]
+    held = [a for a in args if a[0] is not None]  # train: no state
+
+    def local(*ts):
+        return _ssd_core(*ts, *(() if s0 is not None else (None,)), lo=lo, **core)
+
+    return local_map(local, out_placements=(act, state),
+                     in_placements=tuple(a[1] for a in held),
+                     in_grad_placements=tuple(a[2] for a in held),
+                     device_mesh=mesh, redistribute_inputs=True)(*(a[0] for a in held))
+
+
+def _ssd_core(xin, z, bmat, cmat, dtp, a_log, dt_bias, dskip, s0, *, decode: bool,
+              head_dim: int, chunk: int, lo: int = 0):
+    """The SSD after its input products and conv, on plain tensors: heads
+    [lo, lo + W / head_dim) of the (H,) leaves and of ``dtp`` (B, S, H),
+    the pre-activation of dt, against xin and z (B, S, W); returns (the
+    gated y (B, S, W) in z's dtype, the last state (B, heads, P, N) f32)."""
+    b, s, w = xin.shape
+    nh = w // head_dim
+    if nh != dt_bias.shape[0]:  # this rank's heads
+        dtp, a_log = dtp[..., lo:lo + nh], a_log[lo:lo + nh]
+        dt_bias, dskip = dt_bias[lo:lo + nh], dskip[lo:lo + nh]
+    xin = silu_ref(xin)
+    dt = F.softplus(dtp + dt_bias)  # (B, S, H)
+    a = torch.exp(-dt * torch.exp(a_log))  # (B, S, H) in (0, 1)
+    xh = xin.to(torch.float32).view(b, s, nh, head_dim)
+    u = dt[..., None] * xh  # (B, S, H, P)
+    if decode:
+        s_last = a[:, 0, :, None, None] * s0 + torch.einsum(
+            "bhp,bn->bhpn", u[:, 0], bmat[:, 0])
+        y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], s_last)[:, None]
+    else:
+        q = min(chunk, s)
+        pad = (-s) % q
+        if pad:
+            a = F.pad(a, (0, 0, 0, pad), value=1.0)
+            u = F.pad(u, (0, 0, 0, 0, 0, pad))
+            bmat = F.pad(bmat, (0, 0, 0, pad))
+            cmat = F.pad(cmat, (0, 0, 0, pad))
+        y, s_last = _ssd_scan_chunked(a, u, bmat, cmat, s0, q)
+        y = y[:, :s]
+    y = y + dskip[:, None] * xh
+    return y.reshape(b, s, w).to(z.dtype) * silu_ref(z), s_last
+
+
 class RGLRU(nn.Module):
     """RG-LRU mixer of RecurrentGemma (``init_rglru`` / ``apply_rglru``):
     the gated linear recurrence
@@ -735,6 +812,13 @@ class RGLRU(nn.Module):
 
     Leaves: ``wx``, ``wgate`` (d, w), ``conv`` (K, w), ``wo`` (w, d) in the
     parameter dtype; ``wa``, ``wi`` (w, w) and ``lam`` (w,) in f32.
+
+    A sharded model (DTensor leaves, the width over 'model' as the
+    reference's ``mlp`` axis) runs this same code under DTensor's rules
+    (``u wa`` and ``u wi`` contract over the split width: DTensor reduces
+    the partial sums before the sigmoid, as the reference all-reduces
+    them); the new state and conv tail go into the cache through
+    ``cache_write``.
     """
 
     C = 8.0
@@ -759,12 +843,12 @@ class RGLRU(nn.Module):
         if mode != "train" and cache is None:
             raise ValueError(f"{mode} writes into a preallocated state cache")
         cdt = x.dtype
-        u = x @ self.wx.to(cdt)
-        gate = x @ self.wgate.to(cdt)
+        u = linear(x, constrain_weight(self.wx.to(cdt)))
+        gate = linear(x, constrain_weight(self.wgate.to(cdt)))
         u, new_tail = causal_conv(u, self.conv, None if cache is None else cache["conv"])
         uf = u.to(torch.float32)
-        r = torch.sigmoid(uf @ self.wa)
-        i = torch.sigmoid(uf @ self.wi)
+        r = torch.sigmoid(linear(uf, self.wa))
+        i = torch.sigmoid(linear(uf, self.wi))
         log_a = -self.C * F.softplus(-self.lam)  # log sigmoid(lam), f32
         a = torch.exp(log_a * r)  # (B, S, W) in (0, 1)
         b_in = torch.sqrt(torch.clamp(1.0 - a * a, min=_f32(1e-9))) * (i * uf)
@@ -776,10 +860,10 @@ class RGLRU(nn.Module):
                 b_in[:, 0] += a[:, 0] * h0
             hs = doubling_scan(a, b_in)
         y = hs.to(cdt) * gelu_tanh_ref(gate)
-        out = y @ self.wo.to(cdt)
+        out = linear(y, constrain_weight(self.wo.to(cdt)))
         if cache is not None:
-            cache["h"].copy_(hs[:, -1])
-            cache["conv"].copy_(new_tail)
+            cache_write(cache["h"], (Ellipsis,), hs[:, -1])
+            cache_write(cache["conv"], (Ellipsis,), new_tail)
         return out, cache
 
 
@@ -802,6 +886,10 @@ class SSD(nn.Module):
     Leaves: ``wx``, ``wz`` (d, di), ``conv`` (K, di), ``wo`` (di, d) in the
     parameter dtype; ``wb``, ``wc`` (d, N), ``wdt`` (d, H), ``a_log``,
     ``dt_bias``, ``dskip`` (H,) in f32.
+
+    A sharded model (DTensor leaves, d_inner over 'model' in whole heads)
+    runs the projections and the conv under DTensor's rules and the scan
+    on each rank's batch rows and heads (``_ssd_on_ranks``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
@@ -826,42 +914,29 @@ class SSD(nn.Module):
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if mode != "train" and cache is None:
             raise ValueError(f"{mode} writes into a preallocated state cache")
+        from torch.distributed.tensor import DTensor
+
         cfg = self.cfg
         cdt = x.dtype
-        b, s, _ = x.shape
-        nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
-        xin = x @ self.wx.to(cdt)
-        z = x @ self.wz.to(cdt)
-        xin, new_tail = causal_conv(xin, self.conv, None if cache is None else cache["conv"])
-        xin = silu_ref(xin)
-        xf = x.to(torch.float32)
-        bmat = xf @ self.wb
-        cmat = xf @ self.wc
-        dt = F.softplus(xf @ self.wdt + self.dt_bias)  # (B, S, H)
-        a = torch.exp(-dt * torch.exp(self.a_log))  # (B, S, H) in (0, 1)
-        xh = xin.to(torch.float32).view(b, s, nh, hp)
-        u = dt[..., None] * xh  # (B, S, H, P)
+        xin = linear(x, constrain_weight(self.wx.to(cdt)))
+        z = linear(x, constrain_weight(self.wz.to(cdt)))
         s0 = None if cache is None else cache["s"]
-        if mode == "decode":
-            s_last = a[:, 0, :, None, None] * s0 + torch.einsum(
-                "bhp,bn->bhpn", u[:, 0], bmat[:, 0])
-            y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], s_last)[:, None]
+        xin, new_tail = causal_conv(xin, self.conv, None if cache is None else cache["conv"])
+        xf = x.to(torch.float32)
+        bmat = linear(xf, constrain_weight(self.wb))
+        cmat = linear(xf, constrain_weight(self.wc))
+        dtp = linear(xf, constrain_weight(self.wdt))
+        core = dict(decode=mode == "decode", head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+        leaves = (self.a_log, self.dt_bias, self.dskip)
+        if isinstance(x, DTensor):
+            y, s_last = _ssd_on_ranks(core, x, xin, z, bmat, cmat, dtp, leaves, s0,
+                                      cfg.ssm_heads)
         else:
-            q = min(cfg.ssm_chunk, s)
-            pad = (-s) % q
-            if pad:
-                a = F.pad(a, (0, 0, 0, pad), value=1.0)
-                u = F.pad(u, (0, 0, 0, 0, 0, pad))
-                bmat = F.pad(bmat, (0, 0, 0, pad))
-                cmat = F.pad(cmat, (0, 0, 0, pad))
-            y, s_last = _ssd_scan_chunked(a, u, bmat, cmat, s0, q)
-            y = y[:, :s]
-        y = y + self.dskip[:, None] * xh
-        y = y.reshape(b, s, nh * hp).to(cdt) * silu_ref(z)
-        out = y @ self.wo.to(cdt)
+            y, s_last = _ssd_core(xin, z, bmat, cmat, dtp, *leaves, s0, **core)
+        out = linear(y, constrain_weight(self.wo.to(cdt)))
         if cache is not None:
-            cache["s"].copy_(s_last)
-            cache["conv"].copy_(new_tail)
+            cache_write(cache["s"], (Ellipsis,), s_last)
+            cache_write(cache["conv"], (Ellipsis,), new_tail)
         return out, cache
 
 

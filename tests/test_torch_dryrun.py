@@ -34,10 +34,25 @@ cells on a fake process group of 8 ranks under ``FakeTensorMode``.
   reference's ``argument_size_bytes`` exactly, and ``model_flops_global``
   is equal.  Its data-axis bytes are the compressed coordinates, the
   uncompressed gradients' local blocks and the loss, exactly.
-* ``--accounting extrapolate`` / ``scan-only`` and the SSM arch (with and
-  without ``--eigen``) are refused by name (exit 2 from the CLI), and no
-  global process group outlives a dry run, a refused or failing one
-  included.
+* The recurrent, SSM and encoder-decoder families (``FAMILY_CELLS``, cut
+  to the fewest layers that keep each block kind: recurrentgemma-2b 3,
+  rglru, rglru, local_attn; mamba2-370m 1; whisper-tiny 1 + 1), in the
+  same reference subprocess: recurrentgemma-2b and whisper-tiny
+  train_4k, mamba2-370m decode_32k and long_500k (its batch of 1
+  replicated over 'data'), and mamba2-370m and whisper-tiny train_4k
+  ``--eigen`` (whisper's config says ``eigen_compress=False``, which
+  neither trainer reads; the reference lowers the cell).
+  ``model_flops_global`` is equal; train and eigen argument bytes equal
+  the reference's as llama's are held; decode's equal it but for the
+  leaves the port keeps in f32 (norm scales and SSD's ``wb``, ``wc``,
+  ``wdt``, ``a_log``, ``dt_bias``, ``dskip``: 2 bytes more an element of
+  this device's block; and ``jax.jit`` prunes the decode position, which
+  reaches no block of an attention-free model).
+* ``--accounting extrapolate`` / ``scan-only`` are refused by name (exit 2
+  from the CLI); mamba2-370m, refused before the SSM family's sharded
+  forward, counts (with and without ``--eigen``, exit 0 from the CLI with
+  its record); and no global process group outlives a dry run, a refused
+  or failing one included.
 """
 
 import dataclasses
@@ -51,7 +66,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from conftest import SRC, run_with_devices
+from conftest import SRC
 from repro_torch.comm import comm_cost
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_pca import CONFIG as PCFG
@@ -64,6 +79,17 @@ from repro_torch.optim import EigenCompressConfig
 
 N = 8
 CUT = {"num_layers": 2}
+# (arch, shape, eigen, cut) of the families' cells.
+FAMILY_CELLS = [("recurrentgemma-2b", "train_4k", False, {"num_layers": 3}),
+                ("whisper-tiny", "train_4k", False, {"num_layers": 1, "num_encoder_layers": 1}),
+                ("mamba2-370m", "decode_32k", False, {"num_layers": 1}),
+                ("mamba2-370m", "long_500k", False, {"num_layers": 1}),
+                ("mamba2-370m", "train_4k", True, {"num_layers": 1}),
+                ("whisper-tiny", "train_4k", True, {"num_layers": 1, "num_encoder_layers": 1})]
+
+
+def _family_key(arch, shape, eigen):
+    return f"{arch}/{shape}" + ("_eigen" if eigen else "")
 PCA_CELLS = [  # (multi_pod, topology, drop_shards)
     (False, "ring", None), (True, "ring", None), (False, "ring", "1"), (True, "hier", None)]
 
@@ -80,6 +106,12 @@ for shape in ("train_4k", "decode_32k"):
 r = D.dryrun_cell("llama3.2-3b", "train_4k", device_count=8, verbose=False, eigen=True,
                   accounting="unrolled", overrides=%(cut)r)
 out["cells"]["train_4k_eigen"] = {k: r[k] for k in ("model_flops_global", "memory_analysis")}
+out["families"] = {}
+for arch, shape, eigen, cut in %(families)r:
+    r = D.dryrun_cell(arch, shape, device_count=8, verbose=False, eigen=eigen,
+                      accounting="unrolled", overrides=cut)
+    out["families"][arch + "/" + shape + ("_eigen" if eigen else "")] = {
+        k: r[k] for k in ("model_flops_global", "memory_analysis")}
 for mp, topo, drop in %(pca)r:
     r = D.dryrun_paper_pca(multi_pod=mp, device_count=8, verbose=False, topology=topo,
                            drop_shards=drop)
@@ -90,20 +122,39 @@ print(json.dumps(out))
 
 
 @pytest.fixture(scope="module")
-def ref():
-    text = run_with_devices(REF % {"cut": CUT, "pca": PCA_CELLS}, n_devices=N, timeout=600)
-    return json.loads(text.strip().splitlines()[-1])
+def ref_proc():
+    """The reference's dry run (``run_with_devices``' environment), started
+    before the port counts its cells, so the two run side by side."""
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={N}",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    code = REF % {"cut": CUT, "pca": PCA_CELLS, "families": FAMILY_CELLS}
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
 
 
 @pytest.fixture(scope="module")
-def port():
+def ref(ref_proc, port):
+    out, err = ref_proc.communicate(timeout=600)
+    assert ref_proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def port(ref_proc):
     cells = {s: D.dryrun_cell("llama3.2-3b", s, device_count=N, verbose=False,
                               overrides=CUT) for s in ("train_4k", "decode_32k")}
     cells["train_4k_eigen"] = D.dryrun_cell("llama3.2-3b", "train_4k", device_count=N,
                                             verbose=False, overrides=CUT, eigen=True)
     pca = [D.dryrun_paper_pca(multi_pod=mp, device_count=N, verbose=False, topology=topo,
                               drop_shards=drop) for mp, topo, drop in PCA_CELLS]
-    return {"cells": cells, "pca": pca}
+    families = {_family_key(a, s, e): D.dryrun_cell(a, s, device_count=N, verbose=False,
+                                                    eigen=e, overrides=cut)
+                for a, s, e, cut in FAMILY_CELLS}
+    return {"cells": cells, "pca": pca, "families": families}
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "train_4k_eigen"])
@@ -231,24 +282,94 @@ def test_hlo_only_outputs_are_refused_by_name(port):
     ("mamba2-370m", dict(eigen=True), "mamba2-370m"),
 ])
 def test_refusals_name_what_they_refuse(arch, kw, word):
-    with pytest.raises(D.RefusedCell, match=word):
-        D.dryrun_cell(arch, "train_4k", device_count=N, verbose=False, **kw)
-    with pytest.raises(D.RefusedCell, match="mamba2-370m"):
-        D.dryrun_cell("mamba2-370m", "train_4k", device_count=N, verbose=False)
+    """The accounting modes are refused by name; mamba2-370m's ``--eigen``
+    cell, refused until the SSM family's sharded forward, counts (cut to
+    one layer)."""
+    if word in D.ACCOUNTING_REFUSED:
+        with pytest.raises(D.RefusedCell, match=word):
+            D.dryrun_cell(arch, "train_4k", device_count=N, verbose=False, **kw)
+    else:
+        rec = D.dryrun_cell(arch, "train_4k", device_count=N, verbose=False,
+                            overrides={"num_layers": 1}, **kw)
+        assert rec["arch"] == word and rec["eigen"] and rec["model_flops_global"] > 0
+        assert rec["data_axis_bytes"] == sum(rec["data_axis_handed"].values()) > 0
     assert not dist.is_initialized()
 
 
 def test_cli_exits_2_on_refusals(tmp_path):
+    """``--accounting extrapolate`` exits 2 naming it; the two mamba2-370m
+    commands that exited 2 before the SSM family's sharded forward now
+    exit 0 with their record written (cut to one layer)."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    for extra, word in ((["--arch", "mamba2-370m"], "next slice"),
-                        (["--arch", "mamba2-370m", "--eigen"], "next slice"),
+    runs = []
+    for extra, word in ((["--arch", "mamba2-370m"], None),
+                        (["--arch", "mamba2-370m", "--eigen"], None),
                         (["--arch", "llama3.2-3b", "--accounting", "extrapolate"],
                          "extrapolate")):
-        proc = subprocess.run(
+        out = tmp_path / str(len(extra))
+        if word is None:
+            extra = [*extra, "--set", "num_layers=1"]
+        proc = subprocess.Popen(  # the three commands side by side
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
-             "--device-count", "8", "--out", str(tmp_path), *extra],
-            env=env, capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 2 and word in proc.stderr, (extra, proc.stderr)
+             "--device-count", "8", "--out", str(out), *extra],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        runs.append((extra, word, out, proc))
+    for extra, word, out, proc in runs:
+        stdout, stderr = proc.communicate(timeout=120)
+        if word is not None:
+            assert proc.returncode == 2 and word in stderr, (extra, stderr)
+            continue
+        assert proc.returncode == 0 and "failures=0 refused=0" in stdout, (extra, stderr[-3000:])
+        [rec] = [json.loads(f.read_text()) for f in out.glob("*.json")]
+        assert rec["arch"] == "mamba2-370m" and rec["model_flops_global"] > 0, rec
+        assert rec["eigen"] == ("--eigen" in extra)
+
+
+def _local_f32_elems(cfg, mesh) -> int:
+    """Elements of this device's blocks of the parameters a bf16 config's
+    port keeps in f32 (``models/layers.py``), on ``mesh`` ({axis: size})."""
+    specs = param_specs(cfg, mesh)
+    leaves = reference_leaves(cfg)
+    model = model_class(cfg)(cfg, device="meta")
+    n = 0
+    for name, p in model.named_parameters():
+        if p.dtype != torch.float32:
+            continue
+        local = list(p.shape)
+        for i, entry in enumerate(specs[name]):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                local[port_dims(leaves[name])[i]] //= math.prod(mesh[a] for a in axes)
+        n += math.prod(local)
+    return n
+
+
+@pytest.mark.parametrize("cell", [c for c in FAMILY_CELLS],
+                         ids=[_family_key(*c[:3]) for c in FAMILY_CELLS])
+def test_family_cells_equal_the_references(ref, port, cell):
+    arch, shape, eigen, cut = cell
+    key = _family_key(arch, shape, eigen)
+    rec, theirs = port["families"][key], ref["families"][key]
+    assert "skipped" not in rec and rec["mesh"]["shape"] == [2, 4], rec.get("mesh")
+    assert rec["model_flops_global"] == theirs["model_flops_global"]
+    args = theirs["memory_analysis"]["argument_size_bytes"]
+    mem = rec["memory"]
+    step_or_pos = 4  # the reference's int32 step counter, or decode position
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    if shape.startswith("train") and not eigen:
+        assert mem["opt_state_bytes"] == 2 * mem["param_bytes"]
+        assert mem["argument_bytes"] + step_or_pos == args
+    elif eigen:
+        comp = compressed_paths(cfg, EigenCompressConfig())
+        flags = len({reference_leaves(cfg)[n].path for n in comp})
+        assert mem["argument_bytes"] + step_or_pos + flags == args
+    else:
+        # jax.jit prunes an unused argument: the position reaches no block
+        # of an attention-free model.
+        if not any(kind in ("attn", "local_attn") for kind in cfg.block_pattern):
+            step_or_pos = 0
+        f32 = _local_f32_elems(cfg, {"data": 2, "model": 4})
+        assert mem["argument_bytes"] + step_or_pos - 2 * f32 == args
 
 
 def test_no_process_group_outlives_a_failing_dry_run():

@@ -23,6 +23,10 @@ checkpoints every 2:
   * AdamW: the step-2 checkpoint of a (2, 2) run (FSDP over 'data')
     restores onto (4, 1) and into the unsharded trainer, and both end at
     the (2, 2) run's final loss within 1e-6;
+  * the reduced recurrentgemma-2b under AdamW on (2, 2), preempted at
+    step 3 and resumed, and its step-2 checkpoint restored into the
+    unsharded trainer, both end at the straight run's final loss within
+    ``T4_BAR`` (1e-5 relative);
   * the files: whole parameter shapes, ``err`` (2, d, n);
   * the host copy of a DTensor leaf is a snapshot (ROADMAP C: the save
     thread must not see later writes);
@@ -45,6 +49,7 @@ from conftest import SRC
 TRAIN = dict(steps=4, batch=4, seq=16, lr=1e-3, warmup=2, log_every=100,
              checkpoint_every=2, device="cpu")
 EIGEN = dict(eigen=True, eigen_rank=8, eigen_refresh=2)
+T4_BAR = 1e-5  # chip_smoke.py's bar on a resumed run's final loss
 
 WORKER = r'''
 import dataclasses, json, os, shutil, sys
@@ -115,6 +120,17 @@ one_dir = step2("a", "a1")
 if rank == 0:
     _, _, res["adamw"]["unsharded"] = train(cfg, checkpoint_dir=one_dir, **SC.TRAIN)
 
+# The hybrid family (RG-LRU and local attention): AdamW on (2, 2),
+# preempted at step 3 and resumed from its step-2 checkpoint.
+hcfg = dataclasses.replace(get_reduced_config("recurrentgemma-2b"), dtype="float32",
+                           attn_probs_bf16=False)
+_, _, straight_h = train(hcfg, mesh=m22, checkpoint_dir=d("h"), **SC.TRAIN)
+_, _, resumed_h = train(hcfg, mesh=m22, checkpoint_dir=d("hf"), fail_at=(3,), **SC.TRAIN)
+res["hybrid"] = {{"straight": straight_h, "resumed": resumed_h}}
+hybrid_one = step2("h", "h1")
+if rank == 0:  # its step-2 checkpoint into the unsharded trainer
+    _, _, res["hybrid"]["unsharded"] = train(hcfg, checkpoint_dir=hybrid_one, **SC.TRAIN)
+
 # The host copy of a DTensor leaf does not follow later writes.
 t = S._distribute(torch.arange(8.0).reshape(4, 2), m22, S.replicated(m22))
 snap = host_tree({{"t": t}})["t"].copy()
@@ -152,6 +168,18 @@ def test_mesh_resume_after_preemption_ends_at_the_straight_run(ranks):
         run = got["preempted"]
         assert len(run["resumed"]) > len(run["straight"])  # steps 2-3 ran twice
         assert _close(run["resumed"][-1], run["straight"][-1]), run
+
+
+def test_hybrid_adamw_mesh_resume_after_preemption_ends_at_the_straight_run(ranks):
+    for got in ranks:
+        run = got["hybrid"]
+        assert len(run["resumed"]) > len(run["straight"])  # steps 2-3 ran twice
+        assert abs(run["resumed"][-1] - run["straight"][-1]) <= T4_BAR * abs(
+            run["straight"][-1]), run
+    run = ranks[0]["hybrid"]  # the step-2 checkpoint restored unsharded: steps 2, 3
+    assert len(run["unsharded"]) == 2
+    assert abs(run["unsharded"][-1] - run["straight"][-1]) <= T4_BAR * abs(
+        run["straight"][-1]), run
 
 
 def test_mesh_checkpoint_restores_into_the_stacked_trainer(ranks):

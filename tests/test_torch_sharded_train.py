@@ -28,14 +28,18 @@ same (2, 2) mesh and holds:
     on each data rank, so n is the leaf's whole n), the local block of
     every uncompressed gradient, and the 4-byte loss; parameters on the
     model submesh with FSDP off, the eigen state replicated;
-  * the reduced qwen3-moe-30b-a3b (einsum form, rank 4) and internvl2-2b
-    (rank 8, patch embeddings in the batch): one refresh and one eigen
+  * the reduced qwen3-moe-30b-a3b (einsum form, rank 4), internvl2-2b
+    (rank 8, patch embeddings in the batch), recurrentgemma-2b and
+    mamba2-370m (rank 8; the RG-LRU and SSD on each model rank's width
+    block, ``models/layers.py``'s regions): one refresh and one eigen
     step on the mesh against the port's stacked form (2 shards) from
-    the same state, at the same bars (the stacked form is held against
-    the reference in ``test_torch_moe_train.py`` and
-    ``test_torch_vlm.py``); the step starts from the stacked form's
-    refreshed embedding state, as the teacher-forced runs start from the
-    reference's.
+    the same state, at the same bars (the recurrent families' bases
+    probed also by their gradients' gap, as their stacked form is held
+    to the reference's, ``GRAD_PROBED``) (the stacked form is held against
+    the reference in ``test_torch_moe_train.py``, ``test_torch_vlm.py``
+    and ``test_torch_recurrent_train.py``); the step starts from the
+    stacked form's refreshed embedding state, as the teacher-forced runs
+    start from the reference's.
 """
 
 from __future__ import annotations
@@ -242,7 +246,8 @@ tsteps.make_eigen_train_step(model, adamw_cfg=AdamWConfig(), schedule=lambda s: 
                              mesh=mesh)(opt, batch)
 res["bytes"] = {{"handed": transport.handed_bytes(), "want": want}}
 
-# The MoE and VLM families: one refresh and one step, mesh vs stacked.
+# The MoE, VLM, hybrid and SSM families: one refresh and one step, mesh vs
+# stacked.
 res["families"] = {{}}
 for tag, arch, kw, r in ST.FAMILIES:
     fcfg = dataclasses.replace(get_reduced_config(arch), **kw)
@@ -254,12 +259,27 @@ for tag, arch, kw, r in ST.FAMILIES:
     so = tsteps.eigen_opt_init(stacked, fecfg, 2)
     mo = tsteps.eigen_opt_init(meshed, fecfg, 2, mesh=mesh)
     starts = draw_starts(tsteps.start_shapes(so), seed=ST.SEED + 1, step=0, device="cpu")
-    probes = T._probes(stacked, fb, starts, so, fecfg, m=2)
+    mesh_grads = None
+    if tag in ST.GRAD_PROBED:
+        # Each data rank's gradients on the mesh, whole, every rank given both.
+        _, rows, ctx = tsteps._eigen_form(None, None, mesh)
+        names = sorted(mo["eigen"])
+        mparams = dict(meshed.named_parameters())
+        with ctx():
+            loss, _ = model_loss(meshed, rows(fb, me, 2))
+            gs = torch.autograd.grad(loss, [mparams[n] for n in names], allow_unused=True,
+                                     materialize_grads=True)
+        mine = {{n: S.whole(g).detach().numpy() for n, g in zip(names, gs)}}
+        every = [None] * world
+        dist.all_gather_object(every, (me, mine))
+        mesh_grads = [next(g for r, g in every if r == i) for i in range(2)]
+    probes = T._probes(stacked, fb, starts, so, fecfg, m=2, ref_grads=mesh_grads)
     tsteps.make_eigen_refresh_step(stacked, ecfg=fecfg, shards=2)(so, fb, starts)
     tsteps.make_eigen_refresh_step(meshed, ecfg=fecfg, mesh=mesh)(mo, fb, starts)
     basis = max(T.subspace_dist64(S.whole(mo["eigen"][n]["basis"]).numpy(),
                                   so["eigen"][n]["basis"].numpy())
-                / max(1e-5, 4 * probes[n]["f32"]) for n in so["eigen"] if n != "embed")
+                / max(1e-5, 4 * max(probes[n]["f32"], probes[n].get("grads", 0.0)))
+                for n in so["eigen"] if n != "embed")
     # The embedding's refresh is ill-posed on distinct rows: the step
     # starts from the stacked form's refreshed embedding state.
     with torch.no_grad():
@@ -282,6 +302,8 @@ for tag, arch, kw, r in ST.FAMILIES:
         for n, t in so[f].items():
             state = max(state, T._scaled_err(S.whole(mo[f][n]).numpy(), t.numpy()))
     res["families"][tag] = {{"basis": basis, "state": state, "leaf": worst_leaf,
+                             "grad_gap": max((p.get("gap", 0.0) for p in probes.values()),
+                                             default=0.0),
                              "loss": abs(float(lm) - float(ls)) / abs(float(ls))}}
 
 with open(f"{{out}}.{{rank}}", "w") as f:
@@ -290,9 +312,18 @@ dist.destroy_process_group()
 '''
 
 EIGEN_T = {**EIGEN, "seq": S}
+# The recurrent families' refreshes amplify their gradients' summation
+# order (ROADMAP C15): their bases' probe also takes how far the f64
+# refresh of the mesh form's per-shard gradients lies from that of the
+# stacked form's, as ``test_torch_recurrent_train.py`` probes them against
+# the reference's (``test_torch_train._probes``' ``ref_grads``).
+GRAD_PROBED = ("recurrentgemma-2b", "mamba2-370m")
 FAMILIES = (("qwen3-moe-einsum", "qwen3-moe-30b-a3b",
              dict(dtype="float32", attn_probs_bf16=False, moe_impl="einsum"), 4),
-            ("internvl2-2b", "internvl2-2b", dict(dtype="float32", attn_probs_bf16=False), 8))
+            ("internvl2-2b", "internvl2-2b", dict(dtype="float32", attn_probs_bf16=False), 8),
+            ("recurrentgemma-2b", "recurrentgemma-2b",
+             dict(dtype="float32", attn_probs_bf16=False), 8),
+            ("mamba2-370m", "mamba2-370m", dict(dtype="float32"), 8))
 
 
 def cfg():
