@@ -96,8 +96,10 @@ of JAX or of the reference package.  Phases, each ending in
    30b-a3b's b 4, hq 32, hkv 4, hd 64) and at ragged
    ones (GQA s 96 / t 160 in bf16 and f32, s > t with its zero rows,
    windows 16 and 1024, MQA, and s, t and windows at the bf16 kernel's
-   128-row and 128-key tile edges, and head_dim 136, 192 and 256 through
-   the wide kernel; each check names the kernel form that the library
+   128-row and 128-key tile edges, and head_dim 136, 192, 200 and 256:
+   bf16 through the 64-key-tile wgmma kernel, at its tile and window
+   edges, s > t and MQA, f32 through the wide kernel; each check names
+   the kernel form that the library
    reports it launched; bf16 also
    per query row, see ``FLASH_ROW_REL``); then the serve lane
    (``repro_torch.launch.serve``'s ``load`` and ``generate``, which
@@ -143,7 +145,7 @@ of JAX or of the reference package.  Phases, each ending in
    are reckoned on fake tensors, not card times.
    Then the recurrent serving lane (``recurrent_lanes``): recurrentgemma-2b
    (26 blocks: 18 RG-LRU, 8 local attention with window 2048, head_dim
-   256, 10 query heads on 1 KV head, through B8's wide form) and
+   256, 10 query heads on 1 KV head, through B8's hd-256 wgmma form) and
    mamba2-370m (48 SSD blocks) at their full configs with the same
    traffic: exactly 8 / 0 flash launches in the prefill and none in
    decode; kernel vs plain prefill, and a prefill of the first 4095
@@ -283,7 +285,7 @@ of JAX or of the reference package.  Phases, each ending in
    it reaches on its MMA work (S, and PV for p_hi and p_lo).  B1 beside
    the bound of the work the function needs (n d (d + 1) FLOP), the full
    product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
-   r = 192 and 256; B8's wide kernel at recurrentgemma-2b's local
+   r = 192 and 256; B8's hd-256 wgmma form at recurrentgemma-2b's local
    attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
    2048, bf16) and at qwen3-moe-30b-a3b's prefill shape (b 4, hq 32, hkv
    4, s = t = 4096, hd 64, bf16, causal) beside SDPA; B8 also
@@ -448,7 +450,8 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 4096, 32
 RECURRENT_ARCHS = (("recurrentgemma-2b", 8, "bfloat16"), ("mamba2-370m", 0, "float32"))
 # B3 / B5 past the shared-memory Newton-Schulz tiles (r > 136).
 WIDE_RS = (192, 256)
-# B8's wide kernel timed at recurrentgemma-2b's local attention shape.
+# B8 at head_dim 256 (bf16: the 64-key-tile wgmma form) timed at
+# recurrentgemma-2b's local attention shape.
 FLASH_WIDE = ((4, 10, 1, 4096, 4096, 256), "bfloat16", 2048)
 # B8 checks: (label, (b, hq, hkv, s, t, hd), dtype, window).  Causal all.
 FLASH_CHECKS = (
@@ -476,14 +479,29 @@ FLASH_CHECKS = (
     # internvl2-2b's prefill shape (the VLM lane): 256 patches + 4096 tokens.
     ("main internvl2 (4, 16/8, 4352x4352, 128) bf16", (4, 16, 8, 4352, 4352, 128),
      "bfloat16", None),
-    # head_dim past 128: the wide kernel, both dtypes.
+    # head_dim past 128: bf16 through the 64-key-tile wgmma kernel (its
+    # tile and window edges, s > t, MQA, the last TMA box zero-filled past
+    # hd), f32 through the wide kernel.
     ("ragged hd 136 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 136), "bfloat16", None),
+    ("ragged hd 200 window 65 (1, 4/2, 257x257) bf16", (1, 4, 2, 257, 257, 200),
+     "bfloat16", 65),
+    ("ragged edge hd 256 (1, 4/2, 65x65) bf16", (1, 4, 2, 65, 65, 256), "bfloat16", None),
+    ("ragged edge hd 256 (1, 4/2, 129x129) bf16", (1, 4, 2, 129, 129, 256), "bfloat16",
+     None),
+    ("ragged edge hd 256 window 64 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 256),
+     "bfloat16", 64),
+    ("ragged edge hd 256 window 65 (1, 4/2, 300x300) bf16", (1, 4, 2, 300, 300, 256),
+     "bfloat16", 65),
+    ("ragged hd 256 MQA (2, 10/1, 200x333) bf16", (2, 10, 1, 200, 333, 256), "bfloat16",
+     None),
     ("ragged hd 192 window 16 (1, 4/2, 200x457) f32", (1, 4, 2, 200, 457, 192),
      "float32", 16),
     ("ragged hd 256 (2, 10/1, 1000x1000) bf16", (2, 10, 1, 1000, 1000, 256), "bfloat16", None),
     ("ragged hd 256 window 128 (1, 4/2, 300x300) f32", (1, 4, 2, 300, 300, 256),
      "float32", 128),
     ("ragged hd 256 s>t (1, 2/1, 160x96) bf16", (1, 2, 1, 160, 96, 256), "bfloat16", None),
+    # recurrentgemma-2b's local attention (the recurrent lane): FLASH_WIDE.
+    ("main recurrentgemma (4, 10/1, 4096x4096, 256) window 2048 bf16", *FLASH_WIDE),
 )
 # The reference's own kernel-test bars (tests/test_kernels.py:122, :146).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -4868,7 +4886,7 @@ def main(argv=None) -> int:
                 "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": w_by}
             if k == "batched_gram_polar":
                 by_name[k]["wide_r"][r_w]["newton_schulz_form"] = b3_form[r_w]
-    # B8's wide kernel at recurrentgemma-2b's local attention shape.
+    # B8 at recurrentgemma-2b's local attention shape (head_dim 256).
     (b, hq, hkv, s_, t_, hd), wdt, win = FLASH_WIDE
     q, k_, v_ = qkv(FLASH_WIDE[0], wdt)
     visible = sum(min(t_ - s_ + i + 1, win) for i in range(s_))
@@ -4878,17 +4896,19 @@ def main(argv=None) -> int:
     qpos = torch.arange(s_, device=dev)[:, None] + (t_ - s_)
     kpos = torch.arange(t_, device=dev)[None, :]
     mask = (kpos <= qpos) & (qpos - kpos < win)
-    w_ms = time_ms(lambda: flash_attention(q, k_, v_, window=win), 5)
+    w_ms = time_ms(lambda: flash_attention(q, k_, v_, window=win), 10)
+    w_form = flash_attention.last_form
     w_plain = time_ms(lambda: ref.flash_attention(q, k_, v_, window=win), 3)
     w_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k_, v_, attn_mask=mask, enable_gqa=True), 5)
-    print(f"[time] flash_attention wide {FLASH_WIDE} [{flash_attention.last_form}] kernel_ms "
-          f"{w_ms:.4f} bound_ms {w_bound:.4f} (operations, bf16 peak) plain_ms {w_plain:.4f} "
-          f"library_ms {w_lib:.4f} (SDPA, boolean window mask); "
-          f"{w_flops / (w_ms * 1e9):.2f} TFLOP/s")
+    print(f"[time] flash_attention wide {FLASH_WIDE} [{w_form}] kernel_ms "
+          f"{w_ms:.4f} bound_ms {w_bound:.4f} (operations, bf16 peak; {w_flops / 1e9:.1f} "
+          f"GFLOP) plain_ms {w_plain:.4f} library_ms {w_lib:.4f} (SDPA, boolean window "
+          f"mask); {w_flops / (w_ms * 1e9):.2f} TFLOP/s, {w_ms / w_lib:.3f}x SDPA's time, "
+          f"{100 * w_bound / w_ms:.1f} % of the bound")
     by_name["flash_attention"]["wide_hd256"] = {
         "shape": list(FLASH_WIDE[0]), "window": win, "ms": w_ms, "plain_ms": w_plain,
-        "bound_ms": w_bound, "library_ms": w_lib, "served": b8_served}
+        "bound_ms": w_bound, "library_ms": w_lib, "form": w_form, "served": b8_served}
     del q, k_, v_, mask
     # B8 at qwen3-moe-30b-a3b's prefill shape (head_dim 64).
     b, hq, hkv, s_, t_, hd = FLASH_MOE

@@ -26,33 +26,51 @@
 // P carried as p_hi + p_lo (below) the tensor cores do 0.62 TFLOP, 0.63 ms
 // at the 989 TFLOP/s bf16 peak, which only wgmma reaches.
 //
-// Design, bf16 (the serving path): one block of three warpgroups per
-// (128 query rows, batch x query head); query head h reads KV head
-// h / (hq / hkv) in place (K and V are never repeated in memory).
-//   * Warpgroup 0 is the producer (setmaxnreg down to 24 registers): one
-//     thread issues TMA loads (cp.async.bulk.tensor) of the Q tile once,
-//     then of 128-key K and V tiles into a ring of kStages stages, each
-//     with a "full" mbarrier (the TMA's byte count) and an "empty" one
-//     (one arrival per consumer warp once its products have read the
-//     stage).  The tensor maps are 3-D, (hd, rows, batch x head), so a
-//     box at a ragged s or t edge, or past hd, zero-fills inside its own
-//     head: no load masks, and no host-side padding copy.  Boxes are 64
-//     bf16 columns (128 bytes, the 128-byte swizzle's span); hd <= 64
-//     takes one, hd <= 128 two, padded with zeros inside the kernel.
-//   * Warpgroups 1 and 2 are the consumers (setmaxnreg up to 240), 64
-//     query rows each.  Each scales its Q rows in shared memory (f32, then
-//     bf16, the reference's rounding) and publishes them to the tensor
+// Design, bf16 (the serving path): one block of two warpgroups per (128
+// query rows, batch x query head), 64 rows each; query head h reads KV
+// head h / (hq / hkv) in place (K and V are never repeated in memory).
+// One template, flash_fwd_bf16<HDP, BK>, in three instances: head_dim
+// padded to HDP = 64 or 128 with BK = 128-key tiles, and HDP = 256
+// (head_dim 136..256, recurrentgemma's local attention) with BK = 64-key
+// tiles.
+//   * Registers: at HDP 256 a thread holds O (128 f32), S (32) and the P
+//     fragments (32); ptxas wants ~220 registers for the loop.  ptxas
+//     (CUDA 12.9) allocates to the launch bound, not to a setmaxnreg
+//     count, and gives a block of 9 to 12 warps 168 registers a thread:
+//     with a producer warpgroup (384 threads, setmaxnreg 24 / 240) or a
+//     producer warp (288 threads) the HDP-256 instance spilled (ptxas
+//     -v).  So there is no producer warp: the block is the two
+//     warpgroups, 256 threads of up to 255 registers, and
+//     tests/test_torch_cuda.py holds ptxas to no spills.
+//   * Loads: thread 0 issues TMA loads (cp.async.bulk.tensor) of the Q
+//     tile and of the first kStages BK-key K and V tiles into a ring of
+//     stages, each with a "full" mbarrier (the TMA's byte count).  Once
+//     both warpgroups have read a stage (each counts itself on the
+//     stage's release word after its products have landed), the second
+//     one's thread 0 issues the tile kStages further into it, so the
+//     loads of the next tiles run under the products of this one.  The
+//     tensor maps are 3-D, (hd, rows, batch x head), so a box at a ragged
+//     s or t edge, or past hd, zero-fills inside its own head: no load
+//     masks, and no host-side padding copy.  Boxes are 64 bf16 columns
+//     (128 bytes, the 128-byte swizzle's span), HDP / 64 of them a tile
+//     row, zero-filled past hd.  Shared memory at HDP 256: Q 64 KB + two
+//     stages of K and V at 32 + 32 KB, ~193 KB of the 227 KB a block may
+//     have (128-key tiles there would need 320 KB).
+//   * Products: each warpgroup scales its Q rows in shared memory (f32,
+//     then bf16, the reference's rounding) and publishes them to the tensor
 //     cores (fence.proxy.async, then its own named barrier).  Per tile,
-//     S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     S = Q K^T is wgmma m64nBKk16 with both operands in shared memory
 //     (K-major, 128-byte swizzle); the online softmax runs on the f32
 //     accumulator in registers, as exp2(s log2e - m log2e); masks are
 //     applied only on tiles that some row of the warpgroup does not see
 //     whole.  O += P V is wgmma with A from registers (the accumulator
 //     layout of S is the A-fragment layout of the next product) and V as
-//     the MN-major B operand (the transpose bit).  P is split into bf16
-//     p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products on the same
-//     V: P keeps ~16 significant bits (relative error <= 2^-16) where a
-//     plain bf16 P keeps 8, at 1.5x the MMA work of a bf16-P kernel.
+//     the MN-major B operand (the transpose bit), m64nHDPk16 (up to
+//     m64n256k16 at HDP 256, over V's four 64-column boxes).  P is
+//     split into bf16 p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
+//     products on the same V: P keeps ~16 significant bits (relative error
+//     <= 2^-16) where a plain bf16 P keeps 8, at 1.5x the MMA work of a
+//     bf16-P kernel.
 //   * The loop visits only the key tiles that hold a visible key (the
 //     reference's block skip), long query rows first.  Rows past s are
 //     not stored.  A row that has seen no key keeps m = -inf; its
@@ -64,17 +82,14 @@
 //     failure at its next synchronisation, and rt_flash_status (host
 //     memory, still readable) says which wait ran out.  A card test makes
 //     one wait run out through the test-only rt_flash_stall_for_test.
-// Not yet done: ping-pong scheduling of the two consumers around the
+// Not yet done: ping-pong scheduling of the two warpgroups around the
 // softmax, a persistent tile scheduler, packing the query heads of one KV
 // head into one block (ROADMAP B.8).
 //
 // f32: the reference's numerics exactly (no TF32): one thread per query
 // row, plain FMAs on the CUDA cores over 32-key tiles staged in shared
-// memory.  A correctness path; the model serves in bf16.
-//
-// head_dim 136..256, either dtype (recurrentgemma's local attention has
-// 256): the wide kernel below, f32 arithmetic on the CUDA cores.  A wgmma
-// form at hd 256 is later work (ROADMAP).
+// memory; head_dim 136..256 in f32 takes the wide kernel below, four
+// lanes per query row.  A correctness path; the models serve in bf16.
 #include "common.cuh"
 
 #include <cuda.h>
@@ -139,34 +154,36 @@ __device__ __forceinline__ bool tile_whole(const FlashParams& p, int row_lo,
 // --------------------------------------------------------------- bf16 --
 using bf16 = __nv_bfloat16;
 
-constexpr int kConsumers = 2;  // consumer warpgroups, 64 query rows each
+constexpr int kGroups = 2;  // warpgroups a block, 64 query rows each
 constexpr int kStages = 2;     // K/V ring depth
-constexpr int kProducerRegs = 24;   // setmaxnreg: the producer's registers
-constexpr int kConsumerRegs = 240;  // and each consumer thread's
-constexpr int kBQ = 64 * kConsumers;  // query rows per block
-constexpr int kBK = 128;       // keys per K/V tile
+constexpr int kBQ = 64 * kGroups;  // query rows per block
 constexpr int kBox = 64;       // bf16 columns per TMA box: 128 bytes
 constexpr int kWG = 128;       // threads per warpgroup
-constexpr int kThreads = (1 + kConsumers) * kWG;
-static_assert(kWG * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
-              "setmaxnreg must stay within the SM's register file");
+// Two warpgroups and nothing else: a block of 8 warps may hold 255
+// registers a thread, one of 9 to 12 warps only 168.
+constexpr int kThreads = kGroups * kWG;
 // Codes of a wait that ran out (FlashParams::status).
-constexpr int kTimedOutQ = 1, kTimedOutFull = 2, kTimedOutEmpty = 3;
+constexpr int kTimedOutQ = 1, kTimedOutFull = 2;
 
-// Dynamic shared memory: Q | K stages | V stages | mbarriers, each tile a
-// row of 128-byte-swizzled boxes of 64 columns, every box 1024-aligned.
-template <int HDP>
+// Dynamic shared memory: Q | K stages | V stages | mbarriers and release
+// counts, each tile a row of 128-byte-swizzled boxes of 64 columns, every
+// box 1024-aligned.
+// HDP: head_dim padded to a whole box; BK: keys per K/V tile.
+template <int HDP, int BK>
 struct Layout {
   static constexpr int kChunks = HDP / kBox;  // boxes per tile row
   static constexpr int kBoxQ = kBQ * kBox * 2;
-  static constexpr int kBoxKV = kBK * kBox * 2;
+  static constexpr int kBoxKV = BK * kBox * 2;
   static constexpr int kQ = kChunks * kBoxQ;
   static constexpr int kKV = kChunks * kBoxKV;  // one K or one V tile
   static constexpr int kOffK = kQ;
   static constexpr int kOffV = kOffK + kStages * kKV;
   static constexpr int kOffBar = kOffV + kStages * kKV;
-  // q_full, full[kStages], empty[kStages]; 1024 bytes of alignment slack.
+  // q_full and full[kStages] (8 bytes each), then released[kStages]: ints
+  // 4 bytes apart in the 8 * kStages bytes left for them; 1024 bytes of
+  // alignment slack.
   static constexpr int kBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "past the shared memory a block may have");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -182,10 +199,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    bar),
                "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -305,6 +318,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64 f32, accumulator layout) (+)= A (64 x 16, shared memory,
+// K-major) * B (16 x 64, shared memory, K-major); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 128 f32) += A (64 x 16 bf16, registers: the A fragment) * B
 // (16 x 128, shared memory, MN-major: the transpose bit is set).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -359,13 +394,82 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int HDP>
+// d (64 x 256 f32) += A (64 x 16 bf16, registers: the A fragment) * B
+// (16 x 256, shared memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, "
+      "%4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "
+      "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, "
+      "%89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "
+      "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "
+      "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Key tile j of K and V into stage st, counted in bytes on its full barrier.
+template <int HDP, int BK>
+__device__ __forceinline__ void load_kv(const CUtensorMap& tm_k,
+                                        const CUtensorMap& tm_v, uint32_t sK,
+                                        uint32_t sV, uint32_t bar_full, int j,
+                                        int st, int kvh) {
+  using L = Layout<HDP, BK>;
+  const uint32_t full = bar_full + 8 * st;
+  mbar_expect_tx(full, 2 * L::kKV);
+  for (int c = 0; c < L::kChunks; ++c) {
+    tma_load(sK + st * L::kKV + c * L::kBoxKV, tm_k, full, c * kBox, j * BK, kvh);
+    tma_load(sV + st * L::kKV + c * L::kBoxKV, tm_v, full, c * kBox, j * BK, kvh);
+  }
+}
+
+template <int HDP, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const FlashParams p) {
-  using L = Layout<HDP>;
+  using L = Layout<HDP, BK>;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -376,58 +480,41 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t sV = base + L::kOffV;
   const uint32_t bar_q = base + L::kOffBar;
   const uint32_t bar_full = bar_q + 8;
-  const uint32_t bar_empty = bar_full + 8 * kStages;
+  int* released = reinterpret_cast<int*>(smem + L::kOffBar + 8 * (1 + kStages));
 
   const int n_qt = (p.s + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);  // long rows first
   const int bh = blockIdx.y;
   const int row0 = qt * kBQ;
   int j0, j1;
-  kv_tiles(p, row0, min(row0 + kBQ, p.s) - 1, kBK, j0, j1);
+  kv_tiles(p, row0, min(row0 + kBQ, p.s) - 1, BK, j0, j1);
 
   const int tid = threadIdx.x;
-  const int wg = tid / kWG;
+  const int bi = bh / p.hq;
+  const int kvh = bi * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(bar_full + 8 * st, 1);
-      mbar_init(bar_empty + 8 * st, 4 * kConsumers);
+      released[st] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // The Q tile and the first kStages K/V tiles; each later tile is issued
+  // by the warpgroup that releases its stage last (below).
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, L::kQ);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load(sQ + c * L::kBoxQ, tm_q, bar_q, c * kBox, row0, bh);
+    for (int j = j0; j < min(j1, j0 + kStages); ++j)
+      load_kv<HDP, BK>(tm_k, tm_v, sK, sV, bar_full, j, j - j0, kvh);
+  }
 
-  if (wg == 0) {
-    // ---- producer: one thread keeps the TMA loads in flight ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
-                 : "memory");
-    if (tid == 0) {
-      mbar_expect_tx(bar_q, L::kQ);
-      for (int c = 0; c < L::kChunks; ++c)
-        tma_load(sQ + c * L::kBoxQ, tm_q, bar_q, c * kBox, row0, bh);
-      const int bi = bh / p.hq;
-      const int kvh = bi * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
-      for (int j = j0; j < j1; ++j) {
-        const int it = j - j0;
-        const int st = it % kStages;
-        mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1, p,
-                  kTimedOutEmpty);
-        const uint32_t full = bar_full + 8 * st;
-        mbar_expect_tx(full, 2 * L::kKV);
-        for (int c = 0; c < L::kChunks; ++c) {
-          tma_load(sK + st * L::kKV + c * L::kBoxKV, tm_k, full, c * kBox,
-                   j * kBK, kvh);
-          tma_load(sV + st * L::kKV + c * L::kBoxKV, tm_v, full, c * kBox,
-                   j * kBK, kvh);
-        }
-      }
-    }
-  } else {
-    // ---- consumers: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
-                 : "memory");
-    const int cw = wg - 1;
-    const int ct = tid - wg * kWG;  // thread within the warpgroup
+  {
+    // ---- two warpgroups, 64 query rows each ----
+    const int cw = tid / kWG;
+    const int ct = tid - cw * kWG;  // thread within the warpgroup
     const int warp = ct / 32;
     const int lane = ct % 32;
     const int g = lane >> 2;  // accumulator row (and row + 8) of the warp
@@ -457,11 +544,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + cw), "n"(kWG) : "memory");
 
     float o[HDP / 2];
-    float sc[kBK / 2];
+    float sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
     const int wrow = row0 + cw * 64;  // first query row of the warpgroup
@@ -476,30 +563,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t v_tile = sV + st * L::kKV;
 
       // S = Q K^T: a 16-deep step is 32 bytes into the swizzled 128-byte
-      // rows of one box; every fourth step moves to the next box.
+      // rows of one box; every fourth step moves to the next box.  Each
+      // step's descriptor is the tile's plus the step's offset (16-byte
+      // units in the start-address field).  The tile descriptors pass
+      // through an empty asm, so that the compiler forms each step's next to
+      // its product instead of hoisting all HDP / 16 (64-bit each) out of
+      // the key loop, where they would sit beside O in registers.
+      uint64_t q_desc = sw128_desc(q_rows, 16, 1024);
+      uint64_t k_desc = sw128_desc(k_tile, 16, 1024);
+      asm volatile("" : "+l"(q_desc), "+l"(k_desc));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
-        const uint32_t qa = q_rows + (kk / 4) * L::kBoxQ + (kk % 4) * 32;
-        const uint32_t kb = k_tile + (kk / 4) * L::kBoxKV + (kk % 4) * 32;
-        wgmma_ss(sc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), kk > 0);
-      }
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        wgmma_ss(sc, q_desc + (((kk / 4) * L::kBoxQ + (kk % 4) * 32) >> 4),
+                 k_desc + (((kk / 4) * L::kBoxKV + (kk % 4) * 32) >> 4), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
 
       // Register i of the accumulator: row g + 8 ((i >> 1) & 1), column
       // 8 (i >> 2) + 2 tq + (i & 1).
-      if (!tile_whole(p, wrow, wrow + 63, j * kBK, kBK)) {
+      if (!tile_whole(p, wrow, wrow + 63, j * BK, BK)) {
 #pragma unroll
-        for (int i = 0; i < kBK / 2; ++i) {
-          const int kpos = j * kBK + (i >> 2) * 8 + 2 * tq + (i & 1);
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kpos = j * BK + (i >> 2) * 8 + 2 * tq + (i & 1);
           if (!visible(p, qpos + 8 * ((i >> 1) & 1), kpos)) sc[i] = -CUDART_INF_F;
         }
       }
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int i = 0; i < kBK / 2; ++i)
+      for (int i = 0; i < BK / 2; ++i)
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
       float alpha[2];
       float mb[2];  // m log2e, or 0 while the row has seen no key
@@ -514,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       float psum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) {
+      for (int i = 0; i < BK / 2; ++i) {
         const int r = (i >> 1) & 1;
         const float pe = exp2_approx(fmaf(sc[i], kLog2e, -mb[r]));
         sc[i] = pe;
@@ -528,10 +621,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       // P = p_hi + p_lo in the A-fragment layout of the register form:
       // 16-key step kk takes the accumulator's column tiles 2 kk and
       // 2 kk + 1, register a = rows g / g + 8 (a & 1), tile 2 kk + (a >> 1).
-      uint32_t ph[kBK / 16][4];
-      uint32_t pl[kBK / 16][4];
+      uint32_t ph[BK / 16][4];
+      uint32_t pl[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int i = 4 * (2 * kk + (a >> 1)) + 2 * (a & 1);
@@ -544,18 +637,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       // O += P V: V is the MN-major B operand; 16 keys are two 8-row groups
       // 1024 bytes apart (stride offset), the 64-column boxes kBoxKV apart
       // (leading offset).
+      uint64_t v_desc = sw128_desc(v_tile, L::kBoxKV, 1024);
+      asm volatile("" : "+l"(v_desc));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t vb = sw128_desc(v_tile + kk * 16 * 128, L::kBoxKV, 1024);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t vb = v_desc + ((kk * 16 * 128) >> 4);
         wgmma_rs(o, ph[kk], vb);
         wgmma_rs(o, pl[kk], vb);
       }
       wgmma_commit();
       wgmma_wait_all();
       pin(o);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty + 8 * st);  // stage read
+      // The stage is read once all four warps are past their wait; the
+      // second warpgroup to say so refills it with tile j + kStages.
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + cw), "n"(kWG) : "memory");
+      if (ct == 0) {
+        __threadfence_block();
+        const bool last = atomicAdd(&released[st], 1) % kGroups == kGroups - 1;
+        __threadfence_block();
+        if (last && j + kStages < j1)
+          load_kv<HDP, BK>(tm_k, tm_v, sK, sV, bar_full, j + kStages, st, kvh);
+      }
     }
 
 #pragma unroll
@@ -671,13 +774,12 @@ __global__ void __launch_bounds__(kBQF) flash_fwd_f32(const FlashParams p) {
 }
 
 // --------------------------------------------------------------- wide --
-// head_dim 136..256 (padded to 256), f32 or bf16 in: the reference's
-// numerics in f32 (q scaled in f32 and rounded to the input type, f32
-// logits, probabilities and PV sums, the output rounded to the input type)
-// on the CUDA cores.  A simple form: at hd 256 one thread per row cannot
-// hold q and the running output (512 floats), so four neighbouring lanes
-// share a query row, each owning every fourth float4 of the head (columns
-// 16 n + 4 part + 0..3), q and its part of the output in registers
+// head_dim 136..256 (padded to 256), f32 in (bf16 there takes
+// flash_fwd_bf16<256, 64>): the reference's numerics in f32 on the CUDA
+// cores, a correctness path.  A simple form: at hd 256 one thread per row
+// cannot hold q and the running output (512 floats), so four neighbouring
+// lanes share a query row, each owning every fourth float4 of the head
+// (columns 16 n + 4 part + 0..3), q and its part of the output in registers
 // (64 + 64 floats); a key's partial dot products meet by two shuffles, and
 // the four lanes keep the same softmax statistics.  32-key K and V tiles
 // are staged as f32 in dynamic shared memory (64 KB; the four lanes' float4
@@ -691,16 +793,6 @@ constexpr int kThreadsW = kBQW * kPartsW;
 constexpr int kVecW = kHDW / (4 * kPartsW);  // float4s a lane owns: 16
 constexpr int kSmemW = 2 * kBKW * kHDW * static_cast<int>(sizeof(float));
 
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, bf16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p) {
   extern __shared__ float4 smem_w[];
   float4* sK = smem_w;                    // [kBKW][kHDW / 4]
@@ -711,11 +803,11 @@ __global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p)
   const int bi = bh / p.hq;
   const int hk = (bh % p.hq) / (p.hq / p.hkv);
   const size_t hd = static_cast<size_t>(p.hd);
-  const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.s * hd;
+  const float* q = static_cast<const float*>(p.q) + static_cast<size_t>(bh) * p.s * hd;
   const size_t kv_off = (static_cast<size_t>(bi) * p.hkv + hk) * p.t * hd;
-  const T* k = static_cast<const T*>(p.k) + kv_off;
-  const T* v = static_cast<const T*>(p.v) + kv_off;
-  T* o = static_cast<T*>(p.o) + static_cast<size_t>(bh) * p.s * hd;
+  const float* k = static_cast<const float*>(p.k) + kv_off;
+  const float* v = static_cast<const float*>(p.v) + kv_off;
+  float* o = static_cast<float*>(p.o) + static_cast<size_t>(bh) * p.s * hd;
 
   const int tid = threadIdx.x;
   const int part = tid % kPartsW;
@@ -733,10 +825,8 @@ __global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p)
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) {
       const int c = 16 * n + 4 * part + c4;
-      const float x = (row < p.s && c < p.hd)
-                          ? rt::to_f32(q[static_cast<size_t>(row) * hd + c])
-                          : 0.f;
-      e[c4] = round_to(x * p.scale, T());
+      e[c4] = (row < p.s && c < p.hd) ? q[static_cast<size_t>(row) * hd + c] * p.scale
+                                      : 0.f;
     }
     qr[n] = make_float4(e[0], e[1], e[2], e[3]);
     acc[n] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -753,8 +843,8 @@ __global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p)
       const int key = j * kBKW + r;
       const bool ok = key < p.t && c < p.hd;
       const size_t off = static_cast<size_t>(key) * hd + c;
-      fk[e] = ok ? rt::to_f32(k[off]) : 0.f;
-      fv[e] = ok ? rt::to_f32(v[off]) : 0.f;
+      fk[e] = ok ? k[off] : 0.f;
+      fv[e] = ok ? v[off] : 0.f;
     }
     __syncthreads();
     float sc[kBKW];
@@ -819,7 +909,7 @@ __global__ void __launch_bounds__(kThreadsW) flash_fwd_wide(const FlashParams p)
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) {
       const int c = 16 * n + 4 * part + c4;
-      if (c < p.hd) store_as(o + static_cast<size_t>(row) * hd + c, e[c4] / l);
+      if (c < p.hd) o[static_cast<size_t>(row) * hd + c] = e[c4] / l;
     }
   }
 }
@@ -889,19 +979,19 @@ int encode_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int HDP>
+template <int HDP, int BK>
 int launch_bf16(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int code = encode_map(&tq, p.q, p.hd, p.s, p.b * p.hq, kBQ);
-  if (!code) code = encode_map(&tk, p.k, p.hd, p.t, p.b * p.hkv, kBK);
-  if (!code) code = encode_map(&tv, p.v, p.hd, p.t, p.b * p.hkv, kBK);
+  if (!code) code = encode_map(&tk, p.k, p.hd, p.t, p.b * p.hkv, BK);
+  if (!code) code = encode_map(&tv, p.v, p.hd, p.t, p.b * p.hkv, BK);
   if (code) return code;
-  constexpr int smem = Layout<HDP>::kBytes;
+  constexpr int smem = Layout<HDP, BK>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<HDP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.s + kBQ - 1) / kBQ, p.b * p.hq);
-  flash_fwd_bf16<HDP><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_bf16<HDP, BK><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -912,13 +1002,12 @@ int launch_f32(const FlashParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_wide(const FlashParams& p, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
+      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.s + kBQW - 1) / kBQW, p.b * p.hq);
-  flash_fwd_wide<T><<<grid, kThreadsW, kSmemW, stream>>>(p);
+  flash_fwd_wide<<<grid, kThreadsW, kSmemW, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -948,9 +1037,11 @@ extern "C" {
 // q: (b, hq, s, hd), k, v: (b, hkv, t, hd), o: (b, hq, s, hd), all
 // row-major, one dtype (bf16 if bf16_in, else f32); hq % hkv == 0,
 // 16 <= hd <= 256, hd % 8 == 0, 16-byte aligned.  window <= 0: none.
-// hd <= 128: the wgmma kernel (bf16) or the f32 kernel; above: the wide
-// kernel.  *form_out names the one launched: 1 wgmma, 2 f32, 3 wide.
-// wait_ns bounds every mbarrier wait of the bf16 kernel.
+// bf16: the wgmma kernel, head_dim padded to 64 or 128 with 128-key tiles,
+// or (hd > 128) to 256 with 64-key tiles.  f32: the f32 kernel up to
+// hd 128, the wide kernel above.  *form_out names the one launched:
+// 1 wgmma, 2 f32, 3 wide, 4 wgmma at hd 256.  wait_ns bounds every
+// mbarrier wait of the bf16 kernel.
 int rt_flash_attention(int device, int bf16_in, const void* q, const void* k,
                        const void* v, void* o, int b, int hq, int hkv, int s,
                        int t, int hd, int causal, int window, float scale,
@@ -964,9 +1055,13 @@ int rt_flash_attention(int device, int bf16_in, const void* q, const void* k,
   const FlashParams p{q, k, v, o, b, hq, hkv, s, t, hd, causal, window,
                       scale, status, wait_ns};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *form_out = hd > 128 ? 3 : bf16_in ? 1 : 2;
-  if (hd > 128) return bf16_in ? launch_wide<bf16>(p, st) : launch_wide<float>(p, st);
-  if (bf16_in) return hd <= 64 ? launch_bf16<64>(p, st) : launch_bf16<128>(p, st);
+  *form_out = bf16_in ? (hd > 128 ? 4 : 1) : (hd > 128 ? 3 : 2);
+  if (bf16_in) {
+    if (hd <= 64) return launch_bf16<64, 128>(p, st);
+    if (hd <= 128) return launch_bf16<128, 128>(p, st);
+    return launch_bf16<256, 64>(p, st);
+  }
+  if (hd > 128) return launch_wide(p, st);
   if (hd <= 32) return launch_f32<32>(p, st);
   if (hd <= 64) return launch_f32<64>(p, st);
   return launch_f32<128>(p, st);

@@ -7,13 +7,13 @@ flash_attention``.  The kernel (``csrc/flash_attention.cu``) runs one
 block per (128-row query tile, batch x query head), reads each query
 head's KV head in place, loops over only the key tiles that hold a
 visible key (all of them when bidirectional), and masks ragged s, t and
-head_dim itself.  bf16 inputs go
-through the tensor cores: a producer warpgroup streams Q, K and V tiles
-by TMA into a ring of shared-memory stages, two consumer warpgroups run
-``wgmma`` on them (f32 accumulation, the probabilities split into two
-bf16 parts so they keep ~16 bits).  f32 inputs go through plain f32
-FMAs.  head_dim 136..256 (either dtype) goes through a simple wide form:
-f32 arithmetic on the CUDA cores, four lanes per query row
+head_dim itself.  bf16 inputs go through the tensor cores: Q, K and V
+tiles stream by TMA into a ring of shared-memory stages, each refilled
+as soon as the block's two warpgroups have run ``wgmma`` on it (f32
+accumulation, the probabilities split into two bf16 parts so they keep
+~16 bits); head_dim up to 128 in 128-key tiles, head_dim 136..256
+(recurrentgemma's local attention) padded to 256 in 64-key tiles.  f32 inputs go through plain f32 FMAs on the CUDA cores,
+at head_dim 136..256 four lanes per query row
 (``flash_attention.last_form`` names the kernel the last launch took, as
 the library reports it).  Every wait of the bf16 kernel is bounded
 by ``FLASH_WAIT_S``: one that runs out records which wait in a host-mapped
@@ -43,9 +43,10 @@ _MAX_GRID_Y = 65535
 # Bound on every mbarrier wait of the bf16 kernel; a tile's wait takes
 # microseconds.
 FLASH_WAIT_S = 10.0
-_WAITS = {1: "Q tile", 2: "K/V stage to fill", 3: "K/V stage to empty"}
+_WAITS = {1: "Q tile", 2: "K/V stage to fill"}
 # The kernel ``rt_flash_attention`` reports it launched.
-_FORMS = {1: "wgmma (TMA)", 2: "f32 (CUDA cores)", 3: "wide (CUDA cores, f32)"}
+_FORMS = {1: "wgmma (TMA)", 2: "f32 (CUDA cores)", 3: "wide (CUDA cores, f32)",
+          4: "wgmma (TMA, hd 256)"}
 
 
 def flash_attention(

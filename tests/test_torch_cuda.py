@@ -12,10 +12,11 @@ launch is seen on its counter.  B1 computes its upper tiles and mirrors
 them: ``gram(x)`` and ``gram(x, symmetric=True)`` (the reference's option,
 which changes nothing here) give the same bits and an exactly symmetric
 result, and ptxas must report its kernels within 128 registers and
-without spills (B8's wide kernel: without spills).  B3, B5, B6 and B7 also run at
-r = 137, 192 and 256, where B5/B6's Newton-Schulz and Cholesky tiles live
+without spills (B8's kernels at head_dim 256: without spills).  B3, B5,
+B6 and B7 also run at r = 137, 192 and 256, where B5/B6's Newton-Schulz and Cholesky tiles live
 in a global workspace and B3's and B7's grouped Newton-Schulz form streams
-its iterate from L2; B8 at head_dim 136, 192 and 256 (its wide form);
+its iterate from L2; B8 at head_dim 136, 192, 200 and 256 (bf16: its
+64-key-tile wgmma form, at those tile edges; f32: its wide form);
 and a subprocess makes one of B8's bounded waits run out and sees the
 launch failure, then the wrapper's error.  B2 runs at the edges of its
 128-wide tile and its clusters (m 1, 8, 17; d 1 .. 8192; r 1 .. 256); B2,
@@ -31,10 +32,11 @@ also held at 1e-5 f64 subspace distance.  B4 also at the edges of its
 64-row, 128-column block (r 1 .. 136, d 1 .. 8192, m 1 and 8), bit for
 bit the same on a second call.  B8 (flash attention): 2e-5 in f32 and
 3e-2 in bf16, the reference's own kernel-test bars, bf16 also per query
-row (2^-7 max|want_row| + 1e-4), at the 128-row and 128-key tile edges,
-every head_dim class, window edges, MQA, rows without keys and a batch
-whose heads would show a read across a head's edge; the built library's
-bf16 kernel is made of wgmma and TMA instructions (cuobjdump); a reduced
+row (2^-7 max|want_row| + 1e-4), at the 128-row and 128-key tile edges
+(64-key at head_dim 256), every head_dim class, window edges, MQA, rows
+without keys and a batch whose heads would show a read across a head's
+edge; the built library's three bf16 instances are made of wgmma and TMA
+instructions (cuobjdump); a reduced
 config served through B8 and through plain attention gives the same
 greedy tokens in f32.  The cross-rank lanes run the
 collective on the card: two ranks sharing one card over gloo, and two
@@ -540,14 +542,37 @@ _FLASH_CASES = [
     (1, 4, 2, s, t, 128, window)
     for window in (127, 128, 129) for s, t in ((300, 300), (200, 457))
 ] + [
-    # head_dim past 128: the wide kernel (both dtypes), causal and windowed,
-    # ragged s and t, and s > t (rows without keys).
+    # head_dim past 128 (bf16: the hd-256 wgmma kernel; f32: the wide
+    # kernel), causal and windowed, ragged s and t, and s > t (rows without
+    # keys).
     case for hd in (136, 192, 256) for case in (
         (1, 4, 2, 130, 130, hd, None),
         (1, 4, 2, 200, 257, hd, 16),
         (2, 4, 1, 160, 96, hd, None),
     )
+] + [
+    # The hd-256 kernel's 64-key K/V tile edges, its window edges, s > t,
+    # MQA (recurrentgemma's 10 query heads on 1), and head_dims whose last
+    # 64-column TMA box is zero-filled past hd.
+    (1, 4, 2, t, t, 256, None) for t in (63, 64, 65, 127, 129)
+] + [
+    (1, 4, 2, 300, 300, 256, window) for window in (63, 64, 65)
+] + [
+    (1, 2, 1, 129, 64, 256, None),
+    (1, 4, 2, 200, 65, 256, 64),
+    (2, 10, 1, 200, 333, 256, None),
+    (2, 10, 1, 200, 333, 256, 64),
+    (1, 4, 2, 257, 257, 136, 65),
+    (1, 4, 2, 257, 257, 200, None),
+    (1, 4, 2, 100, 190, 200, 63),
 ]
+
+
+def _flash_form(dtype, hd):
+    """The kernel ``flash_attention.last_form`` should name."""
+    if dtype == torch.bfloat16:
+        return "wgmma (TMA, hd 256)" if hd > 128 else "wgmma (TMA)"
+    return "wide (CUDA cores, f32)" if hd > 128 else "f32 (CUDA cores)"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -563,8 +588,7 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
     got = tfa.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
-    assert tfa.flash_attention.last_form.startswith(
-        "wide" if hd > 128 else "wgmma" if dtype == torch.bfloat16 else "f32")
+    assert tfa.flash_attention.last_form == _flash_form(dtype, hd)
     assert got.dtype == dtype and got.shape == q.shape
     want = tref.flash_attention(q, k, v, causal=True, window=window)
     got, want = got.float(), want.float()
@@ -579,12 +603,14 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, t, hd, window, dtype):
 
 # B8 bidirectional (causal=False: the enc-dec encoder): s = t at 1, 17, 129
 # and whisper's 1500 (11 full 128-row tiles and one of 92), s != t both
-# ways, head_dim 64 with groups 1 (whisper) and 4, and head_dim 128.
+# ways, head_dim 64 with groups 1 (whisper) and 4, head_dim 128, and
+# head_dim 256 (the 64-key-tile kernel) with a ragged last key tile.
 _BIDIR_CASES = [
     (2, 6, 6, s, s, 64) for s in (1, 17, 129, 1500)
 ] + [
     (1, 4, 1, 96, 300, 64), (1, 4, 1, 300, 96, 64),
     (2, 8, 2, 129, 257, 128), (2, 8, 2, 257, 129, 128),
+    (2, 10, 1, 129, 257, 256),
 ]
 
 
@@ -601,8 +627,7 @@ def test_flash_attention_bidirectional_kernel(dev, b, hq, hkv, s, t, hd, dtype):
     got = tfa.flash_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
-    assert tfa.flash_attention.last_form.startswith(
-        "wgmma" if dtype == torch.bfloat16 else "f32")
+    assert tfa.flash_attention.last_form == _flash_form(dtype, hd)
     want = tref.flash_attention(q, k, v, causal=False)
     got, want = got.float(), want.float()
     assert bool(torch.isfinite(got).all())
@@ -616,11 +641,13 @@ def test_flash_attention_bidirectional_kernel(dev, b, hq, hkv, s, t, hd, dtype):
         assert not torch.equal(causal.float(), got)
 
 
-def test_flash_attention_heads_do_not_bleed(dev):
+@pytest.mark.parametrize("hd", [80, 256])
+def test_flash_attention_heads_do_not_bleed(dev, hd):
     """A multi-head batch with s and t off every tile edge, and every other
     KV head holding V = 1e3: a box or tile that read across a head's edge
-    would carry 1e3 into a neighbour and fail that head's per-row bar."""
-    b, hq, hkv, s, t, hd = 3, 8, 4, 200, 333, 80
+    would carry 1e3 into a neighbour and fail that head's per-row bar (at
+    head_dim 80 and 256, the 128- and 64-key-tile kernels)."""
+    b, hq, hkv, s, t = 3, 8, 4, 200, 333
     g = torch.Generator(device=dev).manual_seed(11)
     q, k, v = (torch.randn(*sh, generator=g, device=dev).to(torch.bfloat16)
                for sh in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd)))
@@ -648,19 +675,21 @@ def test_flash_attention_bf16_path_is_wgmma(dev):
                           text=True, check=True).stdout
     kernels_sass = sass.split("Function : ")
     flash = [k for k in kernels_sass if k.split("\n", 1)[0].find("flash_fwd_bf16") >= 0]
-    assert len(flash) == 2  # head_dim padded to 64 and to 128
+    assert len(flash) == 3  # head_dim padded to 64, 128 and 256
     for body in flash:
         assert "HGMMA" in body and "UTMALDG" in body and "HMMA" not in body
 
 
 def test_flash_attention_wide_kernel_has_no_spills(dev):
-    """ptxas: both instances of the wide kernel (hd 136..256) keep q and
-    the K/V tiles in shared memory and spill nothing."""
+    """ptxas: no B8 kernel spills: the f32 wide kernel (q and the K/V tiles
+    in shared memory) and the three bf16 wgmma instances (head_dim padded to
+    64, 128 and 256), whose consumer threads hold O, S and the P fragments
+    in registers (at head_dim 256, O alone is 128 f32)."""
     from repro_torch.kernels import _build
 
     usage = {k: u for k, u in _build.ptxas_usage("flash_attention.cu").items()
-             if "flash_fwd_wide" in k}
-    assert len(usage) == 2, usage
+             if "flash_fwd_wide" in k or "flash_fwd_bf16" in k}
+    assert len(usage) == 4, usage
     for name, u in usage.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
 
@@ -936,7 +965,7 @@ def test_hybrid_prefill_launches_b8_per_local_block(dev):
     """recurrentgemma-2b's layer pattern at a narrow width (d_model 256,
     head_dim 256 as the full config's, 10 query heads, 1 KV head) with 8
     local attention blocks in 26: one prefill of 300 tokens past a window
-    of 128 launches B8 exactly 8 times (its wide form), and the kernel and
+    of 128 launches B8 exactly 8 times (its hd-256 wgmma form), and the kernel and
     plain prefills' last logits agree within chip_smoke.py's serving bars."""
     import dataclasses
 
@@ -954,7 +983,7 @@ def test_hybrid_prefill_launches_b8_per_local_block(dev):
     lk, cache = model.prefill(prompts)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == 8
-    assert tfa.flash_attention.last_form is not None
+    assert tfa.flash_attention.last_form == "wgmma (TMA, hd 256)"
     assert cache[2]["k"].shape[2] == 128
     lp, _ = model.prefill(prompts, use_kernel=False)
     assert kernels.launch_counts()["flash_attention"] == 8

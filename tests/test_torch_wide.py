@@ -6,10 +6,12 @@
   ``fused_ring_round`` against the reference's Pallas kernels in
   interpret mode, at <= 1e-5 f64 subspace distance and <= 1e-4 max abs
   (the bars of the round tests).
-* head_dim 256, past the 128 of B8's wgmma kernel (recurrentgemma's local
-  attention): the plain flash attention against the reference's kernel in
-  interpret mode, GQA, causal with and without a window, at the f32 bar
-  of the reference's own kernel tests (2e-5).
+* head_dim 256 (recurrentgemma's local attention, B8's 64-key-tile form
+  on the card): the plain flash attention against the reference's kernel
+  in interpret mode, GQA, causal with and without a window, s != t both
+  ways (right-aligned queries, rows without keys), bidirectional, and
+  windows at the 64-key tile's edges, at the f32 bar of the reference's
+  own kernel tests (2e-5).
 
 The CUDA kernels at these widths are held against the same plain
 versions on the card by ``tests/test_torch_cuda.py`` and
@@ -80,3 +82,27 @@ def test_flash_head_dim_256_matches_reference_kernel(window):
     t = from_reference({"q": q, "k": k, "v": v}, device="cpu")
     got = tfa.flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
     np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=FLASH_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (48, 100, True, None),    # s < t: right-aligned queries
+    (100, 48, True, None),    # s > t: the first rows see no key
+    (64, 130, False, None),   # bidirectional, s < t
+    (130, 64, False, None),   # bidirectional, s > t
+    (130, 130, True, 63),     # windows at the 64-key tile's edges
+    (130, 130, True, 64),
+    (130, 130, True, 65),
+    (70, 129, True, 64),
+])
+def test_flash_head_dim_256_edges_match_reference_kernel(s, t, causal, window):
+    rng = np.random.default_rng(s * t + (window or 0))
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((1, 2, s, 256), (1, 1, t, 256), (1, 1, t, 256)))
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, window=window, bq=64, bk=64,
+                               interpret=True)
+    tt = from_reference({"q": q, "k": k, "v": v}, device="cpu")
+    got = tfa.flash_attention(tt["q"], tt["k"], tt["v"], causal=causal, window=window)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=FLASH_TOL, rtol=0)
+    if causal and s > t:
+        assert bool((got[:, :, : s - t] == 0).all())
