@@ -20,14 +20,16 @@ of JAX or of the reference package.  Phases, each ending in
    its plain version first, at 8 ranks x (8192, 128) and on a subgroup
    of 3 ranks at (1000, 7), and the ranks' outputs must agree.  B1 must
    give the same bits with the reference's ``symmetric`` option as
-   without (the kernel always mirrors its upper tiles); B3 and B5 are also
-   held at r = 192 and 256, where their Newton-Schulz and Cholesky tiles
-   live in a global workspace (B5) or where B3's grouped Newton-Schulz
-   form streams its iterate from L2.  B2 (one launch, the splits of d
-   summed across a thread-block cluster; B3's first pass) must give the
-   same bits on a second call, and prints its plan (rows a split, cluster
-   size); B3, B5, B6 and B7 print the Newton-Schulz form they ran (a group
-   of blocks a machine: B3 and B7 at every r, B5/B6 up to r = 136).
+   without (the kernel always mirrors its upper tiles); B3, B5 and B6 (f32,
+   bf16 and int8 wires) are also held at r = 192 and 256, where the
+   grouped Newton-Schulz form streams its iterate from L2 and B5/B6's
+   CholeskyQR factor runs on the whole grid in 32-column panels, B5 also
+   on a rank-deficient stack there (the grid factor's shifted retry).  B2
+   (one launch, the splits of d summed across a thread-block cluster;
+   B3's first pass) must give the same bits on a second call, and prints
+   its plan (rows a split, cluster size); B3, B5, B6 and B7 print the
+   Newton-Schulz form they ran (a group of blocks a machine at every r),
+   B5/B6 also their factor form.
 3. Drive the main path at the production width of
    ``repro/configs/paper_pca.py`` (d = 8192, r = 128, 65536 samples per
    shard, 2 rounds, 30 subspace-iteration steps), m = 8 shards, shard k
@@ -284,8 +286,8 @@ of JAX or of the reference package.  Phases, each ending in
    eigh); B8 also the TFLOP/s
    it reaches on its MMA work (S, and PV for p_hi and p_lo).  B1 beside
    the bound of the work the function needs (n d (d + 1) FLOP), the full
-   product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3 and B5 at
-   r = 192 and 256; B8's hd-256 wgmma form at recurrentgemma-2b's local
+   product's (2 n d^2) and ``x.T @ x``, with its TFLOP/s; B3, B5 and B6
+   (each wire) at r = 192 and 256; B8's hd-256 wgmma form at recurrentgemma-2b's local
    attention shape (b 4, hq 10, hkv 1, s = t = 4096, hd 256, window
    2048, bf16) and at qwen3-moe-30b-a3b's prefill shape (b 4, hq 32, hkv
    4, s = t = 4096, hd 64, bf16, causal) beside SDPA; B8 also
@@ -448,7 +450,7 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 4096, 32
 # and the check holds the served weights widened to f32, where the two
 # forms agree to f32 rounding.
 RECURRENT_ARCHS = (("recurrentgemma-2b", 8, "bfloat16"), ("mamba2-370m", 0, "float32"))
-# B3 / B5 past the shared-memory Newton-Schulz tiles (r > 136).
+# B3 / B5 / B6 past the shared-memory Newton-Schulz tiles (r > 136).
 WIDE_RS = (192, 256)
 # B8 at head_dim 256 (bf16: the 64-key-tile wgmma form) timed at
 # recurrentgemma-2b's local attention shape.
@@ -3632,7 +3634,6 @@ def main(argv=None) -> int:
         resolve_plan,
         score_cells,
     )
-    from repro_torch.plan.planner import WIDE_ROUND_NS_FLOPS_S
     from repro_torch.runtime.elastic import replan
     from repro_torch.core.subspace import local_eigenbasis
     from repro_torch.stream import SubspaceService, basis_jump
@@ -3787,28 +3788,46 @@ def main(argv=None) -> int:
         results[kernel]["errs"][label] = (err, ROUND_TOL)
         require(ok, f"{kernel} disagrees with its plain version at {label}")
 
-    # B3 and B5 past r = 136: Newton-Schulz and Cholesky tiles in the
-    # global workspace.
-    wide_stacks = {}
-    for r in WIDE_RS:
-        vs = noisy_stack(torch, gen, SHARDS, D, r, dev)
-        rf = vs[0].contiguous()
-        hold("batched_gram_polar", f"wide ({SHARDS}, {D}, {r})",
-             batched_gram_polar(vs, rf), ref.batched_gram_polar(vs, rf), NS_TOL)
-        print(f"[check] {'batched_gram_polar':<18} {f'wide ({SHARDS}, {D}, {r})':<34} "
-              f"Newton-Schulz {batched_gram_polar.last_form}, grid "
-              f"{batched_gram_polar.grid} blocks")
-        b3_form[r] = batched_gram_polar.last_form
-        hold_round("fused_round", f"wide ({SHARDS}, {D}, {r})", fused_round(vs, rf),
-                   ref.fused_round(vs, rf))
-        wide_stacks[r] = vs
-
     def int8_wire(vs):
         """Each machine's basis through the port's int8 codec."""
         codec = get_codec(8)
         enc = [codec.encode(v, shard_generator(1, i, 0, dev)) for i, v in enumerate(vs)]
         return (torch.stack([q for q, _ in enc]).contiguous(),
                 torch.stack([s for _, s in enc]).contiguous())
+
+    # B3, B5 and B6 past r = 136: the grouped Newton-Schulz form streams
+    # its iterate from L2, and B5/B6's factor runs on the whole grid.
+    wide_stacks, wide_wires, round_form = {}, {}, {}
+    for r in WIDE_RS:
+        vs = noisy_stack(torch, gen, SHARDS, D, r, dev)
+        rf = vs[0].contiguous()
+        label = f"wide ({SHARDS}, {D}, {r})"
+        hold("batched_gram_polar", label,
+             batched_gram_polar(vs, rf), ref.batched_gram_polar(vs, rf), NS_TOL)
+        print(f"[check] {'batched_gram_polar':<18} {label:<34} "
+              f"Newton-Schulz {batched_gram_polar.last_form}, grid "
+              f"{batched_gram_polar.grid} blocks")
+        b3_form[r] = batched_gram_polar.last_form
+        hold_round("fused_round", label, fused_round(vs, rf), ref.fused_round(vs, rf))
+        deficient = vs.clone()
+        deficient[:, :, -1] = 0  # V-bar of rank r - 1: the grid factor's shifted retry
+        got = fused_round(deficient, deficient[0].contiguous())
+        hold_round("fused_round", f"{label} rank-deficient", got,
+                   ref.fused_round(deficient, deficient[0].contiguous()))
+        require(got[:, -1].abs().max().item() == 0.0,
+                f"fused_round: the rank-deficient round at r={r} left its zero column")
+        round_form[r] = (fused_round.last_form, fused_round.last_factor)
+        print(f"[check] {'fused_round':<18} {label:<34} grid {fused_round.grid} blocks; "
+              f"Newton-Schulz {fused_round.last_form}; factor {fused_round.last_factor}")
+        q, sc = int8_wire(vs)
+        wide_wires[r] = {"f32": (vs, None), "bf16": (vs.to(torch.bfloat16), None),
+                         "int8": (q, sc)}
+        for wire, (w, sc) in wide_wires[r].items():
+            hold_round("fused_ring_round", f"{label} {wire}",
+                       fused_ring_round(w, rf, sc), ref.fused_ring_round(w, rf, sc))
+        print(f"[check] {'fused_ring_round':<18} {label:<34} Newton-Schulz "
+              f"{fused_ring_round.last_form}; factor {fused_ring_round.last_factor}")
+        wide_stacks[r] = vs
 
     wires = {}
     for (label, vs), chunk in zip(stacks.items(), (RING_CHUNK_MAIN, RING_CHUNK_RAGGED)):
@@ -4839,8 +4858,6 @@ def main(argv=None) -> int:
             rows[-1]["by_wire"] = {
                 wname: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                         "bound_by": t[2][1]} for wname, t in ring_ms.items()}
-    # B3 and B5 past r = 136 (B3's grouped form streams its iterate from
-    # L2; B5's tiles live in the global workspace).
     by_name = {row["name"]: row for row in rows}
     # B1 at the streaming ingest's chunk shape (STREAM_CHUNK, D): what each
     # live shard launches every step of the stream lanes.
@@ -4865,27 +4882,55 @@ def main(argv=None) -> int:
           f"({ITERS} steps) {solve_ms['subspace']:.2f} ms, eigh {solve_ms['eigh']:.2f} ms")
     by_name["gram"]["local_solve_ms"] = solve_ms
     del xc, cov
+    # B3, B5 and B6 (each wire) past r = 136: the grouped Newton-Schulz
+    # form streaming its iterate from L2, B5/B6's factor on the whole grid.
     for r_w in WIDE_RS:
         vs_w = wide_stacks[r_w]
         rf_w = vs_w[0].contiguous()
-        for k, kern, plain, flops in (
-            ("batched_gram_polar", lambda: batched_gram_polar(vs_w, rf_w),
-             lambda: ref.batched_gram_polar(vs_w, rf_w),
-             2.0 * SHARDS * D * r_w * r_w + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3),
-            ("fused_round", lambda: fused_round(vs_w, rf_w),
-             lambda: ref.fused_round(vs_w, rf_w),
-             4.0 * SHARDS * D * r_w * r_w + 8.0 * D * r_w * r_w
-             + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3),
-        ):
+        wide_bytes = 4 * (SHARDS * D * r_w + 2 * D * r_w)
+        wide_flops = {
+            "batched_gram_polar": 2.0 * SHARDS * D * r_w * r_w
+            + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3,
+            "fused_round": 4.0 * SHARDS * D * r_w * r_w + 8.0 * D * r_w * r_w
+            + DEFAULT_NS_ITERS * SHARDS * 4.0 * r_w ** 3,
+        }
+        cases = [("batched_gram_polar", None, lambda: batched_gram_polar(vs_w, rf_w),
+                  lambda: ref.batched_gram_polar(vs_w, rf_w), wide_bytes),
+                 ("fused_round", None, lambda: fused_round(vs_w, rf_w),
+                  lambda: ref.fused_round(vs_w, rf_w), wide_bytes)]
+        for wname, (w, sc) in wide_wires[r_w].items():
+            cases.append((
+                "fused_ring_round", wname,
+                lambda w=w, sc=sc: fused_ring_round(w, rf_w, sc),
+                lambda w=w, sc=sc: ref.fused_ring_round(w, rf_w, sc),
+                w.numel() * w.element_size() + 4 * 2 * D * r_w
+                + (0 if sc is None else sc.numel() * 4)))
+        for k, wname, kern, plain, nbytes in cases:
             w_ms, w_plain = time_ms(kern, 5), time_ms(plain, 5)
-            w_bound, w_by = bound(flops, 4 * (SHARDS * D * r_w + 2 * D * r_w))
-            form = b3_form[r_w] if k == "batched_gram_polar" else "tiles in the workspace"
-            print(f"[time] {k:<18} wide r={r_w} ({form}) kernel_ms "
-                  f"{w_ms:.4f} bound_ms {w_bound:.4f} ({w_by}) plain_ms {w_plain:.4f}")
-            by_name[k].setdefault("wide_r", {})[r_w] = {
-                "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": w_by}
+            w_bound, w_by = bound(wide_flops["fused_round" if wname else k], nbytes)
             if k == "batched_gram_polar":
-                by_name[k]["wide_r"][r_w]["newton_schulz_form"] = b3_form[r_w]
+                form = b3_form[r_w]
+            else:
+                wrapper = fused_round if k == "fused_round" else fused_ring_round
+                form = f"{wrapper.last_form}; factor {wrapper.last_factor}"
+            print(f"[time] {k:<18} wide r={r_w}{'' if wname is None else f' {wname}'} "
+                  f"({form}) kernel_ms {w_ms:.4f} bound_ms {w_bound:.4f} ({w_by}) "
+                  f"plain_ms {w_plain:.4f}")
+            cell = {"ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": w_by}
+            label = f"wide ({SHARDS}, {D}, {r_w})"
+            if k == "batched_gram_polar":
+                cell["newton_schulz_form"] = form
+            else:
+                cell.update(newton_schulz_form=form.split("; factor ")[0],
+                            factor_form=form.split("; factor ")[1],
+                            max_abs_err=results[k]["errs"][
+                                label if wname is None else f"{label} {wname}"][0])
+            if wname is None:
+                by_name[k].setdefault("wide_r", {})[r_w] = cell
+            else:
+                by_name[k].setdefault("wide_r", {}).setdefault(r_w, {})[wname] = cell
+        by_name["fused_round"]["wide_r"][r_w]["rank_deficient_max_abs_err"] = results[
+            "fused_round"]["errs"][f"wide ({SHARDS}, {D}, {r_w}) rank-deficient"][0]
     # B8 at recurrentgemma-2b's local attention shape (head_dim 256).
     (b, hq, hkv, s_, t_, hd), wdt, win = FLASH_WIDE
     q, k_, v_ = qkv(FLASH_WIDE[0], wdt)
@@ -5017,10 +5062,8 @@ def main(argv=None) -> int:
           f"op {card['op_latency_s'] * 1e6:.2f} us (model {h100.op_latency_s * 1e6:.2f}), "
           f"LAPACK {card['lapack_latency_s'] * 1e3:.3f} ms (model "
           f"{h100.lapack_latency_s * 1e3:.3f}; svd {card['svd_s']}, qr {card['qr_s']} s), "
-          f"B5 past r = 136 "
-          + ", ".join(f"r={r_w} {w['flops_per_machine_per_s']:.4g} FLOP/s"
-                      for r_w, w in card["wide_round"].items())
-          + f" (model {WIDE_ROUND_NS_FLOPS_S:.4g})")
+          f"B5 past r = 136, {N_ITER} rounds: "
+          + ", ".join(f"r={r_w} {w['ms']:.4f} ms" for r_w, w in card["wide_round"].items()))
     for r_p in PLAN_RS:
         kw = dict(m=SHARDS, d=D, r=r_p, n_iter=N_ITER, context="stacked")
         cells = score_cells(**kw)

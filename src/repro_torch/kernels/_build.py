@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _PI = ctypes.POINTER(ctypes.c_int)
-# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, ws, nsn,
+# B5/B6 round: device, vs, scales, ref, out, part, zs, vbar, q1, w, fs, nsn,
 # ctr, m, d, r, rows1, splits1, rows2, splits2, ns_iters, grid, group,
 # pivot_c, shift_c, form_out, stream.
 _ROUND = (_I, *(_P,) * 12, *(_I,) * 10, _F, _F, _P, _P)
@@ -84,7 +84,7 @@ _SIGNATURES = {
     "rt_remote_free": (_I, _P),
     # B7: device, r, *blocks (the hop kernel's co-resident blocks); a hop's
     # waits: device, mine, arrived_want, consumed_want, stream; a hop:
-    # device, v, ref, out, part, z, vbar, q1, w, ws, nsn, ctr, mine, right,
+    # device, v, ref, out, part, z, vbar, q1, w, fs, nsn, ctr, mine, right,
     # left, status, seq0, m, d, r, rows1, splits1, rows2, splits2,
     # ns_iters, grid, group, hop, pivot_c, shift_c, stream; the release of
     # a stuck round: device, mine, status, arrived_want, *code.
@@ -156,8 +156,7 @@ def build() -> Path:
 
 def ptxas_usage(source: str) -> dict[str, dict[str, int]]:
     """Compile ``csrc/<source>`` once more with ``-Xptxas -v`` (into a
-    temporary directory) and return, by mangled name, each entry
-    function's ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)."""
+    temporary directory) and return ``parse_ptxas`` of its report."""
     with tempfile.TemporaryDirectory() as tmp:
         res = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / source),
@@ -169,16 +168,25 @@ def ptxas_usage(source: str) -> dict[str, dict[str, int]]:
 
 
 def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
-    """Registers and spill bytes by entry function from ``-Xptxas -v`` output."""
-    usage, name = {}, None
+    """Registers and spill bytes from ``-Xptxas -v`` output: each entry
+    function's ``registers``, and the ``spill_stores`` / ``spill_loads`` of
+    every function ptxas gives properties for (an entry, or a device
+    function it calls that was not inlined), by mangled name."""
+    usage, entry, props = {}, None, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
-            name = m.group(1)
-            usage[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            usage[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            usage[name]["registers"] = int(m[1])
+            entry = m.group(1)
+            usage.setdefault(entry, {})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+            usage.setdefault(props, {})
+        elif props and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            # A called function is listed once a caller: keep its worst.
+            u = usage[props]
+            u["spill_stores"] = max(u.get("spill_stores", 0), int(m[1]))
+            u["spill_loads"] = max(u.get("spill_loads", 0), int(m[2]))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            usage[entry]["registers"] = int(m[1])
     return usage
 
 

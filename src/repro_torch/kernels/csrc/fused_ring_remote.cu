@@ -116,7 +116,7 @@ struct RemoteArgs {
   float* vbar;       // (d, r) running sum, then V-bar
   float* q1;         // (d, r)
   float* w;          // (2, r, r): W1, W2
-  float* ws;         // round_ws_floats(r) past kNsSmemMaxR (the tail), else null
+  float* fs;         // factor_scratch_floats(r) past kNsSmemMaxR (the tail), else null
   float* nsn;        // (group) the polar group's sums of squares
   unsigned* ctr;     // the polar group's barrier counter
   char* mine;        // this rank's exchange buffer
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // After the last hop, z is the tail's S.
   if (i == m - 1) {
     cholqr2_tail<VEC>(grid, a.vbar, a.q1, a.w, a.part, a.z, a.out, d, r,
-                      a.rows2, a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
+                      a.rows2, a.splits2, a.pivot_c, a.shift_c, smem, a.fs);
   }
 }
 
@@ -339,14 +339,14 @@ int rt_remote_wait(int device, void* mine, u64 arrived_want, u64 consumed_want,
 
 // Hop `hop` of a B7 round, one cooperative launch of `grid` blocks (the
 // last hop runs the tail too).  v, ref, out, vbar, q1: (d, r) f32; part:
-// (max(splits1, splits2), r, r); z: (r, r); w: (2, r, r); ws:
-// round_ws_floats(r) f32 when r > kNsSmemMaxR, else unused (may be null);
+// (max(splits1, splits2), r, r); z: (r, r); w: (2, r, r); fs:
+// factor_scratch_floats(r) f32 when r > kNsSmemMaxR, else unused (may be null);
 // nsn: (group) f32; ctr: one 32-bit word; status: int[1], zero unless the
 // wrapper released the round.  mine: this rank's exchange buffer; right /
 // left: the neighbours' mapped buffers (null when m == 1).  seq0 = call
 // index * m.
 int rt_remote_hop(int device, const void* v, const void* ref, void* out,
-                  void* part, void* z, void* vbar, void* q1, void* w, void* ws,
+                  void* part, void* z, void* vbar, void* q1, void* w, void* fs,
                   void* nsn, void* ctr, void* mine, void* right, void* left,
                   const void* status, u64 seq0, int m, int d, int r, int rows1,
                   int splits1, int rows2, int splits2, int ns_iters, int grid,
@@ -360,14 +360,14 @@ int rt_remote_hop(int device, const void* v, const void* ref, void* out,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (grid < 1 || grid > per_sm * sms || group < 1 || group > grid || hop < 0 ||
-      hop >= m || (r > rt::kNsSmemMaxR && !ws)) {
+      hop >= m || (r > rt::kNsSmemMaxR && !fs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RemoteArgs a{static_cast<const float*>(v), static_cast<const float*>(ref),
                static_cast<float*>(out), static_cast<float*>(part),
                static_cast<float*>(z), static_cast<float*>(vbar),
                static_cast<float*>(q1), static_cast<float*>(w),
-               static_cast<float*>(ws), static_cast<float*>(nsn),
+               static_cast<float*>(fs), static_cast<float*>(nsn),
                static_cast<unsigned*>(ctr), static_cast<char*>(mine),
                static_cast<char*>(right), static_cast<char*>(left),
                static_cast<const int*>(status), seq0, m, d, r, rows1, splits1,

@@ -29,17 +29,20 @@
 //   1  Gram partials: units (machine, 128x128 tile, d-split) -> part,
 //      B2's tile (tile_products.cuh); block 0 zeroes the group counters
 //   2  Newton-Schulz on the whole grid: machine z takes a group of g
-//      blocks, each owning r / g columns of the iterate (ns_polar_group):
-//      a step stages the whole iterate, computes the block's columns of
-//      M = 3I - X^T X and of 0.5 X M, and the group meets once at a
-//      counter in global memory; Z_i ends in zs.  When m exceeds the
-//      grid, g = 1 and the blocks take machines in turn; past
-//      r = kNsSmemMaxR one block a machine runs the one-block form on a
-//      workspace slot (ns_polar_block)
+//      blocks, each owning about r / g columns of the iterate
+//      (ns_polar_grouped): a step computes the block's columns of
+//      M = 3I - X^T X and of 0.5 X M from the whole iterate, staged in
+//      shared memory up to r = kNsSmemMaxR and streamed from L2 in
+//      slices of rows past it, and the group meets once at a counter in
+//      global memory; Z_i ends in zs.  When m exceeds the grid's groups,
+//      g = 1 and the blocks take machines in turn
 //   3  V-bar = (1/m) sum_i V_i Z_i: B4's 64x128 blocks -> vbar (d, r)
 //   4  S1 partials = V-bar^T V-bar over d-splits -> part
 //   5  S1 = the partials summed in order, over the grid -> s (zs[0])
-//   6  block 0: guarded Cholesky of S1 and L^-1 in one sweep, W1 = L^-T
+//   6  W1 = L^-T of the guarded Cholesky S1 = L L^T: up to kNsSmemMaxR
+//      block 0 factors S1 and forms L^-1 in one sweep in shared memory;
+//      past it the grid factors S1 in panels of 32 columns (one grid
+//      barrier a panel, grid_factor in round_tiles.cuh)
 //   7  Q1 = V-bar W1 -> q1 (d, r)
 //   8-11  the same for S2 of Q1, W2, and Q = Q1 W2 -> out
 //
@@ -50,14 +53,17 @@
 // stack as the TPU kernel does.  The guarded Cholesky mirrors
 // _cholqr_inverse_factor: if any pivot is not above pivot_c * tr(S) the
 // factor of S + (shift_c * tr(S) + 1e-30) I is taken instead; W is the
-// exact triangular inverse, computed beside the Cholesky: step k of the
-// sweep finishes column k of L and row k of L^-1 and updates every later
-// row of both at once, two block barriers a step (the TPU kernel's
-// log-depth nilpotent product is a VMEM idiom).  Dynamic shared memory is
-// the largest phase's (round_smem_bytes: the grouped Newton-Schulz tiles,
-// 199 KB at r = 128), so one block fits an SM.  Past r = 136 the Newton-Schulz and
-// Cholesky tiles go to a global workspace of one slot per machine.
-// Offsets into the stack are 64-bit.  The phase pieces and the tail
+// exact triangular inverse, computed beside the Cholesky: step k of block
+// 0's sweep finishes column k of L and row k of L^-1 and updates every
+// later row of both at once, two block barriers a step (the TPU kernel's
+// log-depth nilpotent product is a VMEM idiom); the grid's panels do the
+// same a 32 x 32 tile at a time, the forward substitution beside the
+// Schur updates, and every panel's pivots are held to the guard.
+// Dynamic shared memory is the largest phase's (round_smem_bytes: the
+// grouped Newton-Schulz tiles, 199 KB at r = 128 and 166 KB at r = 256),
+// so one block fits an SM.  Past r = kNsSmemMaxR the factor's trailing
+// matrix lives in a global scratch the wrapper allocates (fs).  Offsets
+// into the stack are 64-bit.  The phase pieces and the tail
 // (phases 4-11) live in round_tiles.cuh, shared with B7.
 #include <cooperative_groups.h>
 
@@ -87,7 +93,7 @@ struct RoundArgs {
   float* vbar;          // (d, r)
   float* q1;            // (d, r)
   float* w;             // (2, r, r): W1, W2
-  float* ws;            // (m, round_ws_floats(r)) past kNsSmemMaxR, else null
+  float* fs;            // factor_scratch_floats(r) past kNsSmemMaxR, else null
   float* nsn;           // (m, group) the group blocks' sums of squares
   unsigned* ctr;        // (m) the groups' barrier counters
   int m, d, r;
@@ -124,14 +130,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = a.group;
   for (int z = blockIdx.x / g; z < m; z += max(1, static_cast<int>(gridDim.x) / g)) {
     float* part_z = a.part + static_cast<size_t>(z) * a.splits1 * rr;
-    if (r <= rt::kNsSmemMaxR) {
-      rt::ns_polar_group(part_z, a.splits1, a.zs + z * rr, part_z,
+    rt::ns_polar_grouped(part_z, a.splits1, a.zs + z * rr, part_z,
                          a.nsn + static_cast<size_t>(z) * g, a.ctr + z, g,
                          blockIdx.x % g, r, a.ns_iters, smem, red);
-    } else {
-      rt::ns_polar_block(part_z, a.zs + z * rr, a.splits1, r, a.ns_iters, smem,
-                         a.ws + z * round_ws_floats(r), red);
-    }
   }
   grid.sync();
 
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // 4-11: Q = CholeskyQR2(V-bar); zs holds S.
   cholqr2_tail<VEC>(grid, a.vbar, a.q1, a.w, a.part, a.zs, a.out, d, r,
-                    a.rows2, a.splits2, a.pivot_c, a.shift_c, smem, a.ws);
+                    a.rows2, a.splits2, a.pivot_c, a.shift_c, smem, a.fs);
 }
 
 // Co-resident blocks of the round kernel on the card at edge r.
@@ -174,7 +175,7 @@ int coresident(int device, int r, int* blocks) {
 template <typename T>
 int launch_round(int device, const void* vs, const void* scales,
                  const void* ref, void* out, void* part, void* zs, void* vbar,
-                 void* q1, void* w, void* ws, void* nsn, void* ctr, int m,
+                 void* q1, void* w, void* fs, void* nsn, void* ctr, int m,
                  int d, int r, int rows1, int splits1, int rows2, int splits2,
                  int ns_iters, int grid, int group, float pivot_c,
                  float shift_c, int* form_out, void* stream) {
@@ -184,7 +185,7 @@ int launch_round(int device, const void* vs, const void* scales,
   // Every block must be resident at once for grid.sync(), and a group of
   // more than one block takes one machine only.
   if (grid < 1 || grid > most || group < 1 || (group > 1 && m * group > grid) ||
-      (r > rt::kNsSmemMaxR && (group != 1 || !ws))) {
+      r > rt::kNsGroupMaxR || (r > rt::kNsSmemMaxR && !fs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* p) {
@@ -196,13 +197,13 @@ int launch_round(int device, const void* vs, const void* scales,
                  static_cast<const float*>(ref), static_cast<float*>(out),
                  static_cast<float*>(part), static_cast<float*>(zs),
                  static_cast<float*>(vbar), static_cast<float*>(q1),
-                 static_cast<float*>(w), static_cast<float*>(ws),
+                 static_cast<float*>(w), static_cast<float*>(fs),
                  static_cast<float*>(nsn), static_cast<unsigned*>(ctr), m, d, r,
                  rows1, splits1, rows2, splits2, ns_iters, group, pivot_c,
                  shift_c};
-  // The Newton-Schulz form that runs: g blocks a machine, or 0 for one
-  // block a machine on a workspace slot.
-  if (form_out) *form_out = r > rt::kNsSmemMaxR ? 0 : group;
+  // The Newton-Schulz form that runs: g blocks a machine, negated past
+  // kNsSmemMaxR (the iterate streamed from L2).
+  if (form_out) *form_out = r > rt::kNsSmemMaxR ? -group : group;
   void* args[] = {&a};
   auto kernel = vec ? fused_round_kernel<T, true> : fused_round_kernel<T, false>;
   cudaError_t err = cudaLaunchCooperativeKernel(
@@ -219,19 +220,20 @@ extern "C" {
 
 // vs: (m, d, r) wire stack; scales: (m, r) f32 for int8, else null;
 // ref, out, vbar, q1: (d, r) f32; part: (max(m * splits1, splits2), r, r);
-// zs: (m, r, r); w: (2, r, r); ws: (m, round_ws_floats(r)) when
+// zs: (m, r, r); w: (2, r, r); fs: factor_scratch_floats(r) f32 when
 // r > kNsSmemMaxR, else unused (may be null); nsn: (m, group) f32; ctr:
 // (m) 32-bit words.  grid and group come from the wrapper's plan; form_out
-// (may be null) receives the Newton-Schulz form (group, or 0).
+// (may be null) receives the Newton-Schulz form (group, -group past
+// kNsSmemMaxR).  r past kNsGroupMaxR is refused.
 #define RT_FUSED_ROUND(NAME, T)                                               \
   int NAME(int device, const void* vs, const void* scales, const void* ref,   \
            void* out, void* part, void* zs, void* vbar, void* q1, void* w,    \
-           void* ws, void* nsn, void* ctr, int m, int d, int r, int rows1,    \
+           void* fs, void* nsn, void* ctr, int m, int d, int r, int rows1,    \
            int splits1, int rows2, int splits2, int ns_iters, int grid,       \
            int group, float pivot_c, float shift_c, int* form_out,            \
            void* stream) {                                                    \
     return launch_round<T>(device, vs, scales, ref, out, part, zs, vbar, q1,  \
-                           w, ws, nsn, ctr, m, d, r, rows1, splits1, rows2,   \
+                           w, fs, nsn, ctr, m, d, r, rows1, splits1, rows2,   \
                            splits2, ns_iters, grid, group, pivot_c, shift_c,  \
                            form_out, stream);                                 \
   }

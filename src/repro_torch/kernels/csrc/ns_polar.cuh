@@ -4,33 +4,24 @@
 //
 // Replaces _ns_polar_tile of src/repro/kernels/procrustes_align.py (:90-98):
 // X <- G / max(||G||_F, 1e-30), then ns_iters steps of
-// X <- 0.5 * X (3I - X^T X), all in f32.  Three forms:
+// X <- 0.5 * X (3I - X^T X), all in f32, on a group of g blocks of a
+// cooperative launch a machine.  Two forms:
 //
-// * ns_polar_block: one block owns one machine's tile (B5/B6 past
-//   kNsSmemMaxR).  X, X^T X and a temporary take
-//   ns_tile_floats(r) = 3 rp (rp + 1) floats (rp = r rounded up to 4).  Up
-//   to kNsSmemMaxR (136; 218 KB) they fit dynamic shared memory, but B5/B6
-//   run the group form there; past it they live in a global-memory
-//   workspace slot of ns_tile_floats(r) floats that the wrapper allocates
-//   (0.8 MB a machine at r = 256, held in L2): the same code, instantiated
-//   with kGlobal, reads those tiles with ld.global.ca (the block's own
-//   writes, ordered by __syncthreads, never the non-coherent read-only
-//   path).
-// * ns_polar_group: a group of g blocks of a cooperative launch owns one
-//   machine (B3, B5/B6 and B7's hops up to kNsSmemMaxR), each block r / g
-//   columns of X.  A step stages the whole of X in shared memory from L2,
-//   computes the block's columns of M = 3I - X^T X (M is symmetric: they
-//   are its rows) and then its columns of 0.5 X M into the other of two
-//   iterate buffers, and the group meets once.  The group meets at a
-//   counter in global memory (group_sync), which is safe because a
-//   cooperative launch keeps every block resident.
-// * ns_polar_group_wide: the same group past kNsSmemMaxR (B3 and B7's
-//   hops), where the whole X no longer fits a block's shared memory (r =
-//   256: 266 KB).  Each block holds only its own columns of M and streams
-//   X from L2 in slices of rows through a two-stage cp.async ring, twice a
-//   step: once for its columns of M (sum over the rows t of X[t][k]
-//   X[t][i0 + c]), once for its columns of 0.5 X M.  At r = 256 a machine's
-//   iterate is 256 KB, and the card's 50 MB L2 holds every machine's.
+// * ns_polar_group: up to kNsSmemMaxR (B3, B5/B6 and B7's hops), each
+//   block r / g columns of X.  A step stages the whole of X in shared
+//   memory from L2, computes the block's columns of M = 3I - X^T X (M is
+//   symmetric: they are its rows) and then its columns of 0.5 X M into the
+//   other of two iterate buffers, and the group meets once.  The group
+//   meets at a counter in global memory (group_sync), which is safe
+//   because a cooperative launch keeps every block resident.
+// * ns_polar_group_wide: the same group past kNsSmemMaxR (B3, B5/B6 and
+//   B7's hops), where the whole X no longer fits a block's shared memory
+//   (r = 256: 266 KB).  Each block holds only its own columns of M and
+//   streams X from L2 in slices of rows through a two-stage cp.async ring,
+//   twice a step: once for its columns of M (sum over the rows t of
+//   X[t][k] X[t][i0 + c]), once for its columns of 0.5 X M.  At r = 256 a
+//   machine's iterate is 256 KB, and the card's 50 MB L2 holds every
+//   machine's.
 //   ns_polar_grouped picks the form from r.
 #pragma once
 
@@ -43,150 +34,9 @@
 
 namespace rt {
 
-// Largest r whose three padded tiles fit the 227 KB a block may use.
+// Largest r whose grouped form stages the whole iterate
+// (ns_group_smem_bytes) in the 227 KB a block may use.
 constexpr int kNsSmemMaxR = 136;
-
-// Load of a working-tile element: a plain (shared-memory) load, or an
-// L1-cached global load for the workspace form.
-template <bool kGlobal>
-__device__ __forceinline__ float tile_ld(const float* p) {
-  if constexpr (kGlobal) {
-    return __ldca(p);
-  } else {
-    return *p;
-  }
-}
-
-// C = op(X) * Y over rp x rp tiles (row stride ld), one 4x4 strided patch
-// per thread per step: rows ti + u*nt, cols tj + v*nt.  kTransA selects
-// C = X^T Y (reads rows of X) over C = X Y.
-template <bool kTransA, bool kGlobal>
-__device__ void small_matmul(const float* __restrict__ x,
-                             const float* __restrict__ y,
-                             float* __restrict__ c, int rp, int ld, int r,
-                             float scale, bool minus_from_3i) {
-  const int nt = rp / 4;
-  for (int t = threadIdx.x; t < nt * nt; t += blockDim.x) {
-    const int ti = t / nt;
-    const int tj = t % nt;
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int k = 0; k < rp; ++k) {
-      float a[4];
-      float b[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        a[u] = tile_ld<kGlobal>(kTransA ? x + k * ld + ti + u * nt
-                                        : x + (ti + u * nt) * ld + k);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) b[v] = tile_ld<kGlobal>(y + k * ld + tj + v * nt);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = ti + u * nt;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int j = tj + v * nt;
-        float val = acc[u][v];
-        if (minus_from_3i) val = ((i == j && i < r) ? 3.f : 0.f) - val;
-        c[i * ld + j] = scale * val;
-      }
-    }
-  }
-}
-
-// Floats of the three working tiles at edge r.
-__host__ __device__ inline size_t ns_tile_floats(int r) {
-  const size_t rp = static_cast<size_t>((r + 3) & ~3);
-  return 3 * rp * (rp + 1);
-}
-
-// One block: reduce the splits of one machine's partial Grams
-// (part_z: (splits, r, r)) into the r x r Gram, Frobenius-normalise it
-// (1e-30 floor) and run ns_iters Newton-Schulz steps on the tiles (shared
-// memory, or a workspace slot when kGlobal); write Z (r, r) to out_z.
-// tiles holds ns_tile_floats(r); warp_sums one float per warp of the
-// block.  Ends with a block barrier, so the caller may reuse tiles at once.
-template <bool kGlobal>
-__device__ inline void ns_polar_tiles(const float* __restrict__ part_z,
-                                      float* __restrict__ out_z, int splits,
-                                      int r, int ns_iters, float* tiles,
-                                      float* warp_sums) {
-  const int rp = (r + 3) & ~3;  // padded edge: rows/cols >= r stay zero
-  const int ld = rp + 1;        // odd stride: column reads hit distinct banks
-  float* x = tiles;
-  float* t = x + rp * ld;
-  float* y = t + rp * ld;
-  const size_t rr = static_cast<size_t>(r) * r;
-  const int nwarps = blockDim.x / 32;
-
-  float sq = 0.f;
-  for (int e = threadIdx.x; e < rp * rp; e += blockDim.x) {
-    const int i = e / rp;
-    const int j = e % rp;
-    float g = 0.f;
-    if (i < r && j < r) {
-      for (int s = 0; s < splits; ++s) g += part_z[s * rr + i * r + j];
-    }
-    x[i * ld + j] = g;
-    sq = fmaf(g, g, sq);
-  }
-  // Deterministic block reduction of sum(g * g): warp tree, then thread 0
-  // adds the per-warp sums in order.
-  for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = sq;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int w = 0; w < nwarps; ++w) total += warp_sums[w];
-    warp_sums[0] = total;
-  }
-  __syncthreads();
-  const float norm = fmaxf(sqrtf(warp_sums[0]), 1e-30f);
-  for (int e = threadIdx.x; e < rp * rp; e += blockDim.x) {
-    const int i = e / rp;
-    const int j = e % rp;
-    x[i * ld + j] = x[i * ld + j] / norm;
-  }
-  __syncthreads();
-
-  for (int it = 0; it < ns_iters; ++it) {
-    small_matmul<true, kGlobal>(x, x, t, rp, ld, r, 1.f, true);  // t = 3I - x^T x
-    __syncthreads();
-    small_matmul<false, kGlobal>(x, t, y, rp, ld, r, 0.5f, false);  // y = 0.5 x t
-    __syncthreads();
-    float* tmp = x;
-    x = y;
-    y = tmp;
-  }
-
-  for (int e = threadIdx.x; e < r * r; e += blockDim.x) {
-    const int i = e / r;
-    const int j = e % r;
-    out_z[e] = x[i * ld + j];
-  }
-  __syncthreads();
-}
-
-// ns_polar_tiles with the tiles in shared memory (smem, r <= kNsSmemMaxR)
-// or in the workspace slot ws (ns_tile_floats(r) floats, r past it).
-__device__ inline void ns_polar_block(const float* __restrict__ part_z,
-                                      float* __restrict__ out_z, int splits,
-                                      int r, int ns_iters, float* smem,
-                                      float* ws, float* warp_sums) {
-  if (r <= kNsSmemMaxR) {
-    ns_polar_tiles<false>(part_z, out_z, splits, r, ns_iters, smem, warp_sums);
-  } else {
-    ns_polar_tiles<true>(part_z, out_z, splits, r, ns_iters, ws, warp_sums);
-  }
-}
 
 // Barrier of the g blocks that share counter ctr (zero before the first
 // barrier): the n-th barrier waits for target = n g arrivals.  Writes
@@ -225,11 +75,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // depth-major (2 rp nr floats, nr <= rp the block's columns rounded up to
 // 4); and, when a block has few columns, the depth-split partial sums (at
 // most 4096 floats, and then rp nr < 4096).
-__host__ __device__ inline size_t ns_group_smem_bytes(int r) {
+__host__ __device__ constexpr size_t ns_group_smem_bytes(int r) {
   const size_t rp = static_cast<size_t>((r + 3) & ~3);
   const size_t rest = 2 * rp * rp > 12288 ? 2 * rp * rp : 12288;
   return (rp * (rp + 4) + rest) * sizeof(float);
 }
+static_assert(ns_group_smem_bytes(kNsSmemMaxR) <= 232448 &&
+                  ns_group_smem_bytes(kNsSmemMaxR + 1) > 232448,
+              "kNsSmemMaxR is the widest edge whose staged iterate fits");
 
 // Depth splits of a product of `tasks` tasks: up to 4 groups of threads
 // share the depth when there are fewer tasks than threads.

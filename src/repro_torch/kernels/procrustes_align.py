@@ -24,10 +24,13 @@ are one cooperative launch each (``csrc/fused_round.cu``) of the grid
 ``_round_plan`` gives: phases that reduce over d meet at grid-wide
 barriers and hand over through scratch this module allocates once per
 call, before the first launch; the Newton-Schulz phase spreads each
-machine over a group of blocks (up to ``NS_SMEM_MAX_R``; one block a
-machine on a global workspace past it, ``_ns_workspace``).
+machine over a group of blocks (the iterate staged in shared memory up to
+``NS_SMEM_MAX_R``, streamed from L2 past it, up to ``NS_GROUP_MAX_R``),
+and each CholeskyQR factor runs on block 0 in shared memory up to
+``NS_SMEM_MAX_R`` and on the whole grid in 32-column panels past it, its
+trailing matrix in a global scratch (``_factor_scratch``).
 ``<wrapper>.last_form`` says which Newton-Schulz form ran (B3, B5, B6,
-B7).
+B7), ``<wrapper>.last_factor`` which factor form (B5, B6, B7).
 
 Each wrapper sends a CUDA tensor to its kernel (or raises) and a CPU
 tensor to the plain version in ``repro_torch.kernels.ref``; each counts
@@ -85,16 +88,19 @@ _NS_GROUP_COLS = 8  # fewest iterate columns a block of a Newton-Schulz group ow
 # Past NS_SMEM_MAX_R: the columns of M a block computes a pass of the
 # streamed grouped form (csrc/ns_polar.cuh kWideCols), the fewest it owns.
 _NS_WIDE_COLS = 16
-# Largest r whose Newton-Schulz working set (3 padded r x r f32 tiles)
-# fits the 227 KB of shared memory a block may use on Hopper
-# (csrc/ns_polar.cuh kNsSmemMaxR): up to it a block of a Newton-Schulz
-# group stages the whole iterate, past it the grouped form streams the
-# iterate from L2 (B3, B7) and B5/B6 take one block a machine on a global
-# workspace.
+# Largest r whose grouped Newton-Schulz form stages the whole iterate in
+# the 227 KB of shared memory a block may use on Hopper (csrc/ns_polar.cuh
+# kNsSmemMaxR): past it the grouped form streams the iterate from L2, and
+# the round kernels' CholeskyQR factor leaves block 0's shared memory for
+# the whole grid (B5-B7).
 NS_SMEM_MAX_R = 136
 # Largest r of the streamed grouped form: its 4-row slices, a block's M
 # columns and partial sums in 227 KB (csrc/ns_polar.cuh kNsGroupMaxR).
+# B3 and B5-B7 refuse a CUDA stack past it.
 NS_GROUP_MAX_R = 2248
+# Columns a panel of the grid factor past NS_SMEM_MAX_R (csrc/round_tiles.cuh
+# kPanel).
+_FACTOR_PANEL = 32
 _MAX_GRID_YZ = 65535
 # Most d-splits of a round's Gram phase over a wire stack: ring chunks are
 # grouped into splits of whole chunks beyond this (bounds the scratch).
@@ -174,10 +180,10 @@ def _round_plan(m: int, d: int, r: int, coresident: int,
     at most ``coresident`` blocks: the stack's Gram split (about one unit a
     block; a given ``rows1``, a ring's whole chunks, is divided evenly by
     the largest factor that keeps it within one unit a block), the S1 / S2
-    split (about one unit a block), and the Newton-Schulz group, g blocks a
-    machine owning ceil(r / g) columns of the iterate each (at least
-    ``_NS_GROUP_COLS``; 1 past ``NS_SMEM_MAX_R`` or when m exceeds the
-    grid, and the blocks take machines in turn)."""
+    split (about one unit a block), and the Newton-Schulz group
+    (``_ns_group``, as B3's and B7's: g blocks a machine, each with its
+    columns of the iterate; 1 when m exceeds the grid, and the blocks
+    take machines in turn)."""
     tiles = math.ceil(r / _GRAM_TILE) ** 2
     if rows1 is None:
         rows1, splits1 = _split_rows(d, m, r, coresident)
@@ -188,7 +194,7 @@ def _round_plan(m: int, d: int, r: int, coresident: int,
         rows1 //= parts
         splits1 = math.ceil(d / rows1)
     rows2, splits2 = _split_rows(d, 1, r, coresident)
-    group = _ns_group(m, r, coresident) if r <= NS_SMEM_MAX_R else 1
+    group = _ns_group(m, r, coresident)
     units = max(m * tiles * splits1, tiles * splits2, m * group,
                 math.ceil(d / _AVG_ROWS) * math.ceil(r / _GRAM_TILE))
     return min(coresident, units), rows1, splits1, rows2, splits2, group
@@ -227,15 +233,23 @@ def _check_stack(name: str, vs: torch.Tensor, other: torch.Tensor,
     return m, d, r
 
 
-def _ns_workspace(slots: int, r: int, device: torch.device) -> torch.Tensor | None:
-    """Global-memory Newton-Schulz / Cholesky tiles of the round kernels
-    (B5/B6; B7's tail) past NS_SMEM_MAX_R:
-    ``slots`` slots of 3 rp (rp + 1) f32 (rp = r rounded up to 4;
-    csrc/ns_polar.cuh ns_tile_floats), else None (shared memory)."""
+def _factor_scratch(r: int, device: torch.device) -> torch.Tensor | None:
+    """Global scratch of the round kernels' grid factor (B5/B6; B7's tail)
+    past NS_SMEM_MAX_R: the trailing matrix and the substitution's
+    right-hand sides (r x r each), tr(S) and a verdict word a panel
+    (csrc/round_tiles.cuh factor_scratch_floats); else None (block 0's
+    shared memory)."""
     if r <= NS_SMEM_MAX_R:
         return None
-    rp = (r + 3) // 4 * 4
-    return torch.empty((slots, 3 * rp * (rp + 1)), dtype=torch.float32, device=device)
+    panels = math.ceil(r / _FACTOR_PANEL)
+    return torch.empty((2 * r * r + 1 + panels,), dtype=torch.float32, device=device)
+
+
+def _factor_form(r: int) -> str:
+    """The CholeskyQR factor form of the round kernels at edge r."""
+    if r <= NS_SMEM_MAX_R:
+        return "block 0, shared memory"
+    return f"the grid, {math.ceil(r / _FACTOR_PANEL)} panels of {_FACTOR_PANEL} columns"
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -354,10 +368,7 @@ def align_average(vs: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
 
 def _ns_form(group: int) -> str:
     """The Newton-Schulz form a kernel reports it ran: g blocks a machine
-    with the iterate in shared memory, -g with it streamed from L2, or 0
-    for one block a machine on a workspace slot."""
-    if group == 0:
-        return "one block a machine, workspace tiles"
+    with the iterate in shared memory, -g with it streamed from L2."""
     if group == 1:
         return "one block a machine, shared-memory tiles"
     if group == -1:
@@ -372,10 +383,12 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     ``vs``; round k's (d, r) f32 output is round k+1's reference, with no
     torch op between launches (scratch and both output buffers are
     allocated first).  Counts one launch per round on ``wrapper`` and
-    records its grid and Newton-Schulz form (``_ns_form``)."""
+    records its grid, Newton-Schulz form (``_ns_form``) and factor form
+    (``_factor_form``)."""
     from repro_torch.core.orthonorm import cholqr_guard_coeffs
 
     m, d, r = vs.shape
+    _check_group_r(wrapper.__name__, r)
     _build.require_sm90(vs)
     dev = vs.device
     grid, rows1, splits1, rows2, splits2, group = _round_plan(
@@ -387,7 +400,7 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
     vbar = torch.empty((d, r), **f32)
     q1 = torch.empty((d, r), **f32)
     w = torch.empty((2, r, r), **f32)
-    ws = _ns_workspace(m, r, dev)
+    fs = _factor_scratch(r, dev)
     nsn = torch.empty((m, group), **f32)
     ctr = torch.empty((m,), dtype=torch.int32, device=dev)
     outs = (torch.empty((d, r), **f32), torch.empty((d, r), **f32))
@@ -401,7 +414,7 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
         code = entry(
             dev.index, vs.data_ptr(), scales_ptr, cur.data_ptr(),
             out.data_ptr(), part.data_ptr(), zs.data_ptr(), vbar.data_ptr(),
-            q1.data_ptr(), w.data_ptr(), _ptr(ws), nsn.data_ptr(), ctr.data_ptr(),
+            q1.data_ptr(), w.data_ptr(), _ptr(fs), nsn.data_ptr(), ctr.data_ptr(),
             m, d, r, rows1, splits1, rows2, splits2, ns_iters, grid, group,
             pivot_c, shift_c, ctypes.addressof(form), stream,
         )
@@ -410,6 +423,7 @@ def _round_launches(wrapper, vs, ref, scales, *, n_iter, rows1, ns_iters):
         cur = out
     wrapper.grid = grid
     wrapper.last_form = _ns_form(form.value)
+    wrapper.last_factor = _factor_form(r)
     return cur
 
 
@@ -658,7 +672,7 @@ def fused_ring_round_remote(
     part = torch.empty((max(splits1, splits2), r, r), **f32)
     z = torch.empty((r, r), **f32)
     w = torch.empty((2, r, r), **f32)
-    ws = _ns_workspace(1, r, dev)
+    fs = _factor_scratch(r, dev)
     nsn = torch.empty((ngroup,), **f32)
     ctr = torch.empty((1,), dtype=torch.int32, device=dev)
     status = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -680,7 +694,7 @@ def fused_ring_round_remote(
         _build.check(lib.rt_remote_hop(
             dev.index, v_local.data_ptr(), ref.data_ptr(), out.data_ptr(),
             part.data_ptr(), z.data_ptr(), vbar.data_ptr(), q1.data_ptr(),
-            w.data_ptr(), _ptr(ws), nsn.data_ptr(), ctr.data_ptr(), mine, right,
+            w.data_ptr(), _ptr(fs), nsn.data_ptr(), ctr.data_ptr(), mine, right,
             left, status.data_ptr(), seq0, m, d, r, rows1, splits1, rows2, splits2,
             ns_iters, grid, ngroup, i, pivot_c, shift_c, stream.cuda_stream), name)
         done.record(stream)
@@ -688,6 +702,7 @@ def fused_ring_round_remote(
     fused_ring_round_remote.launches += 1
     fused_ring_round_remote.grid = grid
     fused_ring_round_remote.last_form = _ns_form(-ngroup if r > NS_SMEM_MAX_R else ngroup)
+    fused_ring_round_remote.last_factor = _factor_form(r)
     if ex is not None:
         ex.calls += 1
     if ex is None:  # one rank: nothing to wait for
@@ -726,4 +741,7 @@ fused_round.last_form = None
 fused_ring_round.last_form = None
 batched_gram_polar.last_form = None
 fused_ring_round_remote.last_form = None
+fused_round.last_factor = None
+fused_ring_round.last_factor = None
+fused_ring_round_remote.last_factor = None
 fused_ring_round_remote.last_hops = []

@@ -30,13 +30,10 @@ Where the port's rules differ from the reference's (each a named case in
     (correctness path)" and its compute pays ``interpret_penalty``: on
     CPU tensors the wrappers run their plain versions.
   * **The wrappers' own limits.**  B3 (the Gram + Newton-Schulz kernel of
-    every non-fused cuda newton-schulz cell) refuses r past
-    ``NS_GROUP_MAX_R``; on the sm_90 model those cells are infeasible
-    there.
-  * **B5/B6 past ``NS_SMEM_MAX_R``** run their Newton-Schulz steps one
-    block a machine on a global workspace: on the sm_90 model the fused
-    cells' compute is priced at that form's measured rate
-    (``WIDE_ROUND_NS_FLOPS_S``), not at the card's peak.
+    every non-fused cuda newton-schulz cell) and B5/B6 (the fused cells)
+    refuse r past ``NS_GROUP_MAX_R``, where their grouped Newton-Schulz
+    form's slices no longer fit shared memory; on the sm_90 model those
+    cells are infeasible there.
   * **The fused ring's gate** is the staged stack in HBM (see
     ``fused_ring_hbm_bytes``), in place of the reference's VMEM envelope.
 """
@@ -54,7 +51,7 @@ from repro_torch.comm.topology import TOPOLOGIES, TOPOLOGY_CHOICES, comm_cost
 from repro_torch.core.orthonorm import ORTH_METHODS
 from repro_torch.core.procrustes import DEFAULT_NS_ITERS, POLAR_METHODS
 from repro_torch.kernels.ops import BACKENDS as BACKEND_CHOICES  # includes "auto"
-from repro_torch.kernels.procrustes_align import NS_GROUP_MAX_R, NS_SMEM_MAX_R
+from repro_torch.kernels.procrustes_align import NS_GROUP_MAX_R
 from repro_torch.plan.calibration import Calibration
 from repro_torch.plan.roofline import DeviceModel, device_model
 
@@ -70,7 +67,6 @@ __all__ = [
     "COMM_BITS_CHOICES",
     "PLAN_CHOICES",
     "MIN_RING_CHUNK",
-    "WIDE_ROUND_NS_FLOPS_S",
     "choose_ring_chunk",
     "stacked_round_flops",
     "fused_ring_hbm_bytes",
@@ -93,14 +89,6 @@ _CHOLQR2_OPS = 10
 _BASE_STAGE_OPS = 3  # gram, average, apply
 
 MIN_RING_CHUNK = 256
-
-# B5/B6 past NS_SMEM_MAX_R: one block a machine runs the 24 Newton-Schulz
-# steps (4 r^3 FLOP each) on a global workspace.  The measured rate of a
-# whole round a machine, 24 * 4 r^3 FLOP over the round's time: B5 at
-# (8, 8192, 192) 4.857e10 and (8, 8192, 256) 4.758e10 FLOP/s, measured
-# with tools/h100_model.py on an NVIDIA H100 80GB HBM3 at 700.00 W; their
-# mean.
-WIDE_ROUND_NS_FLOPS_S = 4.81e10
 
 _SM90_KIND = "h100"
 
@@ -358,10 +346,9 @@ def _score_one(
         else:
             feasible = False
             notes.append("cuda kernels run on sm_90 only")
-    if (on_sm90 and b == "cuda" and p == "newton-schulz" and not (fused or fused_ring)
-            and r > NS_GROUP_MAX_R):
+    if on_sm90 and b == "cuda" and p == "newton-schulz" and r > NS_GROUP_MAX_R:
         feasible = False
-        notes.append(f"B3 refuses r > {NS_GROUP_MAX_R}")
+        notes.append(f"{'B5/B6' if fused or fused_ring else 'B3'} refuses r > {NS_GROUP_MAX_R}")
     if fused_ring:
         staged = fused_ring_hbm_bytes(m=m, d=d, r=r, n_iter=n, comm_bits=cb)
         if staged > 0.25 * device.hbm_cap_bytes:
@@ -426,10 +413,6 @@ def _score_one(
     compute_s = flops / device.peak_flops
     if kernels_in_play and not on_sm90:
         compute_s *= device.interpret_penalty
-    if (fused or fused_ring) and on_sm90 and r > NS_SMEM_MAX_R:
-        # One block a machine runs the Newton-Schulz steps: the measured
-        # round rate of that form, the machines side by side.
-        compute_s = max(compute_s, n * _polar_flops(p, r) / WIDE_ROUND_NS_FLOPS_S)
 
     # ---- memory ----------------------------------------------------------
     if fused_ring:

@@ -13,16 +13,17 @@ them: ``gram(x)`` and ``gram(x, symmetric=True)`` (the reference's option,
 which changes nothing here) give the same bits and an exactly symmetric
 result, and ptxas must report its kernels within 128 registers and
 without spills (B8's kernels at head_dim 256: without spills).  B3, B5,
-B6 and B7 also run at r = 137, 192 and 256, where B5/B6's Newton-Schulz and Cholesky tiles live
-in a global workspace and B3's and B7's grouped Newton-Schulz form streams
-its iterate from L2; B8 at head_dim 136, 192, 200 and 256 (bf16: its
+B6 and B7 also run at r = 137, 192 and 256, where their grouped
+Newton-Schulz form streams its iterate from L2 and the round kernels'
+CholeskyQR factor runs on the whole grid (B5/B6 also on rank-deficient
+stacks, the guard's shifted factor, and refusing r past 2248); B8 at head_dim 136, 192, 200 and 256 (bf16: its
 64-key-tile wgmma form, at those tile edges; f32: its wide form);
 and a subprocess makes one of B8's bounded waits run out and sees the
 launch failure, then the wrapper's error.  B2 runs at the edges of its
 128-wide tile and its clusters (m 1, 8, 17; d 1 .. 8192; r 1 .. 256); B2,
 B3, B5 and B6 give the same bits on a second call; B5 and B6 run in each
-Newton-Schulz form (grouped, one block a machine, workspace) and report
-the one they ran; B3 runs its grouped form at ragged shapes, r up to 256
+Newton-Schulz form (grouped, one block a machine, staged or streamed) and
+report the one they ran; B3 runs its grouped form at ragged shapes, r up to 256
 and m past the groups the grid holds, and reports its form; ptxas must
 report no spills in B2, the round kernels, B3's Newton-Schulz kernel and
 B7's hop kernel.  Tolerance: 4 eps sqrt(k) times the largest
@@ -245,9 +246,10 @@ def test_gram_stage_and_apply_beyond_one_tile(dev):
 
 @pytest.mark.parametrize("r", [137, 192, 256])
 def test_newton_schulz_kernels_past_shared_memory(dev, r):
-    """Past r = 136 the Newton-Schulz and Cholesky tiles live in a global
-    workspace: B3, B5 and B6 (every wire) held to their plain versions
-    with the bars of r <= 136."""
+    """Past r = 136 the grouped Newton-Schulz form streams its iterate
+    from L2 and the round kernels' factor runs on the whole grid: B3, B5
+    and B6 (every wire) held to their plain versions with the bars of
+    r <= 136."""
     vs = _stack(dev, 3, 300, r)
     ref = vs[0].contiguous()
     kernels.reset_launch_counts()
@@ -312,14 +314,19 @@ def test_batched_gram_kernel_edges(dev, m, d, r):
 
 def test_batched_gram_kernel_has_no_spills(dev):
     """ptxas: both B2 instances (16-byte copies or register fetches) and
-    the six round instances (f32, bf16, int8 wires, each with 16-byte
-    copies or register fetches) spill nothing."""
+    every round instance (f32, bf16, int8 wires, each with 16-byte copies
+    or register fetches; each holds both Newton-Schulz forms) and the
+    CholeskyQR2 tail they call (both factor forms, one function a VEC
+    value) spill nothing: every function of the two sources.  B7's hop
+    instances: the test below."""
     from repro_torch.kernels import _build
 
     for source, kernel, count in (("procrustes_align.cu", "batched_gram_kernel", 2),
                                   ("fused_round.cu", "fused_round_kernel", 6)):
-        usage = {k: u for k, u in _build.ptxas_usage(source).items() if kernel in k}
-        assert len(usage) == count, usage
+        usage = _build.ptxas_usage(source)
+        assert len([k for k in usage if kernel in k]) == count, usage
+        if source == "fused_round.cu":
+            assert len([k for k in usage if "cholqr2_tail" in k]) == 2, usage
         for name, u in usage.items():
             assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
 
@@ -361,21 +368,30 @@ def test_batched_gram_polar_grouped_forms(dev, m, d, r, form):
 
 def test_newton_schulz_group_kernels_have_no_spills(dev):
     """ptxas: B3's Newton-Schulz kernel (both grouped forms in one
-    instance) and both instances of B7's hop kernel spill nothing."""
+    instance), both instances of B7's hop kernel and the CholeskyQR2 tail
+    they call (both factor forms) spill nothing: every function of
+    fused_ring_remote.cu."""
     from repro_torch.kernels import _build
 
     for source, kernel, count in (("procrustes_align.cu", "ns_group_kernel", 1),
                                   ("fused_ring_remote.cu", "remote_hop_kernel", 2)):
-        usage = {k: u for k, u in _build.ptxas_usage(source).items() if kernel in k}
-        assert len(usage) == count, usage
-        for name, u in usage.items():
+        usage = _build.ptxas_usage(source)
+        assert len([k for k in usage if kernel in k]) == count, usage
+        if source == "fused_ring_remote.cu":
+            assert len([k for k in usage if "cholqr2_tail" in k]) == 2, usage
+            checked = usage
+        else:
+            checked = {k: u for k, u in usage.items() if kernel in k}
+        for name, u in checked.items():
             assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
 
 
-def test_round_kernels_give_the_same_bits_twice(dev):
+@pytest.mark.parametrize("r", [128, 256])
+def test_round_kernels_give_the_same_bits_twice(dev, r):
     """B2, B3, B5 and B6 (every wire) sum in a fixed order: a second call
-    gives the same bits."""
-    vs = _stack(dev, 8, 8192, 128)
+    gives the same bits, at r = 128 and past r = 136 (the streamed
+    Newton-Schulz form and the grid factor)."""
+    vs = _stack(dev, 8, 8192, r)
     ref = vs[0].contiguous()
     w8, scales = _int8_wire(vs)
     calls = {
@@ -397,20 +413,23 @@ def test_round_kernels_give_the_same_bits_twice(dev):
     (33, 1000, 128, "grouped, 4 blocks a machine"),
     (200, 300, 16, "one block a machine, shared-memory tiles"),
     (3, 205, 5, "one block a machine, shared-memory tiles"),
-    (33, 1000, 137, "one block a machine, workspace tiles"),
-    (8, 1000, 256, "one block a machine, workspace tiles"),
+    (33, 1000, 137, "grouped, 4 blocks a machine, iterate streamed from L2"),
+    (8, 1000, 256, "grouped, 16 blocks a machine, iterate streamed from L2"),
+    (200, 300, 192, "one block a machine, iterate streamed from L2"),
 ])
 def test_fused_round_newton_schulz_forms(dev, m, d, r, form):
     """B5 and B6 (every wire) report the Newton-Schulz form they ran and
     hold their plain versions in each: a group of blocks a machine, one
     block a machine when m exceeds what the grid can group (the blocks
-    take machines in turn), and the workspace tiles past r = 136.  The
-    forms assume a 132-SM card (one round block an SM)."""
+    take machines in turn), the iterate staged in shared memory up to
+    r = 136 and streamed from L2 past it (where the factor runs on the
+    grid).  The forms assume a 132-SM card (one round block an SM)."""
     vs = _stack(dev, m, d, r)
     ref = vs[0].contiguous()
     _hold_round(tpa.fused_round(vs, ref), tref.fused_round(vs, ref))
     if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
         assert tpa.fused_round.last_form == form
+    assert tpa.fused_round.last_factor == tpa._factor_form(r)
     for wire in ("f32", "bf16", "int8"):
         w, scales = vs, None
         if wire == "bf16":
@@ -437,6 +456,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     wide = torch.zeros(1, 8, tpa.NS_GROUP_MAX_R + 1, device=dev)
     with pytest.raises(ValueError):  # past the grouped Newton-Schulz form
         tpa.batched_gram_polar(wide, wide[0])
+    with pytest.raises(ValueError, match="grouped Newton-Schulz"):
+        tpa.fused_round(wide, wide[0])
+    for w in (wide, wide.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="grouped Newton-Schulz"):
+            tpa.fused_ring_round(w, wide[0])
+    w8 = wide.to(torch.int8)
+    with pytest.raises(ValueError, match="grouped Newton-Schulz"):
+        tpa.fused_ring_round(w8, wide[0], torch.ones(1, tpa.NS_GROUP_MAX_R + 1, device=dev))
 
 
 def _hold_round(got, want):
@@ -467,6 +494,31 @@ def test_fused_round_kernel_takes_the_shift(dev):
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
     assert got[:, -1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("m,d,r", [(3, 300, 137), (8, 1000, 256)])
+def test_fused_rounds_take_the_shift_past_shared_memory(dev, m, d, r):
+    """The grid factor's guard: a zero last column in every basis gives a
+    zero pivot in the last panel; every block reads the verdict and the
+    whole factor is redone shifted, in both passes.  B5 and B6 (every
+    wire) held to their plain versions at the round bars, the last column
+    exactly zero."""
+    vs = _stack(dev, m, d, r)
+    vs[:, :, -1] = 0
+    ref = vs[0].contiguous()
+    got = tpa.fused_round(vs, ref)
+    _hold_round(got, tref.fused_round(vs, ref))
+    assert got[:, -1].abs().max().item() == 0.0
+    assert tpa.fused_round.last_factor == tpa._factor_form(r)
+    for wire in ("f32", "bf16", "int8"):
+        w, scales = vs, None
+        if wire == "bf16":
+            w = vs.to(torch.bfloat16)
+        elif wire == "int8":
+            w, scales = _int8_wire(vs)
+        got = tpa.fused_ring_round(w, ref, scales)
+        _hold_round(got, tref.fused_ring_round(w, ref, scales))
+        assert got[:, -1].abs().max().item() == 0.0
 
 
 def _int8_wire(vs, seed=0):
@@ -1345,16 +1397,17 @@ def test_fused_ring_round_remote_kernel_one_card(dev, tmp_path, world):
     plain version's hops, CUDA IPC for the kernel's): each rank's round
     against its plain version and against B6's plain version on the stack
     in its hop order, three rounds reusing the mapped buffers; at r = 128
-    the hops' polar step runs on a group of blocks."""
-    shapes = [(205, 5), (1000, 7), (1000, 128)]
+    the hops' polar step runs on a group of blocks, at r = 192 it streams
+    its iterate from L2 and the last hop's factor runs on the grid."""
+    shapes = [(205, 5), (1000, 7), (1000, 128), (300, 192)]
     res = _remote_world(tmp_path, world, {"mode": "check", "shapes": shapes, "rounds": 3})
     _hold_remote(res, shapes, 3)
 
 
 def test_fused_ring_round_remote_kernel_past_shared_memory(dev, tmp_path):
     """B7 at r = 137, 192 and 256 (the hops' polar step streams its
-    iterate from L2, the Cholesky tiles live in the global workspace), 2
-    ranks sharing the card, two rounds each."""
+    iterate from L2, the last hop's factor runs on the grid), 2 ranks
+    sharing the card, two rounds each."""
     shapes = [(300, 137), (300, 192), (300, 256)]
     res = _remote_world(tmp_path, 2, {"mode": "check", "shapes": shapes, "rounds": 2})
     _hold_remote(res, shapes, 2)
@@ -1394,8 +1447,9 @@ def test_fused_ring_round_remote_refusals(dev):
 @pytest.mark.parametrize("r", [128, 256])
 def test_plan_auto_on_sm90_picks_a_cuda_cell_then_no_b5(dev, r):
     """On sm_90 the stacked plan at the paper-pca width is the B5 cell at
-    r = 128 and no B5 cell at r = 256, where B5 runs one block a machine;
-    the planned rounds run the picked cell's kernels and equal its run."""
+    r = 128 and, since B5 runs its grouped forms past r = 136 as well, at
+    r = 256 too; the planned rounds run the picked cell's kernels and
+    equal its run."""
     from repro_torch.core.eigenspace import refinement_rounds
     from repro_torch.plan import resolve_plan
 
@@ -1404,7 +1458,7 @@ def test_plan_auto_on_sm90_picks_a_cuda_cell_then_no_b5(dev, r):
                       tensor_device=dev)
     assert pl.device_kind == "h100" and pl.source == "planner"
     b5 = (pl.backend, pl.polar, pl.orth) == ("cuda", "newton-schulz", "cholesky-qr2")
-    assert b5 == (r == 128)
+    assert b5
     kernels.reset_launch_counts()
     got = refinement_rounds(vs, n_iter=2, plan="auto")
     counts = kernels.launch_counts()

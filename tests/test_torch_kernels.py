@@ -221,25 +221,28 @@ def test_split_then_reduce_equals_plain():
 @pytest.mark.parametrize("m,d,r", [
     (8, 8192, 128), (1, 7, 3), (33, 8192, 128), (8, 8192, 136), (8, 8192, 137),
     (8, 8192, 256), (3, 205, 5), (1, 8192, 129), (200, 300, 16), (4, 300, 136),
+    (8, 8192, 192), (200, 300, 192), (2, 2300, 2248),
 ])
 @pytest.mark.parametrize("coresident", [132, 114, 8])
 def test_round_plan_groups_cover_r(m, d, r, coresident):
     """The round's plan: a grid no larger than the card holds at once;
-    every machine's Newton-Schulz group has at least one block, covers r,
-    and gives each block rows; a group of more than one block has a
-    machine to itself (m g <= grid), and past NS_SMEM_MAX_R the group is
-    one block; both d-splits cover d."""
+    every machine's Newton-Schulz group is B3's and B7's rule
+    (``_ns_group``) at every r, has at least one block, and gives each
+    block columns, together covering r (a multiple of 4 each past
+    NS_SMEM_MAX_R); a group of more than one block has a machine to itself
+    (m g <= grid); both d-splits cover d."""
     grid, rows1, splits1, rows2, splits2, g = tpa._round_plan(m, d, r, coresident)
     assert 1 <= grid <= coresident
     assert g >= 1 and (g == 1 or m * g <= grid)
-    rb = -(-r // g)
-    assert (g - 1) * rb < r <= g * rb
-    if r > tpa.NS_SMEM_MAX_R:
-        assert g == 1
+    assert g == tpa._ns_group(m, r, coresident)
+    spans = _blocks_of(r, g)
+    assert spans[-1][1] == r and all(a < b for a, b in spans)
     for rows, splits in ((rows1, splits1), (rows2, splits2)):
         assert (splits - 1) * rows < d <= splits * rows
     if (m, d, r, coresident) == (8, 8192, 128, 132):
         assert (g, rows1, splits1) == (16, 512, 16)
+    if (m, d, r, coresident) == (8, 8192, 256, 132):
+        assert (g, grid) == (16, 132)
     # A ring's whole chunks, divided evenly only as far as they fill the grid.
     tiles = (-(-r // tpa._GRAM_TILE)) ** 2
     for chunk in (1000, 2048, 33):
@@ -307,13 +310,20 @@ def test_hop_plan_covers_d_and_r(d, r, coresident):
 
 
 def test_round_plan_keeps_its_groups():
-    """B5/B6 keep their plan: the grouped rule up to NS_SMEM_MAX_R (shared
-    with B3's and B7's plans), one block a machine past it."""
+    """B5/B6 keep their plan up to NS_SMEM_MAX_R (the grouped rule shared
+    with B3's and B7's plans) and take the same rule past it: 16 blocks a
+    machine at (8, 8192, 256) on 132 blocks, each with columns (a multiple
+    of 4, at least _NS_WIDE_COLS of them)."""
     for m, r, blocks in ((8, 128, 132), (33, 128, 132), (3, 5, 132), (200, 16, 132),
                          (4, 136, 114)):
         want = max(1, min(blocks // m, -(-r // tpa._NS_GROUP_COLS)))
         assert tpa._round_plan(m, 8192, r, blocks)[5] == -(-r // -(-r // want))
-    assert tpa._round_plan(8, 8192, 256, 132)[5] == 1
+    assert tpa._round_plan(8, 8192, 256, 132)[5] == 16
+    for m, r, blocks, g in ((8, 192, 132, 12), (3, 137, 132, 9), (200, 192, 132, 1)):
+        assert tpa._round_plan(m, 8192, r, blocks)[5] == g
+        spans = _blocks_of(r, g)
+        assert all(b - a >= min(r, tpa._NS_WIDE_COLS) for a, b in spans[:-1])
+        assert spans[-1][1] == r and spans[-1][0] < r
 
 
 def test_watch_bounds_each_hop():
@@ -348,11 +358,37 @@ def test_watch_bounds_each_hop():
 
 
 def test_ns_form_names_every_form():
-    assert tpa._ns_form(0) == "one block a machine, workspace tiles"
+    assert tpa._factor_form(tpa.NS_SMEM_MAX_R) == "block 0, shared memory"
+    assert tpa._factor_form(256) == "the grid, 8 panels of 32 columns"
     assert tpa._ns_form(1) == "one block a machine, shared-memory tiles"
     assert tpa._ns_form(16) == "grouped, 16 blocks a machine"
     assert tpa._ns_form(-1) == "one block a machine, iterate streamed from L2"
     assert tpa._ns_form(-16) == "grouped, 16 blocks a machine, iterate streamed from L2"
+
+
+def test_parse_ptxas_reports_each_function():
+    """Spills go to the function ptxas gives them for: an entry's own, and
+    those of a device function it calls that was not inlined (listed after
+    each caller's registers, the worst kept), which must not overwrite the
+    entry's."""
+    log = """ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelv
+    32 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 226 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Function properties for _Z4tailv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Function properties for _Z4tailv
+    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+"""
+    assert _build.parse_ptxas(log) == {
+        "_Z6kernelv": {"spill_stores": 4, "spill_loads": 8, "registers": 226},
+        "_Z4tailv": {"spill_stores": 12, "spill_loads": 12},
+        "_Z5otherv": {"spill_stores": 0, "spill_loads": 0, "registers": 40},
+    }
 
 
 def test_wrappers_refuse_other_devices():

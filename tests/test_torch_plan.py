@@ -15,8 +15,8 @@
   ``Plan``, a degraded membership) against the reference's on the CPU.
 * ``load_calibration`` on the committed sweeps gives the reference's
   constants.
-* The H100 model and the rules that only it triggers: B3's r limit,
-  B5/B6 past ``NS_SMEM_MAX_R`` priced at their measured rate.
+* The H100 model and the rules that only it triggers: B3's and B5/B6's r
+  limit; B5/B6 priced alike on both sides of ``NS_SMEM_MAX_R``.
 """
 
 from __future__ import annotations
@@ -379,7 +379,8 @@ def test_rule_cuda_runs_on_an_sm90_model_only():
 def test_rule_b3_refuses_past_its_group_limit():
     """Named port rule 2: on the h100 model the non-fused cuda
     newton-schulz cells (B3) are infeasible past NS_GROUP_MAX_R, where the
-    wrapper raises; the fused cells (B5/B6) and the plain ones stay."""
+    wrapper raises; at the limit they and the fused cells (B5/B6) are
+    feasible (the fused cells' own refusal: the test below)."""
     for r, refused in ((NS_GROUP_MAX_R, False), (NS_GROUP_MAX_R + 8, True)):
         cells = tp.score_cells(m=2, d=4 * r, r=r, n_iter=1, device_kind="h100")
         b3 = [c for c in cells if c.backend == "cuda" and c.polar == "newton-schulz"
@@ -388,38 +389,53 @@ def test_rule_b3_refuses_past_its_group_limit():
         assert all(("B3 refuses" in c.note) == refused for c in b3)
         fused = [c for c in cells if c.backend == "cuda" and c.polar == "newton-schulz"
                  and c.orth == "cholesky-qr2" and c.topology == "gather"]
-        assert fused and all(c.feasible for c in fused)
+        assert fused and (refused or all(c.feasible for c in fused))
     # Off sm_90 the wrappers run their plain versions: no limit applies.
     pinned = tp.score_cells(m=2, d=4 * 2256, r=2256, device_kind="cpu", backend="cuda",
                             polar="newton-schulz", orth="qr", topology="psum")[0]
     assert pinned.feasible
 
 
-def test_rule_fused_rounds_past_shared_memory_priced_at_their_rate():
-    """Named port rule 3: past NS_SMEM_MAX_R, B5/B6 run their
-    Newton-Schulz steps one block a machine; the h100 model prices the
-    fused cells at that form's measured rate, so the stacked plan at
-    r = 256 is no B5 cell, and at r = 128 it is."""
-    def fused(r):
-        [c] = tp.score_cells(m=8, d=8192, r=r, n_iter=2, device_kind="h100",
-                             context="stacked", backend="cuda",
-                             polar="newton-schulz", orth="cholesky-qr2")
-        return c
+def test_rule_fused_rounds_refuse_past_the_group_limit():
+    """Named port rule 2, fused cells: B5/B6 refuse a CUDA stack past
+    NS_GROUP_MAX_R as B3 does (their Newton-Schulz phase is B3's grouped
+    form), so on the h100 model the fused stacked and ring cells are
+    infeasible there; the torch cells stay feasible, and off sm_90 a
+    pinned fused cell runs the plain version (no limit)."""
+    r = NS_GROUP_MAX_R + 8
+    for context in ("stacked", "collective"):
+        cells = tp.score_cells(m=2, d=4 * r, r=r, n_iter=1, device_kind="h100",
+                               context=context)
+        fused = [c for c in cells if c.backend == "cuda" and c.polar == "newton-schulz"
+                 and c.orth == "cholesky-qr2" and c.topology in ("gather", "ring")]
+        assert fused and all(not c.feasible and "B5/B6 refuses" in c.note for c in fused)
+        assert any(c.feasible for c in cells if c.backend == "torch")
+    at = tp.score_cells(m=2, d=4 * NS_GROUP_MAX_R, r=NS_GROUP_MAX_R, n_iter=1,
+                        device_kind="h100", context="stacked", backend="cuda",
+                        polar="newton-schulz", orth="cholesky-qr2")
+    assert at and all(c.feasible and c.note == "" for c in at)
+    [pinned] = tp.score_cells(m=2, d=4 * r, r=r, device_kind="cpu", backend="cuda",
+                              polar="newton-schulz", orth="cholesky-qr2",
+                              topology="gather", context="stacked")
+    assert pinned.feasible
 
-    at, past = fused(NS_SMEM_MAX_R), fused(NS_SMEM_MAX_R + 1)
-    assert math.isclose(at.compute_s, at.flops / tr.H100.peak_flops)
-    want = 2 * 24 * 4.0 * (NS_SMEM_MAX_R + 1) ** 3 / tp.WIDE_ROUND_NS_FLOPS_S
-    assert math.isclose(past.compute_s, want)
-    assert past.compute_s > 10 * past.flops / tr.H100.peak_flops
-    small = tp.plan_aggregation(m=8, d=8192, r=128, n_iter=2, device_kind="h100",
-                                context="stacked")
-    wide = tp.plan_aggregation(m=8, d=8192, r=256, n_iter=2, device_kind="h100",
+
+@pytest.mark.parametrize("r", [NS_SMEM_MAX_R, NS_SMEM_MAX_R + 1, 192, 256])
+def test_rule_fused_rounds_priced_at_peak_on_both_sides_of_shared_memory(r):
+    """Named port rule 3: past NS_SMEM_MAX_R B5/B6 run the same forms as
+    below it (the grouped Newton-Schulz form, the iterate streamed from
+    L2, and the CholeskyQR factor on the whole grid), so the h100 model
+    prices the fused cells as it does up to NS_SMEM_MAX_R: compute at the
+    card's peak; the stacked plan at the paper-pca width is B5's cell.
+    The CPU model keeps the reference's pricing (the kernels do not run)."""
+    [c] = tp.score_cells(m=8, d=8192, r=r, n_iter=2, device_kind="h100",
+                         context="stacked", backend="cuda",
+                         polar="newton-schulz", orth="cholesky-qr2")
+    assert c.feasible and math.isclose(c.compute_s, c.flops / tr.H100.peak_flops)
+    pick = tp.plan_aggregation(m=8, d=8192, r=r, n_iter=2, device_kind="h100",
                                context="stacked")
-    assert (small.backend, small.polar, small.orth) == ("cuda", "newton-schulz", "cholesky-qr2")
-    assert not (wide.backend == "cuda" and wide.orth == "cholesky-qr2"
-                and wide.polar == "newton-schulz")
-    # The CPU model keeps the reference's pricing (the kernels do not run).
-    [cpu] = tp.score_cells(m=8, d=8192, r=256, n_iter=2, device_kind="cpu",
+    assert (pick.backend, pick.polar, pick.orth) == ("cuda", "newton-schulz", "cholesky-qr2")
+    [cpu] = tp.score_cells(m=8, d=8192, r=r, n_iter=2, device_kind="cpu",
                            context="stacked", backend="cuda", polar="newton-schulz",
                            orth="cholesky-qr2")
     assert math.isclose(cpu.compute_s, cpu.flops / tr.CPU_HOST.peak_flops

@@ -1,11 +1,14 @@
 """Port parity past the widths the first CUDA kernels took, on the CPU.
 
-* r = 200, past the 136 at which the Newton-Schulz and Cholesky tiles of
-  B3, B5, B6 and B7 leave shared memory for a global workspace on the
-  card: the port's plain ``batched_gram_polar``, ``fused_round`` and
-  ``fused_ring_round`` against the reference's Pallas kernels in
-  interpret mode, at <= 1e-5 f64 subspace distance and <= 1e-4 max abs
-  (the bars of the round tests).
+* r = 200, past the 136 at which the grouped Newton-Schulz form of B3,
+  B5, B6 and B7 streams its iterate from L2 on the card and the round
+  kernels' CholeskyQR factor runs on the whole grid: the port's plain
+  ``batched_gram_polar``, ``fused_round`` and ``fused_ring_round``
+  against the reference's Pallas kernels in interpret mode, at <= 1e-5
+  f64 subspace distance and <= 1e-4 max abs (the bars of the round
+  tests); ``fused_round`` also on a rank-deficient stack (every basis's
+  last column zero), where both CholeskyQR passes take the shifted
+  factor.
 * head_dim 256 (recurrentgemma's local attention, B8's 64-key-tile form
   on the card): the plain flash attention against the reference's kernel
   in interpret mode, GQA, causal with and without a window, s != t both
@@ -69,6 +72,15 @@ def test_fused_rounds_past_shared_memory_width(kind):
     got = getattr(tpa, kind)(tvs, tvs[0])
     assert getattr(tpa, kind).launches == before  # CPU: the plain version
     _hold(got, getattr(jpa, kind)(jvs, jvs[0], interpret=True))
+
+
+def test_fused_round_takes_the_shift_past_shared_memory_width():
+    vs = _stack(3)
+    vs[:, :, -1] = 0  # V-bar of rank r - 1: a zero pivot in both passes
+    jvs, tvs = _both(vs)
+    got = tpa.fused_round(tvs, tvs[0])
+    _hold(got, jpa.fused_round(jvs, jvs[0], interpret=True))
+    assert got[:, -1].abs().max().item() == 0.0
 
 
 @pytest.mark.parametrize("window", [None, 16])

@@ -18,10 +18,13 @@ Prints one JSON object (and writes it to ``--out`` if given):
   rounds, for every cell of {torch, cuda} x {svd, newton-schulz} x {qr,
   cholesky-qr2} at r = 128 and 256 (``time_cells``: CUDA events, one
   warm-up call, median of 5);
-* ``wide_round_flops_per_machine``: the rate at which B5 (the cuda,
-  newton-schulz, cholesky-qr2 cell) runs its Newton-Schulz steps past
-  ``NS_SMEM_MAX_R``, one block a machine: 24 steps of 4 r^3 FLOP a
-  machine over the cell's time a round, at r = 192 and 256.
+* ``wide_round``: B5 (the cuda, newton-schulz, cholesky-qr2 cell's
+  kernel) past ``NS_SMEM_MAX_R``, 2 rounds on the same stacks at r = 192
+  and 256: its ms (CUDA events, median of 5), the FLOP/s of the round's
+  work (the Grams, applies and Newton-Schulz steps the smoke's bound
+  counts) and the forms it ran.  The planner prices these cells at the
+  card's peak, as it does up to ``NS_SMEM_MAX_R``; this is what that
+  pricing is checked against.
 
 Needs a CUDA card; TF32 stays off (``interop.strict_fp32``).
 """
@@ -110,6 +113,7 @@ def measure(torch) -> dict:
     from repro_torch.interop import strict_fp32
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import _build
+    from repro_torch.kernels import procrustes_align as pa
 
     strict_fp32()
     _build.build()
@@ -137,8 +141,10 @@ def measure(torch) -> dict:
         vs = stack(torch, M, D, r)
         ms = event_ms(torch, lambda: kops.fused_round(vs, vs[0].contiguous(),
                                                       n_iter=N_ITER, use_kernel=True))
-        wide[r] = {"ms": ms, "flops_per_machine_per_s":
-                   24 * 4.0 * r ** 3 / (ms / N_ITER * 1e-3)}
+        flops = 4.0 * M * D * r * r + 8.0 * D * r * r + 24 * M * 4.0 * r ** 3
+        wide[r] = {"ms": ms, "flops_per_s": N_ITER * flops / (ms * 1e-3),
+                   "newton_schulz_form": pa.fused_round.last_form,
+                   "factor_form": pa.fused_round.last_factor}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]

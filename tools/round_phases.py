@@ -13,9 +13,10 @@ leave stamps its end.  The library the port builds has no stamps.  The
 checkout's own wrappers then drive the stamped library:
 
 * B5 on an f32 stack and B6 on the f32, bf16 and int8 wire stacks at
-  (m, d, r) = (8, 8192, 128) and the default ring chunk: every phase's
-  mean time (from one stamp to the next) over ``REPS`` launches after a
-  warm-up, their sum, and the launch's time by CUDA events;
+  (m, d, r) = (8, 8192, r) for r in ``ROUND_RS`` and the default ring
+  chunk: every phase's mean time (from one stamp to the next) over
+  ``REPS`` launches after a warm-up, their sum, and the launch's time by
+  CUDA events;
 * B3 at (8, 8192, 128), 192 and 256: its launch by CUDA events, its
   Newton-Schulz pass (entry to the last block's end, by the stamps) and
   B2 alone (its first pass) by CUDA events;
@@ -29,6 +30,8 @@ checkout's own wrappers then drive the stamped library:
   launches a one-block kernel that spins on the word instead (the spin
   form, which exists only here), in turns: stream, spin, spin, stream.
 
+``--parts`` picks what runs (``rounds,b3,b7``, the default, all three),
+``--rs`` the rounds' r (default 128,192,256).
 Needs a Hopper card and ``nvcc``.  Run it on two checkouts in one call to
 compare them (``build/parent/src`` and ``src``).
 """
@@ -54,7 +57,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import procrustes_align as pa
 
 M, D, R, REPS = 8, 8192, 128, 20
-B3_RS = (128, 192, 256)
+ROUND_RS = B3_RS = (128, 192, 256)
 WORLD, B7_REPS = 8, 10
 MAX_STAMPS = 128
 # The stamped kernels of each source (a name missing from a checkout is
@@ -66,7 +69,10 @@ KERNELS = {
 }
 SYNCED = ("fused_round.cu", "fused_ring_remote.cu", "round_tiles.cuh")
 # B5/B6's phases between stamps, by how many there are: the one-block
-# Newton-Schulz design (9) and the grouped one (11).
+# Newton-Schulz design (9) and the grouped one with block 0's factor
+# sweep (11).  The factor spread over the grid (past r = 136)
+# has a phase of its own for its first diagonal tile and one a panel of
+# PANEL columns in each pass (round_labels).
 LABELS = {
     9: ("Gram partials", "Newton-Schulz", "V-bar", "S1 partials",
         "W1 (block 0: S1 sum, Cholesky, inverse)", "Q1", "S2 partials",
@@ -75,7 +81,8 @@ LABELS = {
          "W1 (block 0: Cholesky, inverse)", "Q1", "S2 partials", "S2 sum",
          "W2 (block 0)", "Q"),
 }
-TAIL_SYNCS = 7  # grid barriers of round_tiles.cuh's cholqr2_tail
+PANEL = 32
+TAIL_SYNCS = 7  # grid barriers of round_tiles.cuh's cholqr2_tail at r <= 136 (B7 runs at R)
 PRELUDE = f"""// round_phases.py: phase stamps (not part of the library).
 #include <cuda_runtime.h>
 static __device__ unsigned long long rt_stamps[{MAX_STAMPS}];
@@ -274,8 +281,29 @@ def noisy_stack(m, d, r, dev, seed=0):
     return torch.linalg.qr(base[None] + noise)[0].contiguous()
 
 
-def rounds_b5_b6(lib, dev) -> None:
-    vs = noisy_stack(M, D, R, dev)
+def round_labels(n: int, r: int) -> tuple:
+    """Names of B5/B6's n phases at edge r (``LABELS``, or the grid factor's
+    phases: W's first diagonal tile, then one a panel, in each pass; a
+    count that fits neither is numbered)."""
+    if n in LABELS:
+        return LABELS[n]
+    panels = -(-r // PANEL)
+    if n == 9 + 2 * (panels + 1):
+        def factor(w):
+            return (f"{w} tile 0 (block 0)",
+                    *(f"{w} panel {k}" for k in range(panels)))
+        return ("Gram partials", "Newton-Schulz", "V-bar", "S1 partials", "S1 sum",
+                *factor("W1"), "Q1", "S2 partials", "S2 sum", *factor("W2"), "Q")
+    return tuple(f"phase {k + 1}" for k in range(n))
+
+
+def rounds_b5_b6(lib, dev, rs=ROUND_RS) -> None:
+    for r in rs:
+        rounds_at(lib, dev, r)
+
+
+def rounds_at(lib, dev, r) -> None:
+    vs = noisy_stack(M, D, r, dev)
     rf = vs[0].contiguous()
     scales = (vs.abs().amax(dim=1) / 127.0).contiguous()
     q8 = torch.clamp(torch.round(vs / scales[:, None, :]), -127, 127).to(torch.int8)
@@ -289,9 +317,9 @@ def rounds_b5_b6(lib, dev) -> None:
     }
     for name, (wrapper, launch) in cases.items():
         mean, total, ms = phases(lib, launch)
-        labels = LABELS.get(len(mean), tuple(f"phase {k + 1}" for k in range(len(mean))))
+        labels = round_labels(len(mean), r)
         form = getattr(wrapper, "last_form", None)
-        print(f"[phases] {name} at ({M}, {D}, {R}): grid {wrapper.grid}"
+        print(f"[phases] {name} at ({M}, {D}, {r}): grid {wrapper.grid}"
               f"{'' if form is None else f', Newton-Schulz {form}'}")
         for k, (label, t) in enumerate(zip(labels, mean)):
             print(f"[phases]   {k + 1:>2} {label:<42} {t:.4f} ms")
@@ -452,7 +480,12 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--libs", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parts", default="rounds,b3,b7",
+                    help="comma-separated parts to run: rounds, b3, b7")
+    ap.add_argument("--rs", default=",".join(map(str, ROUND_RS)),
+                    help="comma-separated r of the B5/B6 rounds")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.rank is not None:
         return rank_worker(args.rank, args.init, args.libs.split(","), args.out)
@@ -470,9 +503,12 @@ def main(argv=None) -> int:
         print(f"[build] stamped libraries in {time.perf_counter() - t0:.1f} s")
         lib = load(lib_path)
         _build.load = lambda: lib  # the wrappers look the library up at each call
-        rounds_b5_b6(lib, dev)
-        newton_schulz_b3(lib, dev)
-        remote_b7(lib_path, spin_path)
+        if "rounds" in parts:
+            rounds_b5_b6(lib, dev, [int(r) for r in args.rs.split(",")])
+        if "b3" in parts:
+            newton_schulz_b3(lib, dev)
+        if "b7" in parts:
+            remote_b7(lib_path, spin_path)
     return 0
 
 
